@@ -1,0 +1,115 @@
+"""Builds the port's CUDA kernels and binds them with ctypes.
+
+`lemo_tpu_torch/csrc/*.cu` are compiled on first use with `nvcc` for
+`sm_90a` (one object per source, all compiled in parallel) and linked
+into one shared library with a plain C interface. The library lands in
+`lemo_tpu_torch/_build/` (git-ignored) under a name keyed by the hash of
+the sources and flags, so a changed source rebuilds and an unchanged one
+loads at once. Nothing here runs at import time: the CPU-only tests
+import every module, and only a CUDA tensor reaches `load_library`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from functools import lru_cache
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCES = ("chain.cu", "vertex.cu")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry point -> argument types; every entry point returns an int: the
+# launches return their cudaGetLastError(), `lemo_vertex_bwd_tiles` the
+# scratch size the kernel's own tile constant gives
+SIGNATURES = {
+    "lemo_chain_fwd": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "lemo_chain_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "lemo_vertex_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "lemo_vertex_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _P],
+    "lemo_vertex_bwd_tiles": [_I],
+}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels cannot be built")
+
+
+def _lib_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        with open(os.path.join(CSRC, name), "rb") as fh:
+            h.update(name.encode() + fh.read())
+    return os.path.join(BUILD_DIR, f"liblemo_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build_library(verbose: bool = False) -> tuple[str, float]:
+    """Compile (if needed) and return (path of the .so, seconds spent
+    building; 0.0 when it was already built). `verbose` adds ptxas's
+    register/shared-memory report to the printed compiler output."""
+    path = _lib_path()
+    if os.path.exists(path):
+        return path, 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    extra = ["-Xptxas=-v"] if verbose else []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs, objs = [], []
+        for name in SOURCES:
+            obj = os.path.join(tmp, name + ".o")
+            objs.append(obj)
+            procs.append((name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *extra, "-c", os.path.join(CSRC, name),
+                 "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for name, proc in procs:
+            out, _ = proc.communicate()
+            if verbose or proc.returncode:
+                print(f"[nvcc {name}]\n{out}", flush=True)
+            if proc.returncode:
+                failed.append(name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}")
+        so_tmp = os.path.join(tmp, "lib.so")
+        subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", so_tmp],
+                       check=True)
+        os.replace(so_tmp, path)
+    return path, time.perf_counter() - t0
+
+
+@lru_cache(maxsize=1)
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use."""
+    path, _ = build_library()
+    lib = ctypes.CDLL(path)
+    for fn, argtypes in SIGNATURES.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.lemo_error_string.argtypes = [ctypes.c_int]
+    lib.lemo_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launch reported a CUDA error."""
+    if rc != 0:
+        msg = lib.lemo_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

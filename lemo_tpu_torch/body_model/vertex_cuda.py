@@ -1,0 +1,191 @@
+"""The fused SMPL-X vertex path: the CUDA kernel pair and its plain twins.
+
+Port of `lemo_tpu/body_model/vertex_pallas.py`. Per vertex tile, with
+`cat` = [shape comps | plane-ordered pose feature | 1] (D = S+9(J-1)+1):
+
+    vs[n]  = dirs[n] @ cat                 # shape + pose blend + template
+    T      = W @ A2                        # skinning blend, 12 planes
+    out[m] = sum_n T[3m+n] * vs[n] + T[9+m]
+
+The backward recomputes T and vs and returns (dcat, dA2); dirs and W are
+model constants and get no cotangent. The kernels (`csrc/vertex.cu`)
+never write vs or T to device memory.
+
+Dispatch: a CPU tensor goes to the plain twin; any other tensor goes to
+the kernel, which checks that it is on CUDA and raises otherwise.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from lemo_tpu_torch import _build
+
+LANE = 128     # frame padding of the plane layout (the TPU's lane width)
+TILE_V = 256   # vertex padding of the fused constants (bit-equal to JAX)
+
+# launches of each kernel, counted where the wrapper launches it
+launches = {"vertex_fwd": 0, "vertex_bwd": 0}
+
+
+def pad_to(x: int, mult: int) -> int:
+    return ((x + mult - 1) // mult) * mult
+
+
+def build_fused_consts(shape_expr_f64: np.ndarray,
+                       posedirs_f64: np.ndarray,
+                       v_template_f64: np.ndarray,
+                       lbs_weights: np.ndarray,
+                       J_regressor_f64: np.ndarray) -> dict[str, np.ndarray]:
+    """The kernels' constant operands, built at model-load time (numpy,
+    bit-identical to `lemo_tpu`'s `build_fused_consts`):
+
+    - `fused_dirs` [3, Vp, D], the pose block permuted to plane order
+      r = k*(J-1) + (j-1) (k = 3m+n);
+    - `lbs_w_pad` [Vp, Jp];
+    - `j_ext` [3*J, S+1]: the J_regressor pre-applied (at f64) to the
+      shape dirs plus a template column.
+    """
+    V, _, S = shape_expr_f64.shape
+    P = posedirs_f64.shape[2]
+    J = lbs_weights.shape[1]
+    D = S + P + 1
+    Vp = pad_to(V, TILE_V)
+    Jp = pad_to(J, 8)
+    dirs = np.zeros((3, Vp, D), np.float32)
+    r = np.arange(P)
+    perm = (r % (J - 1)) * 9 + (r // (J - 1))
+    for n in range(3):
+        dirs[n, :V, :S] = shape_expr_f64[:, n, :]
+        dirs[n, :V, S:S + P] = posedirs_f64[:, n, perm]
+        dirs[n, :V, D - 1] = v_template_f64[:, n]
+    w_pad = np.zeros((Vp, Jp), np.float32)
+    w_pad[:V, :J] = lbs_weights
+    jd = np.einsum("jv,vns->njs", J_regressor_f64, shape_expr_f64)
+    jt = (J_regressor_f64 @ v_template_f64).T[..., None]   # [3, J, 1]
+    j_ext = np.concatenate([jd, jt], axis=-1).reshape(3 * J, S + 1)
+    return {"fused_dirs": dirs, "lbs_w_pad": w_pad,
+            "j_ext": j_ext.astype(np.float32)}
+
+
+def _check(name, t, shape):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous float32")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
+
+
+def _check_operands(catT, A2, dirs, w):
+    """Device, dtype and mutual shapes; the tile divisibility the kernels
+    need is checked once, in C (`shapes_ok` in csrc/vertex.cu)."""
+    D, Bp = catT.shape
+    Jp = A2.shape[1]
+    Vp = dirs.shape[1]
+    _check("catT", catT, (D, Bp))
+    _check("A2", A2, (12, Jp, Bp))
+    _check("dirs", dirs, (3, Vp, D))
+    _check("w", w, (Vp, Jp))
+    return D, Jp, Vp, Bp
+
+
+def vertex_fwd_kernel(catT, A2, dirs, w):
+    """Kernel 3: catT [D, Bp], A2 [12, Jp, Bp], dirs [3, Vp, D],
+    w [Vp, Jp] -> vertex planes [3, Vp, Bp]."""
+    D, Jp, Vp, Bp = _check_operands(catT, A2, dirs, w)
+    lib = _build.load_library()
+    out = torch.empty((3, Vp, Bp), dtype=torch.float32, device=catT.device)
+    rc = lib.lemo_vertex_fwd(
+        catT.data_ptr(), A2.data_ptr(), dirs.data_ptr(), w.data_ptr(),
+        out.data_ptr(), D, Jp, Vp, Bp,
+        torch.cuda.current_stream(catT.device).cuda_stream)
+    _build.check(lib, rc, f"lemo_vertex_fwd (D={D} Jp={Jp} Vp={Vp} Bp={Bp})")
+    launches["vertex_fwd"] += 1
+    return out
+
+
+def vertex_bwd_kernel(catT, A2, dirs, w, dout):
+    """Kernel 4: -> (dcat [D, Bp], dA2 [12, Jp, Bp]). Per-V-tile partial
+    sums go to scratch [tiles, ...] and a second pass in the same C call
+    sums them in a fixed order (deterministic, no atomics)."""
+    D, Jp, Vp, Bp = _check_operands(catT, A2, dirs, w)
+    _check("dout", dout, (3, Vp, Bp))
+    lib = _build.load_library()
+    dev = catT.device
+    tiles = lib.lemo_vertex_bwd_tiles(Vp)
+    if tiles <= 0:
+        raise ValueError(f"vertex kernel: Vp={Vp} is not a whole number of "
+                         "the kernel's vertex tiles")
+    dcat = torch.empty((D, Bp), dtype=torch.float32, device=dev)
+    da2 = torch.empty((12, Jp, Bp), dtype=torch.float32, device=dev)
+    part_dcat = torch.empty((tiles, D, Bp), dtype=torch.float32, device=dev)
+    part_da2 = torch.empty((tiles, 12, Jp, Bp), dtype=torch.float32,
+                           device=dev)
+    rc = lib.lemo_vertex_bwd(
+        catT.data_ptr(), A2.data_ptr(), dirs.data_ptr(), w.data_ptr(),
+        dout.data_ptr(), dcat.data_ptr(), da2.data_ptr(),
+        part_dcat.data_ptr(), part_da2.data_ptr(), D, Jp, Vp, Bp,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, f"lemo_vertex_bwd (D={D} Jp={Jp} Vp={Vp} Bp={Bp})")
+    launches["vertex_bwd"] += 1
+    return dcat, da2
+
+
+def _skin_blend(A2, w):
+    """T [12, Vp, Bp] = W @ A2 per plane."""
+    return torch.einsum("vj,kjb->kvb", w, A2)
+
+
+def vertex_plain_fwd(catT, A2, dirs, w):
+    """Plain twin of kernel 3 (the same arithmetic in PyTorch ops)."""
+    vs = torch.matmul(dirs, catT)                     # [3, Vp, Bp]
+    T = _skin_blend(A2, w)
+    return torch.stack([
+        T[9 + m] + T[3 * m] * vs[0] + T[3 * m + 1] * vs[1]
+        + T[3 * m + 2] * vs[2] for m in range(3)])
+
+
+def vertex_plain_bwd(catT, A2, dirs, w, dout):
+    """Plain twin of kernel 4 -> (dcat [D, Bp], dA2 [12, Jp, Bp])."""
+    vs = torch.matmul(dirs, catT)
+    T = _skin_blend(A2, w)
+    dT = torch.stack([dout[k // 3] * vs[k % 3] for k in range(9)]
+                     + [dout[m] for m in range(3)])  # [12, Vp, Bp]
+    da2 = torch.einsum("vj,kvb->kjb", w, dT)
+    dvs = torch.stack([T[n] * dout[0] + T[3 + n] * dout[1]
+                       + T[6 + n] * dout[2] for n in range(3)])
+    dcat = torch.einsum("nvd,nvb->db", dirs, dvs)
+    return dcat, da2
+
+
+class _VertexCore(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, catT, A2, dirs, w):
+        cpu = catT.device.type == "cpu"
+        out = (vertex_plain_fwd if cpu else vertex_fwd_kernel)(
+            catT, A2, dirs, w)
+        ctx.save_for_backward(catT, A2, dirs, w)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        catT, A2, dirs, w = ctx.saved_tensors
+        cpu = catT.device.type == "cpu"
+        dcat, da2 = (vertex_plain_bwd if cpu else vertex_bwd_kernel)(
+            catT, A2, dirs, w, dout.contiguous())
+        # dirs / w are frozen model constants: no cotangent by contract
+        return dcat, da2, None, None
+
+
+def fused_lbs_vertices_planes(catT: torch.Tensor, A_planes: torch.Tensor,
+                              fused_dirs: torch.Tensor,
+                              lbs_w_pad: torch.Tensor) -> torch.Tensor:
+    """catT [D, Bp], bone-affine planes [12, Jp, Bp] -> vertex planes
+    [3, Vp, Bp], differentiable in catT and A_planes."""
+    if catT.shape[0] != fused_dirs.shape[2]:
+        raise ValueError(f"catT rows {catT.shape[0]} != dirs depth "
+                         f"{fused_dirs.shape[2]}")
+    return _VertexCore.apply(catT.contiguous(), A_planes.contiguous(),
+                             fused_dirs, lbs_w_pad)

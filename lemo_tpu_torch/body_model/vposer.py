@@ -1,0 +1,68 @@
+"""VPoser decoder (port of `lemo_tpu/body_model/vposer.py`; the fitters
+only call `decode(z, 'aa')`). Parameters are a flat dict with torch
+`state_dict` keys (`bodyprior_dec_fc1.weight` ...)."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from lemo_tpu_torch.ops.rotations import matrot_to_aa, rot6d_to_matrot
+
+NUM_JOINTS = 21
+LATENT_DIM = 32
+NUM_NEURONS = 512
+
+
+def _linear(p, name, x):
+    return F.linear(x, p[f"{name}.weight"], p[f"{name}.bias"])
+
+
+def _lrelu(x):
+    return torch.where(x >= 0, x, 0.2 * x)
+
+
+def decode(params, z, output_type: str = "aa"):
+    """z [B, 32] -> body pose: 'aa' [B, 63] axis-angle, 'matrot'
+    [B, 1, 21, 9]."""
+    h = _lrelu(_linear(params, "bodyprior_dec_fc1", z))
+    h = _lrelu(_linear(params, "bodyprior_dec_fc2", h))
+    h = _linear(params, "bodyprior_dec_out", h)  # [B, 21*6]
+    R = rot6d_to_matrot(h.reshape(-1, 6))  # [B*21, 3, 3]
+    if output_type == "matrot":
+        return R.reshape(z.shape[0], 1, NUM_JOINTS, 9)
+    aa = matrot_to_aa(R)  # [B*21, 3]
+    return aa.reshape(z.shape[0], NUM_JOINTS * 3)
+
+
+def init_vposer(gen: torch.Generator, num_joints: int = NUM_JOINTS,
+                latent: int = LATENT_DIM, neurons: int = NUM_NEURONS,
+                device="cpu") -> dict:
+    """Fresh torch-layout VPoser parameters (torch Linear default init)
+    drawn from `gen` (a CPU generator), placed on `device`."""
+    n_features = num_joints * 9
+    params = {}
+
+    def lin(name, fan_in, fan_out):
+        bound = 1.0 / math.sqrt(fan_in)
+        w = (torch.rand((fan_out, fan_in), generator=gen) * 2 - 1) * bound
+        b = (torch.rand((fan_out,), generator=gen) * 2 - 1) * bound
+        params[f"{name}.weight"] = w.to(device)
+        params[f"{name}.bias"] = b.to(device)
+
+    lin("bodyprior_enc_fc1", n_features, neurons)
+    lin("bodyprior_enc_fc2", neurons, neurons)
+    lin("bodyprior_enc_mu", neurons, latent)
+    lin("bodyprior_enc_logvar", neurons, latent)
+    lin("bodyprior_dec_fc1", latent, neurons)
+    lin("bodyprior_dec_fc2", neurons, neurons)
+    lin("bodyprior_dec_out", neurons, num_joints * 6)
+    for bn, dim in (("bodyprior_enc_bn1", n_features),
+                    ("bodyprior_enc_bn2", neurons)):
+        params[f"{bn}.weight"] = torch.ones(dim, device=device)
+        params[f"{bn}.bias"] = torch.zeros(dim, device=device)
+        params[f"{bn}.running_mean"] = torch.zeros(dim, device=device)
+        params[f"{bn}.running_var"] = torch.ones(dim, device=device)
+    return params

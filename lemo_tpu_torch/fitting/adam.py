@@ -1,0 +1,68 @@
+"""The fitting engine: Adam over a dict of tensors (port of
+`lemo_tpu/fitting/adam.py`).
+
+`lemo_tpu` runs the whole fit as one `lax.scan`; here it is a Python
+loop of eager steps with no host synchronisation inside it: the
+learning rate and bias corrections are host floats, the NaN/Inf freeze
+is a device-side `torch.where`, and the per-step losses are written into
+a device tensor.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+
+def piecewise_lr(boundaries_values: list[tuple[int, float]],
+                 num_steps: int) -> list[float]:
+    """Per-step learning rates from [(start_step, lr), ...] segments."""
+    lrs = [0.0] * num_steps
+    for start, lr in boundaries_values:
+        for i in range(max(start, 0), num_steps):
+            lrs[i] = lr
+    return lrs
+
+
+def run_adam(loss_fn: Callable[[dict], torch.Tensor],
+             init_params: dict[str, torch.Tensor],
+             num_steps: int,
+             lr_table: list[float],
+             b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+    """`num_steps` of Adam (optax's update: bias-corrected moments,
+    `m_hat / (sqrt(v_hat) + eps)`) on a dict of tensors.
+
+    Returns (final params, per-step losses [num_steps]). A NaN/Inf loss
+    freezes the parameters and moments from that step on (the
+    reference's early stop), decided on the device.
+    """
+    params = {k: v.detach().clone() for k, v in init_params.items()}
+    mu = {k: torch.zeros_like(v) for k, v in params.items()}
+    nu = {k: torch.zeros_like(v) for k, v in params.items()}
+    dev = next(iter(params.values())).device
+    dead = torch.zeros((), dtype=torch.bool, device=dev)
+    losses = torch.empty(num_steps, dtype=torch.float32, device=dev)
+    keys = list(params)
+    for i in range(num_steps):
+        leaves = [params[k].requires_grad_(True) for k in keys]
+        loss = loss_fn(params)
+        grads = torch.autograd.grad(loss, leaves)
+        losses[i] = loss.detach()
+        dead = dead | ~torch.isfinite(loss.detach())
+        # bias corrections in f32, as optax computes them (1 - 0.999**t
+        # differs from its f64 value by ~1e-5 relative at t=1)
+        t = np.float32(i + 1)
+        bc1 = float(np.float32(1) - np.float32(b1) ** t)
+        bc2 = float(np.float32(1) - np.float32(b2) ** t)
+        with torch.no_grad():
+            for k, g in zip(keys, grads):
+                p = params[k].detach()
+                m = (1.0 - b1) * g + b1 * mu[k]
+                v = (1.0 - b2) * (g * g) + b2 * nu[k]
+                upd = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+                params[k] = torch.where(dead, p, p + (-lr_table[i]) * upd)
+                mu[k] = torch.where(dead, mu[k], m)
+                nu[k] = torch.where(dead, nu[k], v)
+    return {k: v.detach() for k, v in params.items()}, losses

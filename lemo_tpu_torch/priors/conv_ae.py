@@ -1,0 +1,99 @@
+"""Convolutional motion priors over torch-layout parameter dicts (port of
+`lemo_tpu/priors/conv_ae.py`; this slice needs the smoothness encoder).
+
+Parameters are a flat dict keyed by the torch `state_dict` names
+(`enc_blc1.main.0.weight` ...), Conv2d weights [O, I, kH, kW]. The
+convolutions are `torch.nn.functional.conv2d`, as `lemo_tpu` leaves them
+to XLA; callers that need exact f32 turn cuDNN's TF32 off
+(`lemo_tpu_torch.exact_f32_matmuls`).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def conv2d(x, w, b, stride=(1, 1), padding=(1, 1)):
+    """x [N, C, H, W], w [O, I, kH, kW]."""
+    return F.conv2d(x, w, b, stride=stride, padding=padding)
+
+
+def leaky_relu(x, slope=0.2):
+    return torch.where(x >= 0, x, slope * x)
+
+
+def _enc_block(p, prefix, x, *, kernel, pool, pool_stride):
+    pad = kernel // 2
+    x = leaky_relu(conv2d(x, p[f"{prefix}.main.0.weight"],
+                          p[f"{prefix}.main.0.bias"], (1, 1), (pad, pad)))
+    x = leaky_relu(conv2d(x, p[f"{prefix}.main.2.weight"],
+                          p[f"{prefix}.main.2.bias"], (1, 1), (pad, pad)))
+    if pool:
+        x = F.max_pool2d(x, (3, 3), pool_stride, (1, 1))
+    return x
+
+
+def smooth_enc_forward(params, x, *, downsample=False):
+    """Enc.forward (models/AE_sep.py:91-99): returns (z, sizes tuple).
+    With downsample=False (the shipped LEMO configuration) z keeps the
+    input's spatial extent."""
+    sizes = [tuple(x.shape[2:])]
+    h = x
+    for i in range(1, 6):
+        h = _enc_block(params, f"enc_blc{i}", h, kernel=3,
+                       pool=downsample, pool_stride=(2, 2))
+        sizes.append(tuple(h.shape[2:]))
+    return h, tuple(sizes)
+
+
+def _init_conv(gen, o, i, k, device):
+    """torch Conv2d default init: kaiming_uniform(a=sqrt(5)) weight,
+    uniform(+-1/sqrt(fan_in)) bias."""
+    fan_in = i * k * k
+    bound_w = math.sqrt(2.0 / (1 + 5.0)) * math.sqrt(3.0 / fan_in)
+    bound_b = 1.0 / math.sqrt(fan_in)
+    w = (torch.rand((o, i, k, k), generator=gen) * 2 - 1) * bound_w
+    b = (torch.rand((o,), generator=gen) * 2 - 1) * bound_b
+    return w.to(device), b.to(device)
+
+
+def _enc_channels(z_channel):
+    if z_channel == 256:
+        c2, c3 = 128, 256
+    elif z_channel == 64:
+        c2, c3 = 64, 64
+    else:
+        raise ValueError(z_channel)
+    return [32, 64, c2, c3, c3]
+
+
+def init_smooth_enc(gen: torch.Generator, z_channel=64, device="cpu"):
+    """Fresh smoothness-encoder parameters drawn from `gen` (a CPU
+    generator), placed on `device`."""
+    chans = [1] + _enc_channels(z_channel)
+    params = {}
+    for i in range(1, 6):
+        w, b = _init_conv(gen, chans[i], chans[i - 1], 3, device)
+        params[f"enc_blc{i}.main.0.weight"], params[f"enc_blc{i}.main.0.bias"] = w, b
+        w, b = _init_conv(gen, chans[i], chans[i], 3, device)
+        params[f"enc_blc{i}.main.2.weight"], params[f"enc_blc{i}.main.2.bias"] = w, b
+    return params
+
+
+def load_torch_state_dict(path: str, device) -> dict[str, torch.Tensor]:
+    """A torch `state_dict` checkpoint (e.g. the shipped smoothness prior
+    `runs/15217/Enc_last_model.pkl`) as the flat param dict, layout 1:1."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    return {k: v.to(device=device, dtype=torch.float32)
+            for k, v in sd.items() if isinstance(v, torch.Tensor)}
+
+
+def load_state_dict_npz(path: str, device) -> dict[str, torch.Tensor]:
+    with np.load(path) as z:
+        return {k: torch.as_tensor(z[k], device=device) for k in z.files}

@@ -1,0 +1,130 @@
+"""Fused vertex path: the port's constants and plain twins (the CPU side
+of lemo_tpu_torch.body_model.vertex_cuda) vs lemo_tpu's vertex_pallas
+(interpret mode), on the same numpy inputs."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lemo_tpu.body_model import vertex_pallas as JV
+from lemo_tpu.testing.synthetic import synthetic_smplx_npz
+from lemo_tpu_torch.body_model import vertex_cuda as TV
+
+torch.set_num_threads(2)
+
+
+def _const_inputs():
+    md = synthetic_smplx_npz()
+    V = md["v_template"].shape[0]
+    shape_expr = np.concatenate([md["shapedirs"][:, :, :10],
+                                 md["shapedirs"][:, :, 10:20]], axis=-1)
+    return (shape_expr, np.asarray(md["posedirs"], np.float64),
+            np.asarray(md["v_template"], np.float64),
+            np.asarray(md["weights"], np.float32),
+            np.asarray(md["J_regressor"], np.float64), V)
+
+
+@pytest.fixture(scope="module")
+def consts():
+    *args, _ = _const_inputs()
+    return JV.build_fused_consts(*args)
+
+
+def test_build_fused_consts_bit_equal():
+    *args, _ = _const_inputs()
+    ref = JV.build_fused_consts(*args)
+    out = TV.build_fused_consts(*args)
+    assert ref.keys() == out.keys()
+    for k in ref:
+        assert out[k].dtype == ref[k].dtype and out[k].shape == ref[k].shape
+        assert np.array_equal(out[k], ref[k]), k
+
+
+def _operands(consts, B, seed):
+    rng = np.random.RandomState(seed)
+    D = consts["fused_dirs"].shape[2]
+    Jp = consts["lbs_w_pad"].shape[1]
+    Bp = 128
+    catT = np.zeros((D, Bp), np.float32)
+    catT[:, :B] = rng.randn(D, B) * 0.3
+    catT[-1, :B] = 1.0
+    A2 = np.zeros((12, Jp, Bp), np.float32)
+    A2[:, :, :B] = rng.randn(12, Jp, B) * 0.5
+    dout = rng.randn(3, consts["fused_dirs"].shape[1], Bp).astype(np.float32)
+    return catT, A2, dout
+
+
+@pytest.mark.parametrize("B", [1, 5])
+def test_plain_forward_matches_pallas(consts, B):
+    catT, A2, _ = _operands(consts, B, seed=B)
+    ref = JV.fused_lbs_vertices_planes(
+        jnp.asarray(catT), jnp.asarray(A2),
+        jnp.asarray(consts["fused_dirs"]), jnp.asarray(consts["lbs_w_pad"]))
+    out = TV.vertex_plain_fwd(
+        torch.as_tensor(catT), torch.as_tensor(A2),
+        torch.as_tensor(consts["fused_dirs"]),
+        torch.as_tensor(consts["lbs_w_pad"]))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-6)
+
+
+def _rel(a, b):
+    return np.abs(a - b).max() / max(np.abs(b).max(), 1e-12)
+
+
+@pytest.mark.parametrize("B", [1, 5])
+def test_plain_backward_matches_pallas_vjp(consts, B):
+    catT, A2, dout = _operands(consts, B, seed=10 + B)
+    dirs_j = jnp.asarray(consts["fused_dirs"])
+    w_j = jnp.asarray(consts["lbs_w_pad"])
+    _, vjp = jax.vjp(lambda c, a: JV._vertex_core(c, a, dirs_j, w_j),
+                     jnp.asarray(catT), jnp.asarray(A2))
+    dcat_ref, da2_ref = vjp(jnp.asarray(dout))
+    dcat, da2 = TV.vertex_plain_bwd(
+        torch.as_tensor(catT), torch.as_tensor(A2),
+        torch.as_tensor(consts["fused_dirs"]),
+        torch.as_tensor(consts["lbs_w_pad"]), torch.as_tensor(dout))
+    assert _rel(dcat.numpy(), np.asarray(dcat_ref)) < 5e-5
+    assert _rel(da2.numpy(), np.asarray(da2_ref)) < 5e-5
+
+
+def test_function_backward_is_the_plain_twin(consts):
+    """Autograd through fused_lbs_vertices_planes on the CPU equals the
+    plain backward twin, and the model constants get no gradient."""
+    catT, A2, dout = _operands(consts, 3, seed=20)
+    c = torch.as_tensor(catT).requires_grad_(True)
+    a = torch.as_tensor(A2).requires_grad_(True)
+    dirs = torch.as_tensor(consts["fused_dirs"]).requires_grad_(True)
+    w = torch.as_tensor(consts["lbs_w_pad"])
+    out = TV.fused_lbs_vertices_planes(c, a, dirs, w)
+    (out * torch.as_tensor(dout)).sum().backward()
+    dcat, da2 = TV.vertex_plain_bwd(torch.as_tensor(catT),
+                                    torch.as_tensor(A2), dirs.detach(), w,
+                                    torch.as_tensor(dout))
+    np.testing.assert_array_equal(c.grad.numpy(), dcat.numpy())
+    np.testing.assert_array_equal(a.grad.numpy(), da2.numpy())
+    assert dirs.grad is None
+
+
+def test_plain_backward_matches_autograd_of_plain_forward(consts):
+    catT, A2, dout = _operands(consts, 4, seed=30)
+    dirs = torch.as_tensor(consts["fused_dirs"])
+    w = torch.as_tensor(consts["lbs_w_pad"])
+    c = torch.as_tensor(catT).requires_grad_(True)
+    a = torch.as_tensor(A2).requires_grad_(True)
+    (TV.vertex_plain_fwd(c, a, dirs, w) * torch.as_tensor(dout)).sum(
+    ).backward()
+    dcat, da2 = TV.vertex_plain_bwd(torch.as_tensor(catT),
+                                    torch.as_tensor(A2), dirs, w,
+                                    torch.as_tensor(dout))
+    assert _rel(dcat.numpy(), c.grad.numpy()) < 1e-5
+    assert _rel(da2.numpy(), a.grad.numpy()) < 1e-5
+
+
+def test_kernel_wrappers_refuse_cpu_tensors(consts):
+    catT, A2, _ = _operands(consts, 2, seed=40)
+    with pytest.raises(ValueError, match="CUDA"):
+        TV.vertex_fwd_kernel(torch.as_tensor(catT), torch.as_tensor(A2),
+                             torch.as_tensor(consts["fused_dirs"]),
+                             torch.as_tensor(consts["lbs_w_pad"]))

@@ -7,17 +7,39 @@ Phases (any failure raises and the script exits non-zero):
 
 1. Set-up: print the card's name and power limit, the torch/CUDA
    versions, and build the CUDA kernels from `lemo_tpu_torch/csrc/`.
-2. Kernels: capture each kernel's operands from one forward/backward of
-   the full-size synthetic SMPL-X model (V=10475, J=55, D=507) at B=100,
-   then hold each kernel against its plain PyTorch twin on the same
-   operands and time both with CUDA events (median of 25).
+2. Kernels: capture each body-model kernel's operands from one
+   forward/backward of the full-size synthetic SMPL-X model (V=10475,
+   J=55, D=507) at B=100, then hold each kernel against its plain
+   PyTorch twin on the same operands and time both with CUDA events
+   (median of 25).
 3. Body model: full-size forward and backward through `make_forward_fn`
    (kernels) against the same with the plain twins, on the card.
-4. The slice: the AMASS Stage-2 temporal fit (`make_temporal_fitter`,
+4. The Stage-2 slice: the AMASS temporal fit (`make_temporal_fitter`,
    T=100, 20 Adam steps per call, the workload `bench.py:main` times)
    with random seeded VPoser/encoder weights. The fit must descend, each
    kernel must launch exactly once per step, and the final loss must
    match the same fit run through the plain twins (rel 1e-3).
+5. The Chamfer kernel against its plain version at every shape the
+   phase-6 run gave it (operands captured from that run: real warm-start
+   bodies and scans): d within 1e-6 m^2, idx equal on >= 99.99% of the
+   queries and tied within 1e-6 m^2 where not; time, bound and error.
+6. The PROX slice: a full-size synthetic PROX recording (170 frames, two
+   windows of 100 at stride 70) written by the port's writer, fitted
+   through `run_prox_fitting` with cfg_files/PROXD_temp_S3_all_terms.yaml
+   read by the port's parser (interpenetration off, 100 Adam steps per
+   window instead of 900). Checks the reference-schema pkls, every term's
+   first and last value (s2m, m2s, contact non-zero) and 3 Chamfer
+   launches per step; reports ms/step and frame-iters/s of the second
+   window. Then refits each window from the same inputs once through the
+   kernels and once through the plain versions of all five kernels, both
+   under `torch.use_deterministic_algorithms`: the first step's loss
+   terms (same inputs, so only rounding differs) must agree within rel
+   1e-4 each and 1e-5 in total, and the last step's loss within rel
+   1e-3. The last-step
+   check is the coarse one (Adam's chatter on the L1 keypoint term
+   amplifies rounding to ~1e-3 of the loss over 100 steps); phase 5 and
+   the first-step terms hold the kernels tightly.
+   Phase 6 runs before phase 5, whose operands it captures.
 
 Prints the kernels' JSON line, then as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -29,6 +51,8 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import pickle
+import shutil
 import statistics
 import subprocess
 import sys
@@ -40,6 +64,12 @@ T_FRAMES = 100
 STEPS = 20
 N_CALLS = 3
 REPS = 25
+PROX_FRAMES = 170
+PROX_STEPS = 100               # Adam steps per window (the config's 900, cut)
+ROOT = os.path.dirname(os.path.abspath(__file__))
+PROX_CFG = os.path.join(ROOT, "cfg_files", "PROXD_temp_S3_all_terms.yaml")
+PROX_DIR = os.path.join(ROOT, "lemo_tpu_torch", "_build", "prox_smoke")
+CHAMFER_OPS_PER_PAIR = 9.0     # csrc/chamfer.cu: 3 mul + 2 add, add, mul, sub, cmp
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM data sheet, f32 outside tensor cores
 
@@ -84,18 +114,23 @@ def plain_twins():
     """Route the kernels' wrappers to their plain twins (on the card)."""
     from lemo_tpu_torch.body_model import chain_cuda as cc
     from lemo_tpu_torch.body_model import vertex_cuda as vc
+    from lemo_tpu_torch.ops import chamfer as ch
+    from lemo_tpu_torch.ops import chamfer_cuda as chc
 
     saved = (cc.chain_fwd_kernel, cc.chain_bwd_kernel,
-             vc.vertex_fwd_kernel, vc.vertex_bwd_kernel)
+             vc.vertex_fwd_kernel, vc.vertex_bwd_kernel,
+             chc.nn_select_kernel)
     cc.chain_fwd_kernel = cc.chain_planes_plain_fwd
     cc.chain_bwd_kernel = cc.chain_planes_plain_bwd
     vc.vertex_fwd_kernel = vc.vertex_plain_fwd
     vc.vertex_bwd_kernel = vc.vertex_plain_bwd
+    chc.nn_select_kernel = ch.nn_select_plain
     try:
         yield
     finally:
         (cc.chain_fwd_kernel, cc.chain_bwd_kernel,
-         vc.vertex_fwd_kernel, vc.vertex_bwd_kernel) = saved
+         vc.vertex_fwd_kernel, vc.vertex_bwd_kernel,
+         chc.nn_select_kernel) = saved
 
 
 @contextlib.contextmanager
@@ -355,6 +390,333 @@ def phase_slice(model, card) -> tuple[dict, float]:
     return counts, fis
 
 
+@contextlib.contextmanager
+def chamfer_spy(store: dict, tally: dict):
+    """Wrap the Chamfer wrapper: keep the first operands of each distinct
+    operand shape (clones) and tally the calls per shape. The wrapper
+    itself still counts every launch."""
+    from lemo_tpu_torch.ops import chamfer_cuda as chc
+
+    real = chc.nn_select_kernel
+
+    def spy(q, p, m):
+        key = (tuple(q.shape), tuple(p.shape),
+               None if m is None else tuple(m.shape))
+        tally[key] = tally.get(key, 0) + 1
+        if key not in store:
+            store[key] = tuple(None if a is None else a.detach().clone()
+                               for a in (q, p, m))
+        return real(q, p, m)
+
+    chc.nn_select_kernel = spy
+    try:
+        yield
+    finally:
+        chc.nn_select_kernel = real
+
+
+def prox_recording(model_dict, device):
+    """The phase-6 recording: 170 full-size frames written by the port's
+    writer into lemo_tpu_torch/_build/prox_smoke/ (git-ignored)."""
+    from lemo_tpu_torch.testing.synthetic_prox import \
+        write_synthetic_prox_recording
+
+    shutil.rmtree(PROX_DIR, ignore_errors=True)
+    return write_synthetic_prox_recording(
+        os.path.join(PROX_DIR, "data"), num_frames=PROX_FRAMES,
+        model_dict=model_dict, seed=0, device=device)
+
+
+def prox_config(info, out_dir: str, steps: int | None = None):
+    """The all-terms Stage-3 config, read by the port's own parser, with
+    interpenetration off (its kernel is not ported yet), `steps` Adam
+    steps per window, and no flip (the synthetic depth is rendered
+    unmirrored)."""
+    from lemo_tpu_torch.config import parse_config
+
+    return parse_config(["--config", PROX_CFG, "--interpenetration", "false",
+                         "--recording_dir", info["recording_dir"],
+                         "--output_folder", out_dir, "--maxiters",
+                         str(steps or PROX_STEPS), "--flip", "false"])
+
+
+def prox_assets(model, info):
+    """Synthetic assets: the recording's VPoser, a seeded random
+    smoothness encoder, and the shipped infill AE and statistics."""
+    import torch
+
+    from lemo_tpu_torch.data.stats import GlobalStats, Local4ChanStats
+    from lemo_tpu_torch.fitting.prox.driver import ProxAssets
+    from lemo_tpu_torch.priors.conv_ae import init_smooth_enc, \
+        load_state_dict_npz
+
+    dev = model.device
+    assets = os.path.join(ROOT, "lemo_tpu_torch", "assets")
+    return ProxAssets(
+        model=model, vposer_params=info["vposer_params"],
+        smooth_enc_params=init_smooth_enc(torch.Generator().manual_seed(1),
+                                          device=dev),
+        smooth_stats=GlobalStats.from_numpy(np.zeros((1, 1, 243)),
+                                            np.ones(243), dev),
+        infill_ae_params=load_state_dict_npz(
+            os.path.join(assets, "infill_ae.npz"), dev),
+        infill_stats=Local4ChanStats.load(
+            os.path.join(assets, "infill_stats.npz"), dev))
+
+
+_PKL_SCHEMA = {
+    "transl": (1, 3), "global_orient": (1, 3), "betas": (1, 10),
+    "body_pose": (1, 63), "pose_embedding": (1, 32),
+    "left_hand_pose": (1, 12), "right_hand_pose": (1, 12),
+    "jaw_pose": (1, 3), "leye_pose": (1, 3), "reye_pose": (1, 3),
+    "expression": (1, 10), "camera_rotation": (1, 3, 3),
+    "camera_translation": (1, 3)}
+
+
+def _check_pkls(out_dir: str, info) -> int:
+    res = os.path.join(out_dir, info["recording_name"], "results")
+    n = 0
+    for fn in info["frame_names"]:
+        with open(os.path.join(res, fn, "000.pkl"), "rb") as fh:
+            rec = pickle.load(fh)
+        shapes = {k: tuple(np.asarray(v).shape) for k, v in rec.items()}
+        if shapes != _PKL_SCHEMA:
+            raise AssertionError(f"{fn}: pkl schema {shapes}")
+        if not all(np.isfinite(np.asarray(v)).all() for v in rec.values()):
+            raise AssertionError(f"{fn}: non-finite result")
+        n += 1
+    return n
+
+
+def phase_prox(model, model_dict, card):
+    """Phase 6a: the main-path PROX run with every launch counter at 0
+    before it. Returns (info, results, launch counts, each window's
+    fit_window inputs, chamfer operands and per-shape tally)."""
+    import torch
+
+    from lemo_tpu_torch.body_model import chain_cuda as cc
+    from lemo_tpu_torch.body_model import vertex_cuda as vc
+    from lemo_tpu_torch.fitting.prox import driver
+    from lemo_tpu_torch.ops import chamfer_cuda as chc
+
+    t0 = time.perf_counter()
+    info = prox_recording(model_dict, model.device)
+    _log(f"[prox] recording written in {time.perf_counter() - t0:.1f} s "
+         f"({PROX_FRAMES} frames)")
+    assets = prox_assets(model, info)
+    cfg = prox_config(info, os.path.join(PROX_DIR, "out_kernels"))
+    ops: dict = {}
+    tally: dict = {}
+    fits: list = []
+    real_fit = driver.fit_window
+
+    def recorded_fit(*args, **kw):
+        fits.append((args, kw))             # the window's inputs
+        return real_fit(*args, **kw)
+
+    for counts in (cc.launches, vc.launches, chc.launches):
+        for name in counts:
+            counts[name] = 0
+    driver.fit_window = recorded_fit
+    try:
+        with chamfer_spy(ops, tally):
+            results = driver.run_prox_fitting(cfg, assets, verbose=True)
+    finally:
+        driver.fit_window = real_fit
+    torch.cuda.synchronize()
+    counts = {**cc.launches, **vc.launches, **chc.launches}
+    return info, results, counts, fits, ops, tally
+
+
+def refit_windows(fits, plain_versions: bool, deterministic: bool = True):
+    """Each window's fit again from the inputs the main run gave it
+    (window statics, candidate sets and warm starts: the candidate sets
+    are argsorts of distances, so 5e-7 m of f32 difference in the
+    warm-start body changes which points are picked, and that, not the
+    kernels, would dominate a whole-rerun comparison), by default under
+    `torch.use_deterministic_algorithms`, so that repeat fits of one path
+    are bit-identical (scripts/prox_fit_spread.py). Returns (results,
+    fit seconds per window)."""
+    import torch
+
+    from lemo_tpu_torch.fitting.prox.window import fit_window, \
+        make_window_fitter
+
+    out, secs = [], []
+    ctx = plain_twins() if plain_versions else contextlib.nullcontext()
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    try:
+        with ctx:
+            for args, kw in fits:
+                model, vpp, mapper, static, weights = args[:5]
+                fitter = make_window_fitter(model, vpp, mapper, static,
+                                            weights, maxiters=kw["maxiters"],
+                                            lr=kw["lr"])
+                t0 = time.perf_counter()
+                out.append(fit_window(*args, **dict(kw, fitter=fitter)))
+                secs.append(time.perf_counter() - t0)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out, secs
+
+
+def phase_prox_check(info, results, counts, fits, card):
+    """Phase 6b: the checks of the main-path run, then each window refitted
+    through the kernels and through the plain versions of all five kernels
+    (`refit_windows`), compared at the first step (each term within rel
+    1e-4, the total within 1e-5) and at the last (rel 1e-3)."""
+
+    W = len(results)
+    n_pkls = _check_pkls(os.path.join(PROX_DIR, "out_kernels"), info)
+    _log(f"[prox] {W} windows, {n_pkls} pkls in the reference schema")
+    if W != 2 or n_pkls != PROX_FRAMES:
+        raise AssertionError(f"expected 2 windows and {PROX_FRAMES} pkls")
+    for w, r in enumerate(results):
+        th = r.term_history
+        _log(f"[prox] window {w + 1} terms first -> last: " + ", ".join(
+            f"{k} {th[k][0]:.6g} -> {th[k][-1]:.6g}" for k in th))
+        if not np.isfinite(r.loss_history).all() or \
+                not r.loss_history[-1] < r.loss_history[0]:
+            raise AssertionError(f"window {w + 1} did not descend")
+        for k in ("s2m_dist", "m2s_dist", "contact_loss"):
+            if not th[k][0] > 0 or not th[k][-1] > 0:
+                raise AssertionError(f"window {w + 1}: {k} is zero")
+    steps = PROX_STEPS * W
+    # per window: 2 full-cloud + 2 candidate-subset selections in the
+    # depth pre-pass, then 3 per step (s2m, m2s, contact); 2 forwards of
+    # the warm start (candidate pre-passes, infill markers), then 1 a step
+    per_step = (counts["chamfer"] - 4 * W) / steps
+    _log(f"[prox] launches {counts}; chamfer per step {per_step:g}; "
+         f"chain/vertex fwd per step "
+         f"{(counts['chain_fwd'] - 2 * W) / steps:g}, bwd per step "
+         f"{counts['chain_bwd'] / steps:g}")
+    if per_step != 3 or counts["vertex_bwd"] != steps or \
+            counts["chain_bwd"] != steps:
+        raise AssertionError(f"kernel launches per step off: {counts}")
+    T = results[1].params["transl"].shape[0]
+    timing = results[1].timings
+    ms = timing["fit_s"] / PROX_STEPS * 1e3
+    fis = T * PROX_STEPS / timing["fit_s"]
+    _log(f"[prox] timed window 2: {ms:.3f} ms/step, {fis:.1f} frame-iters/s "
+         f"(T={T}, {PROX_STEPS} steps after warm window 1) on {card}; "
+         f"split {json.dumps(timing)}")
+
+    kern, kern_s = refit_windows(fits, plain_versions=False)
+    plain, plain_s = refit_windows(fits, plain_versions=True)
+    _log(f"[prox] refits under deterministic algorithms, window 2: kernels "
+         f"{kern_s[1] / PROX_STEPS * 1e3:.3f} ms/step, plain versions "
+         f"{plain_s[1] / PROX_STEPS * 1e3:.3f} ms/step on {card}")
+    faults = []
+    for w, (r, k, p) in enumerate(zip(results, kern, plain)):
+        # the first step sees the same inputs through both paths, so only
+        # the body-model kernels' rounding (<= 1e-6 m, phase 3) separates
+        # its terms: 1e-5 of the total, 1e-4 of each term (a term of
+        # millimetre distances, m2s, moves by ~2 * 1e-7 m / 2 mm a point)
+        first = {n: (float(k.term_history[n][0]), float(p.term_history[n][0]))
+                 for n in k.term_history}
+        rel0 = {n: abs(a - b) / abs(b) for n, (a, b) in first.items() if b}
+        _log(f"[prox] window {w + 1} first step kernels vs plain (rel): "
+             + ", ".join(f"{n} {first[n][0]:.7g}/{first[n][1]:.7g} "
+                         f"({r0:.2e})" for n, r0 in rel0.items()))
+        for n, r0 in rel0.items():
+            tol0 = 1e-5 if n == "total_loss" else 1e-4
+            if not r0 < tol0:
+                faults.append(f"window {w + 1} first-step {n} differs by "
+                              f"rel {r0:.3e} (tol {tol0:g})")
+        _log(f"[prox] window {w + 1} last terms kernels vs plain: " + ", ".join(
+            f"{n} {k.term_history[n][-1]:.6g}/{p.term_history[n][-1]:.6g}"
+            for n in k.term_history
+            if abs(k.term_history[n][-1]) + abs(p.term_history[n][-1]) > 0))
+        rel = abs(k.final_loss - p.final_loss) / abs(p.final_loss)
+        _log(f"[prox] window {w + 1} last-step loss kernels {k.final_loss:.7f}"
+             f" vs plain {p.final_loss:.7f} (rel {rel:.3e}, tol 1e-3); the "
+             f"main run (default algorithms) {r.final_loss:.7f}")
+        if not rel < 1e-3:
+            faults.append(f"window {w + 1} last-step loss differs by rel "
+                          f"{rel:.3e} (tol 1e-3)")
+    if faults:
+        raise AssertionError("; ".join(faults))
+    return ms, fis
+
+
+_CHAMFER_SITES = [
+    # (row name, what picks it out of the captured shapes)
+    ("chamfer/s2m_pass", lambda q, p: q[1] > p[1] and p[0] > 1),
+    ("chamfer/m2s_pass", lambda q, p: q[1] < p[1] and p[1] > 4096),
+    ("chamfer/KxK", lambda q, p: q[1] == p[1]),
+    ("chamfer/contact", lambda q, p: p[0] == 1),
+]
+
+
+def phase_chamfer(ops, tally, card) -> list[dict]:
+    """Phase 5: the kernel against its plain version on every operand
+    shape the phase-6 run produced."""
+    import torch
+
+    from lemo_tpu_torch.ops import chamfer as ch
+    from lemo_tpu_torch.ops import chamfer_cuda as chc
+
+    rows = []
+    for key, (q, p, m) in ops.items():
+        qs, ps, _ = key
+        names = [n for n, pick in _CHAMFER_SITES if pick(qs, ps)]
+        name = names[0] if names else f"chamfer/{qs}x{ps}"
+        ki, kd = chc.nn_select_kernel(q, p, m)
+        pi, pd = ch.nn_select_plain(q, p, m)
+        torch.cuda.synchronize()
+        agree = float((ki == pi).float().mean())
+        both_inf = torch.isinf(kd) & torch.isinf(pd)
+        d_err = float(torch.where(both_inf, torch.zeros_like(kd),
+                                  (kd - pd).abs()).max())
+        # where the indices differ, the exact distances must tie
+        pts = p.expand(q.shape[0], -1, -1)
+
+        def exact(idx):
+            w = torch.gather(pts, 1, idx[..., None].expand(-1, -1, 3))
+            return ((q - w) ** 2).sum(-1)
+
+        tie = float((exact(ki) - exact(pi)).abs().max())
+        reps = 5 if qs[1] * ps[1] > 1e8 else REPS
+        ms = _time_ms(lambda: chc.nn_select_kernel(q, p, m), reps)
+        plain_ms = _time_ms(lambda: ch.nn_select_plain(q, p, m), reps)
+        T, N = qs[0], qs[1]
+        # the work this run's data needs: each frame's valid query rows
+        # times its valid points. A query row of exact zeros is scan
+        # padding (data/prox.py pads with zeros, a real point has depth
+        # > 0), whose result every caller masks out.
+        nq = (q != 0).any(-1).sum(-1).double()                  # [T]
+        npv = (m.expand(T, -1).sum(-1).double() if m is not None
+               else torch.full((T,), float(ps[1]), dtype=torch.float64,
+                               device=q.device))                # [T]
+        pairs = float((nq * npv).sum())
+        nbytes = (12.0 * T * N + 12.0 * ps[0] * ps[1]
+                  + (m.numel() if m is not None else 0) + 12.0 * T * N)
+        bound, by = _bound_ms(nbytes, CHAMFER_OPS_PER_PAIR * pairs)
+
+        def spread(x):
+            return f"{int(x.min())}/{float(x.mean()):.0f}/{int(x.max())}"
+
+        _log(f"[chamfer] {name} q{list(qs)} p{list(ps)}: idx agree "
+             f"{agree:.6f}, max |d| err {d_err:.3e} m^2, max tie gap "
+             f"{tie:.3e} m^2; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+             f"bound {bound:.4f} ms ({by}, {pairs:.3e} valid pairs; valid "
+             f"query rows per frame min/mean/max {spread(nq)}, valid points "
+             f"{spread(npv)}); launched {tally[key]}x in phase 6; on {card}")
+        if agree < 0.9999 or d_err > 1e-6 or tie > 1e-6:
+            raise AssertionError(f"{name}: kernel disagrees with plain "
+                                 f"(agree {agree}, d {d_err}, tie {tie})")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "lemo_tpu_torch/csrc/chamfer.cu",
+                     "replaces": "lemo_tpu/ops/chamfer_pallas.py:41",
+                     "launches": tally[key], "max_abs_err": d_err,
+                     "idx_agree": agree, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by, "library_ms": None,
+                     "shape": [list(qs), list(ps)]})
+    if {r["name"] for r in rows} != {n for n, _ in _CHAMFER_SITES}:
+        raise AssertionError(f"chamfer call sites seen: {list(ops)}")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -376,8 +738,9 @@ def main() -> int:
          f"{os.path.relpath(path)}")
 
     t0 = time.perf_counter()
-    model = load_model(synthetic_smplx_npz(full_size=True), use_pca=True,
-                       num_pca_comps=12, device="cuda")
+    model_dict = synthetic_smplx_npz(full_size=True)
+    model = load_model(model_dict, use_pca=True, num_pca_comps=12,
+                       device="cuda")
     _log(f"[setup] full-size model loaded in {time.perf_counter() - t0:.1f} s"
          f" (V={model.num_verts}, fused_dirs "
          f"{tuple(model.consts['fused_dirs'].shape)})")
@@ -387,6 +750,10 @@ def main() -> int:
     counts, _ = phase_slice(model, card)
     for row in rows:
         row["launches"] = counts[row["name"]]
+    info, results, p_counts, fits, ops, tally = \
+        phase_prox(model, model_dict, card)
+    rows += phase_chamfer(ops, tally, card)
+    phase_prox_check(info, results, p_counts, fits, card)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,15 @@
 """PyTorch/CUDA port of `lemo_tpu` for NVIDIA Hopper (H100).
 
 The layout mirrors `lemo_tpu` (body_model/, ops/, data/, priors/,
-fitting/, testing/) so each module's counterpart is easy to find. The
-port imports torch and numpy only — never jax, optax or `lemo_tpu`.
+fitting/, config/, cli/, testing/) so each module's counterpart is easy
+to find. The port imports torch and numpy only — never jax, optax,
+`lemo_tpu`, cv2 or yaml.
 
-Device rule: entry points (`load_model`, `make_temporal_fitter`) take
-`device=None`, meaning "cuda", and raise when CUDA is absent; callers
-that want the CPU (the tests) pass `device="cpu"` explicitly.
+Device rule: entry points (`load_model`, `make_temporal_fitter`,
+`load_assets`/`run_prox_fitting`) take `device=None`, meaning "cuda", and
+raise when CUDA is absent; callers that want the CPU (the tests) pass
+`device="cpu"` explicitly (`run_prox_fitting` runs where its assets'
+model lives).
 
 Precision rule: the hand-written kernels accumulate in f32 FFMA, and the
 fitters turn TF32 off for cuBLAS and cuDNN (`lemo_tpu` runs the same

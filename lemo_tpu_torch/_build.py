@@ -23,7 +23,7 @@ from functools import lru_cache
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("chain.cu", "vertex.cu")
+SOURCES = ("chain.cu", "vertex.cu", "chamfer.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
@@ -39,6 +39,7 @@ SIGNATURES = {
     "lemo_vertex_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _P],
     "lemo_vertex_bwd_tiles": [_I],
+    "lemo_nn_select": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -73,6 +73,26 @@ class SmplxModel:
                 for k, n in shapes.items()}
 
 
+def find_smplx_npz(base_path: str, gender: str) -> str:
+    """Resolve a SMPL-X npz under any of the conventional layouts:
+    <base>/SMPLX_<G>.npz, <base>/smplx/SMPLX_<G>.npz,
+    <base>/smplx_model/smplx/SMPLX_<G>.npz (the reference's
+    body_models/smplx_model convention)."""
+    import os
+
+    fname = f"SMPLX_{gender.upper()}.npz"
+    for cand in (
+        os.path.join(base_path, fname),
+        os.path.join(base_path, "smplx", fname),
+        os.path.join(base_path, "smplx_model", fname),
+        os.path.join(base_path, "smplx_model", "smplx", fname),
+    ):
+        if os.path.exists(cand):
+            return cand
+    raise FileNotFoundError(
+        f"no {fname} under {base_path} (tried ./, smplx/, smplx_model/)")
+
+
 def load_model(
     bm_path_or_dict: Any,
     model_type: str | None = None,

@@ -47,3 +47,41 @@ def extra_joint_vertex_ids(
     if use_hands and model_type != "mano":
         ids += [table[k] for k in _TIP_KEYS]
     return np.asarray(ids, dtype=np.int64)
+
+
+def smpl_to_openpose(
+    model_type: str = "smplx",
+    use_hands: bool = True,
+    use_face: bool = True,
+    use_face_contour: bool = False,
+    openpose_format: str = "coco25",
+) -> np.ndarray:
+    """Permutation mapping model joints -> OpenPose keypoint order.
+
+    Behavioral parity with temp_prox/misc_utils.py:87-197 (only the
+    combinations LEMO uses are filled in; others raise)."""
+    if openpose_format.lower() != "coco25":
+        raise NotImplementedError(openpose_format)
+    if model_type == "smplx":
+        body = np.array(
+            [55, 12, 17, 19, 21, 16, 18, 20, 0, 2, 5, 8, 1, 4, 7,
+             56, 57, 58, 59, 60, 61, 62, 63, 64, 65],
+            dtype=np.int64,
+        )
+        parts = [body]
+        if use_hands:
+            lhand = np.array(
+                [20, 37, 38, 39, 66, 25, 26, 27, 67, 28, 29, 30, 68,
+                 34, 35, 36, 69, 31, 32, 33, 70], dtype=np.int64)
+            rhand = np.array(
+                [21, 52, 53, 54, 71, 40, 41, 42, 72, 43, 44, 45, 73,
+                 49, 50, 51, 74, 46, 47, 48, 75], dtype=np.int64)
+            parts += [lhand, rhand]
+        if use_face:
+            parts.append(np.arange(76, 127 + 17 * use_face_contour, dtype=np.int64))
+        return np.concatenate(parts)
+    if model_type == "smpl":
+        return np.array(
+            [24, 12, 17, 19, 21, 16, 18, 20, 0, 2, 5, 8, 1, 4, 7,
+             25, 26, 27, 28, 29, 30, 31, 32, 33, 34], dtype=np.int64)
+    raise NotImplementedError(model_type)

@@ -16,6 +16,13 @@ LATENT_DIM = 32
 NUM_NEURONS = 512
 
 
+def latent_dim(params: dict | None) -> int:
+    """Latent size of a VPoser parameter dict (the decoder's input
+    width); LATENT_DIM when there are no parameters."""
+    w = None if params is None else params.get("bodyprior_dec_fc1.weight")
+    return LATENT_DIM if w is None else int(w.shape[1])
+
+
 def _linear(p, name, x):
     return F.linear(x, p[f"{name}.weight"], p[f"{name}.bias"])
 

@@ -1,0 +1,29 @@
+"""PROX sliding-window fitting CLI on the port (reference
+temp_prox/main_slide.py):
+
+  python -m lemo_tpu_torch.cli.main_slide \
+      --config cfg_files/PROXD_temp_S3_all_terms.yaml --interpenetration false \
+      --recording_dir /path/to/PROX/recordings/N3OpenArea_00157_01 \
+      --model_folder /path/to/body_models --vposer_ckpt /path/to/vposer
+
+Runs on the CUDA card.
+"""
+
+from __future__ import annotations
+
+import sys
+
+
+def main(argv=None):
+    from lemo_tpu_torch.config import parse_config
+    from lemo_tpu_torch.fitting.prox.driver import run_prox_fitting
+
+    cfg = parse_config(sys.argv[1:] if argv is None else argv)
+    if not cfg.recording_dir:
+        print("error: --recording_dir is required", file=sys.stderr)
+        sys.exit(2)
+    return run_prox_fitting(cfg)
+
+
+if __name__ == "__main__":
+    main()

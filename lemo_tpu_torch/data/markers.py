@@ -34,6 +34,12 @@ SSM2_WITHHAND.update({
 })
 
 
+# foot-marker slots within SSM2 order (lheel, rheel, ltoe, rtoe) and the
+# shoulder/hip slots of the forward-direction estimate
+FOOT_MARKER_SLOTS = np.array([16, 47, 30, 60])
+SDR_L, SDR_R, HIP_L, HIP_R = 26, 56, 27, 57
+
+
 def marker_indices(with_hand: bool = False,
                    num_verts: int | None = None) -> np.ndarray:
     """Vertex ids of the 67 (or, `with_hand`, 81) marker slots in slot

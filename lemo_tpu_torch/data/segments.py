@@ -12,6 +12,13 @@ _ASSET = os.path.join(os.path.dirname(__file__), "..", "assets",
                       "body_segments.npz")
 
 
+# default contact parts of the PROX scene-contact loss and the friction
+# parts (fit_temp_loadprox_slide.py:349-362)
+DEFAULT_CONTACT_PARTS = ["L_Leg", "R_Leg", "L_Hand", "R_Hand", "gluteus",
+                         "back", "thighs"]
+FRICTION_PARTS = ["L_Leg", "R_Leg", "gluteus"]
+
+
 @lru_cache(maxsize=1)
 def _load() -> dict[str, np.ndarray]:
     with np.load(_ASSET) as z:
@@ -36,3 +43,22 @@ def foot_vertex_ids(num_verts: int | None = None) -> dict[str, np.ndarray]:
         f"{side}_{part}": segment_vertex_ids(f"{side}_{part}_ids", num_verts)
         for side in ("left", "right") for part in ("heel", "toe")
     }
+
+
+def contact_vertex_ids(parts=None, num_verts: int | None = None) -> np.ndarray:
+    parts = DEFAULT_CONTACT_PARTS if parts is None else parts
+    return np.concatenate([segment_vertex_ids(p, num_verts) for p in parts])
+
+
+def friction_vertex_ids(num_verts: int | None = None) -> np.ndarray:
+    return np.concatenate(
+        [segment_vertex_ids(p, num_verts) for p in FRICTION_PARTS])
+
+
+def head_and_body_masks(num_verts: int) -> tuple[np.ndarray, np.ndarray]:
+    """(head_mask, body_mask) bool [num_verts]: the depth-term vertex
+    split (fit_temp_loadprox_slide.py:420-426)."""
+    head_ids = segment_vertex_ids("head_mask_ids", num_verts)
+    head = np.zeros(num_verts, bool)
+    head[head_ids % num_verts] = True
+    return head, ~head

@@ -30,13 +30,22 @@ def run_adam(loss_fn: Callable[[dict], torch.Tensor],
              init_params: dict[str, torch.Tensor],
              num_steps: int,
              lr_table: list[float],
-             b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+             b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+             grad_mask: Callable[[str, torch.Tensor], torch.Tensor]
+             | None = None,
+             has_aux: bool = False):
     """`num_steps` of Adam (optax's update: bias-corrected moments,
     `m_hat / (sqrt(v_hat) + eps)`) on a dict of tensors.
 
     Returns (final params, per-step losses [num_steps]). A NaN/Inf loss
     freezes the parameters and moments from that step on (the
     reference's early stop), decided on the device.
+
+    `grad_mask(name, grad) -> grad` transforms each gradient before the
+    update (the sliding window's overlap freeze). With `has_aux`,
+    `loss_fn` returns (loss, {name: scalar tensor}) and a third value is
+    returned: {name: [num_steps] tensor}, the per-step history, kept on
+    the device until the caller reads it.
     """
     params = {k: v.detach().clone() for k, v in init_params.items()}
     mu = {k: torch.zeros_like(v) for k, v in params.items()}
@@ -45,10 +54,21 @@ def run_adam(loss_fn: Callable[[dict], torch.Tensor],
     dead = torch.zeros((), dtype=torch.bool, device=dev)
     losses = torch.empty(num_steps, dtype=torch.float32, device=dev)
     keys = list(params)
+    aux_keys, aux_rows = None, []
     for i in range(num_steps):
         leaves = [params[k].requires_grad_(True) for k in keys]
         loss = loss_fn(params)
+        if has_aux:
+            loss, aux = loss
+            if aux_keys is None:
+                aux_keys = list(aux)
+            aux_rows.append(torch.stack([
+                torch.as_tensor(aux[k], dtype=torch.float32,
+                                device=dev).detach().reshape(())
+                for k in aux_keys]))
         grads = torch.autograd.grad(loss, leaves)
+        if grad_mask is not None:
+            grads = [grad_mask(k, g) for k, g in zip(keys, grads)]
         losses[i] = loss.detach()
         dead = dead | ~torch.isfinite(loss.detach())
         # bias corrections in f32, as optax computes them (1 - 0.999**t
@@ -65,4 +85,8 @@ def run_adam(loss_fn: Callable[[dict], torch.Tensor],
                 params[k] = torch.where(dead, p, p + (-lr_table[i]) * upd)
                 mu[k] = torch.where(dead, mu[k], m)
                 nu[k] = torch.where(dead, nu[k], v)
-    return {k: v.detach() for k, v in params.items()}, losses
+    final = {k: v.detach() for k, v in params.items()}
+    if not has_aux:
+        return final, losses
+    hist = torch.stack(aux_rows) if aux_rows else None
+    return final, losses, {k: hist[:, j] for j, k in enumerate(aux_keys or [])}

@@ -1,0 +1,579 @@
+"""PROX pipeline driver: config -> recording -> sliding-window fits (port
+of `lemo_tpu/fitting/prox/driver.py`, sequential path;
+temp_prox/main_slide.py:54-373).
+
+Loads the priors and the body model, walks the overlapping windows in
+order, warm-starts each from the pkls on disk (its own outputs first, so
+a killed run resumes), runs the infill pre-pass and the candidate
+pre-passes, fits the window stage by stage, and writes per-frame pkls
+and a conf.yaml snapshot. Not ported yet, and raising when asked for
+(`config.prox_config.check_ported`): the window-parallel driver
+(ROADMAP.md queue 1, slice 8), self-interpenetration (slice 7) and the
+mesh/render saver (slice 10); the tensorboard logger (slice 10) is
+simply absent.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import glob
+import os
+import os.path as osp
+import time
+import warnings
+
+import numpy as np
+import torch
+
+from lemo_tpu_torch import exact_f32_matmuls, resolve_device
+from lemo_tpu_torch.body_model import load_model, make_forward_fn
+from lemo_tpu_torch.body_model import vposer as vp
+from lemo_tpu_torch.body_model.smplx import find_smplx_npz
+from lemo_tpu_torch.body_model.vertex_ids import smpl_to_openpose
+from lemo_tpu_torch.config.prox_config import ProxConfig, check_ported
+from lemo_tpu_torch.config.yaml_subset import dump_yaml
+from lemo_tpu_torch.data import markers as mk
+from lemo_tpu_torch.data import segments as seg
+from lemo_tpu_torch.data.prox import ProxRecording, ProxWindowDataset
+from lemo_tpu_torch.data.stats import GlobalStats, Local4ChanStats
+from lemo_tpu_torch.fitting.prox.camera import PerspectiveCamera
+from lemo_tpu_torch.fitting.prox.infill_prepass import run_infill_prepass
+from lemo_tpu_torch.fitting.prox.losses import ProxStatic, ProxWeights, \
+    frame_visibility
+from lemo_tpu_torch.fitting.prox.window import fit_window, \
+    make_window_fitter, save_window_pkls
+from lemo_tpu_torch.ops.chamfer import nn_distance
+from lemo_tpu_torch.ops.sdf import quantize_grid, sample_sdf_world
+
+_ASSET_DIR = osp.join(osp.dirname(osp.dirname(osp.dirname(
+    osp.abspath(__file__)))), "assets")
+
+
+def weights_from_config(cfg: ProxConfig, stage: int = 0) -> ProxWeights:
+    w = cfg.stage_weights(stage)
+    return ProxWeights(
+        data=w["data"], body_pose=w["body_pose"], shape=w["shape"],
+        hand_prior=w["hand_prior"], expr=w["expr"], jaw=w["jaw"],
+        coll=w["coll"], s2m=w["s2m"], m2s=w["m2s"],
+        rho_s2m=w["rho_s2m"], rho_m2s=w["rho_m2s"],
+        sdf_penetration=w["sdf_penetration"], contact=w["contact"],
+        smooth_acc=w["smooth_acc"], smooth_vel=w["smooth_vel"],
+        motion_smooth=w["motion_smooth"],
+        friction_normal=w["friction_normal"],
+        friction_tangent=w["friction_tangent"],
+        motion_infill_rec=w["motion_infill_rec"],
+        motion_infill_contact=w["motion_infill_contact"],
+        sdf_fp8=bool(cfg.sdf_fp8),
+        coll_frame_chunk=int(cfg.coll_frame_chunk))
+
+
+def build_priors(cfg: ProxConfig) -> dict:
+    """cfg.*_prior_type -> prior callables (main_slide.py:199-237); only
+    non-L2 types are materialized, and 'gmm' raises (not ported)."""
+    from lemo_tpu_torch.priors.body_priors import create_prior
+
+    out: dict = {}
+    for key, ptype in (("body", cfg.body_prior_type),
+                       ("left_hand", cfg.left_hand_prior_type),
+                       ("right_hand", cfg.right_hand_prior_type),
+                       ("jaw", cfg.jaw_prior_type),
+                       ("expr", cfg.expr_prior_type)):
+        if ptype not in (None, "", "l2"):
+            out[key] = create_prior(ptype)
+    return out
+
+
+@dataclasses.dataclass
+class ProxAssets:
+    """Models and priors on one device (tests pass synthetic ones;
+    `load_assets` reads them from the config's paths)."""
+
+    model: object
+    vposer_params: dict
+    smooth_enc_params: dict | None = None
+    smooth_stats: GlobalStats | None = None
+    infill_ae_params: dict | None = None
+    infill_stats: Local4ChanStats | None = None
+    scene_verts: np.ndarray | None = None
+
+
+def _load_vposer(expr_dir: str, device) -> dict:
+    """The newest snapshot under <expr_dir>/snapshots (model_loader.py:
+    43-72) as a flat parameter dict."""
+    from lemo_tpu_torch.priors.conv_ae import load_torch_state_dict
+
+    snaps = sorted(glob.glob(osp.join(expr_dir, "snapshots", "*.pt"))
+                   + glob.glob(osp.join(expr_dir, "snapshots", "*.pkl")),
+                   key=lambda p: (osp.getmtime(p), p))
+    if not snaps:
+        raise FileNotFoundError(f"no VPoser snapshots under {expr_dir}")
+    return load_torch_state_dict(snaps[-1], device)
+
+
+def load_assets(cfg: ProxConfig, device=None) -> ProxAssets:
+    from lemo_tpu_torch.priors.conv_ae import load_state_dict_npz, \
+        load_torch_state_dict
+
+    dev = resolve_device(device)
+    model = load_model(find_smplx_npz(cfg.model_folder, cfg.gender),
+                       gender=cfg.gender, use_pca=cfg.use_pca,
+                       num_pca_comps=cfg.num_pca_comps,
+                       flat_hand_mean=cfg.flat_hand_mean, device=dev)
+    vposer_params = (_load_vposer(cfg.vposer_ckpt, dev)
+                     if cfg.vposer_ckpt else None)
+    smooth_enc = smooth_stats = None
+    if cfg.use_motion_smooth_prior and cfg.AE_Enc_path:
+        smooth_enc = load_torch_state_dict(cfg.AE_Enc_path, dev)
+        stats_path = osp.expandvars(cfg.smooth_stats_path) \
+            if cfg.smooth_stats_path else osp.join(
+                osp.dirname(osp.dirname(cfg.AE_Enc_path)), "..",
+                "preprocess_stats",
+                "preprocess_stats_smooth_withHand_global_markers.npz")
+        if not osp.exists(stats_path):
+            raise FileNotFoundError(
+                f"smoothness-prior stats not found at {stats_path!r}; set "
+                "smooth_stats_path in the config")
+        smooth_stats = GlobalStats.load(stats_path, dev)
+    infill_ae = infill_stats = None
+    if cfg.use_motion_infill_prior:
+        if cfg.infill_stats_path:
+            infill_stats = Local4ChanStats.load(
+                osp.expandvars(cfg.infill_stats_path), dev)
+        if cfg.AE_infill_path:
+            infill_ae = (load_torch_state_dict(cfg.AE_infill_path, dev)
+                         if cfg.AE_infill_path.endswith((".pkl", ".pt"))
+                         else load_state_dict_npz(cfg.AE_infill_path, dev))
+        else:
+            # the shipped retrained AE (byte copy of lemo_tpu's asset)
+            infill_ae = load_state_dict_npz(
+                osp.join(_ASSET_DIR, "infill_ae.npz"), dev)
+            if infill_stats is None:
+                infill_stats = Local4ChanStats.load(
+                    osp.join(_ASSET_DIR, "infill_stats.npz"), dev)
+    return ProxAssets(model=model, vposer_params=vposer_params,
+                      smooth_enc_params=smooth_enc, smooth_stats=smooth_stats,
+                      infill_ae_params=infill_ae, infill_stats=infill_stats)
+
+
+_SDF_CACHE: dict = {}
+
+
+def _load_sdf_cached(cfg: ProxConfig, rec: ProxRecording, device):
+    """Per-recording cache of the scene SDF on the device: (f32 grid,
+    the quantized grid the penetration term samples or None, grid_min,
+    grid_max). Quantized once at load (ops.sdf.quantize_grid)."""
+    key = (rec.sdf_dir, rec.scene_name, bool(cfg.sdf_fp8),
+           bool(cfg.sdf_packed), str(device))
+    if key not in _SDF_CACHE:
+        sdf_np, grid_min, grid_max, _ = rec.load_sdf()
+        sdf = torch.as_tensor(sdf_np, device=device)
+        mode = "fp8" if key[2] else "bf16" if key[3] else None
+        _SDF_CACHE[key] = (
+            sdf, None if mode is None else quantize_grid(sdf, mode),
+            torch.as_tensor(grid_min, device=device),
+            torch.as_tensor(grid_max, device=device))
+        if len(_SDF_CACHE) > 4:
+            _SDF_CACHE.pop(next(iter(_SDF_CACHE)))
+    return _SDF_CACHE[key]
+
+
+@torch.no_grad()
+def _warm_start_vertices(cfg: ProxConfig, assets: ProxAssets,
+                         warm: dict) -> torch.Tensor:
+    """Body vertices [T, V, 3] (camera coords) of the warm start."""
+    model = assets.model
+    params = {k: v for k, v in warm.items()
+              if k not in ("pose_embedding", "body_pose")}
+    if cfg.use_vposer and "pose_embedding" in warm:
+        params["body_pose"] = vp.decode(assets.vposer_params,
+                                        warm["pose_embedding"], "aa")
+    elif "body_pose" in warm:
+        params["body_pose"] = warm["body_pose"]
+    return make_forward_fn(model)(params, model.consts)["vertices"]
+
+
+def _sdf_candidate_ids(cfg: ProxConfig, verts: torch.Tensor,
+                       st: ProxStatic) -> np.ndarray:
+    """[K] ids of the vertices whose warm-start body (`verts` [T, V, 3],
+    camera coords) comes nearest the scene anywhere in the window (one
+    exact full-vertex SDF pass per window); the K smallest per-vertex
+    min-SDF values."""
+    vw = torch.matmul(verts, st.R.T) + st.t
+    vals = sample_sdf_world(st.sdf, vw.reshape(-1, 3), st.grid_min,
+                            st.grid_max, crop=None)
+    min_sdf = vals.reshape(vw.shape[0], -1).min(dim=0).values.cpu().numpy()
+    K = min(int(cfg.sdf_candidates), verts.shape[1])
+    n_close = int((min_sdf < cfg.sdf_candidates_margin).sum())
+    if n_close > K:
+        warnings.warn(
+            f"sdf_candidates={K} < {n_close} vertices within "
+            f"{cfg.sdf_candidates_margin} m of the scene at warm start; "
+            "raise sdf_candidates or the term may miss penetrations")
+    return np.argsort(min_sdf)[:K].astype(np.int64)
+
+
+def _gmof_np(d: np.ndarray, rho: float) -> np.ndarray:
+    sq = d ** 2
+    return (rho ** 2) * sq / (sq + rho ** 2)
+
+
+@torch.no_grad()
+def _depth_candidate_data(cfg: ProxConfig, verts: torch.Tensor,
+                          st: ProxStatic) -> tuple:
+    """Per-frame candidate ids and frozen remainders of the depth Chamfer
+    terms (cfg.depth_candidates): one exact bidirectional Chamfer pass on
+    the warm-start geometry picks the Ks scan points nearest the visible
+    body and the Kv vertices nearest the scan; the frozen pairs are the
+    full-cloud warm value minus the candidate-subset warm value, so the
+    subset energy equals the exact term at refresh time. Each direction
+    is one batched Chamfer call over the window's frames. `verts`: the
+    warm-start body [T, V, 3], camera coords."""
+    scan, scan_m = st.scan, st.scan_mask
+    T, S = int(scan.shape[0]), int(scan.shape[1])
+    V = int(verts.shape[1])
+    Ks = min(int(cfg.depth_candidates), S)
+    Kv = min(int(cfg.depth_candidates), V)
+
+    vis = frame_visibility(verts, st)                          # [T, V]
+    d2s, _ = nn_distance(scan, verts, vis)                     # scan -> body
+    d2v, _ = nn_distance(verts, scan, scan_m)                  # body -> scan
+    ds = torch.sqrt(d2s + 1e-12).cpu().numpy()
+    dv = torch.sqrt(d2v + 1e-12).cpu().numpy()
+    vis_np = vis.cpu().numpy()
+    sm = scan_m.cpu().numpy()
+    bm = st.body_mask.cpu().numpy()
+
+    sids = np.argsort(np.where(sm, ds, np.inf), axis=1)[:, :Ks]
+    # with s2m on every vertex near the scan is a prospective target;
+    # with m2s only, vertices outside body_mask can never contribute
+    dv_rank = dv if cfg.s2m else np.where(bm[None, :], dv, np.inf)
+    vids = np.argsort(dv_rank, axis=1)[:, :Kv]
+
+    margin = float(cfg.depth_candidates_margin)
+    n_s = int((np.where(sm, ds, np.inf) < margin).sum(axis=1).max())
+    n_v = int((dv_rank < margin).sum(axis=1).max())
+    if n_s > Ks or n_v > Kv:
+        warnings.warn(
+            f"depth_candidates={cfg.depth_candidates} < {max(n_s, n_v)} "
+            f"scan points/vertices within {margin} m at warm start: the "
+            "energy is exact at refresh but the margin headroom for "
+            "in-window motion is truncated; raise depth_candidates")
+
+    dev = verts.device
+    sids_t = torch.as_tensor(sids, device=dev)
+    vids_t = torch.as_tensor(vids, device=dev)
+    v_c = torch.gather(verts, 1, vids_t[..., None].expand(-1, -1, 3))
+    vis_c = torch.gather(vis, 1, vids_t)
+    sc_c = torch.gather(scan, 1, sids_t[..., None].expand(-1, -1, 3))
+    sm_c = torch.gather(scan_m, 1, sids_t)
+    d2s_c, _ = nn_distance(sc_c, v_c, vis_c)
+    d2v_c, _ = nn_distance(v_c, sc_c, sm_c)
+    ds_c = torch.sqrt(d2s_c + 1e-12).cpu().numpy()
+    dv_c = torch.sqrt(d2v_c + 1e-12).cpu().numpy()
+
+    ar = np.arange(T)[:, None]
+    full_s = (_gmof_np(ds, cfg.rho_s2m) * sm).sum(axis=1)
+    live_s = (_gmof_np(ds_c, cfg.rho_s2m) * sm[ar, sids]).sum(axis=1)
+    s2m_frozen = np.stack(
+        [full_s - live_s, sm.sum(axis=1).astype(np.float64)],
+        axis=1).astype(np.float32)
+    mask_full = vis_np & bm[None, :]
+    mask_live = vis_np[ar, vids] & bm[vids]
+    full_m = (_gmof_np(dv, cfg.rho_m2s) * mask_full).sum(axis=1)
+    live_m = (_gmof_np(dv_c, cfg.rho_m2s) * mask_live).sum(axis=1)
+    m2s_frozen = np.stack(
+        [full_m - live_m,
+         (mask_full.sum(axis=1) - mask_live.sum(axis=1)).astype(np.float64)],
+        axis=1).astype(np.float32)
+    return sids, vids, s2m_frozen, m2s_frozen, vis_np[ar, vids]
+
+
+def _candidate_updates(cfg: ProxConfig, assets: ProxAssets, warm: dict,
+                       st: ProxStatic) -> dict:
+    """The candidate-dependent ProxStatic fields from a warm start (the
+    window build and the stage-boundary refresh)."""
+    dev = assets.model.device
+    upd: dict = {}
+    want_sdf = bool(cfg.sdf_penetration and st.sdf is not None
+                    and cfg.sdf_candidates > 0)
+    want_depth = bool((cfg.s2m or cfg.m2s) and st.scan is not None
+                      and cfg.depth_candidates > 0)
+    if not (want_sdf or want_depth):
+        return upd
+    verts = _warm_start_vertices(cfg, assets, warm)      # one forward
+    if want_sdf:
+        upd["sdf_candidate_ids"] = torch.as_tensor(
+            _sdf_candidate_ids(cfg, verts, st), device=dev)
+    if want_depth:
+        sids, vids, s2m_fr, m2s_fr, vis_c = _depth_candidate_data(
+            cfg, verts, st)
+        upd.update(depth_scan_cand_ids=torch.as_tensor(sids, device=dev),
+                   depth_vert_cand_ids=torch.as_tensor(vids, device=dev),
+                   s2m_frozen=torch.as_tensor(s2m_fr, device=dev),
+                   m2s_frozen=torch.as_tensor(m2s_fr, device=dev))
+        if cfg.depth_frozen_visibility:
+            upd["depth_vis_frozen"] = torch.as_tensor(vis_c, device=dev)
+    return upd
+
+
+def stage_joint_weights(cfg: ProxConfig, joint_weights: np.ndarray,
+                        stage: int = 0) -> np.ndarray:
+    """Per-stage hand/face keypoint weights
+    (fit_temp_loadprox_slide.py:525-528)."""
+    def at(lst):
+        return float(lst[min(stage, len(lst) - 1)])
+
+    jw = joint_weights.copy()
+    if cfg.use_hands:
+        jw[25:76] = at(cfg.hand_joints_weights)
+    if cfg.use_face:
+        jw[76:] = at(cfg.face_joints_weights)
+    for j in cfg.joints_to_ign:
+        if 0 <= int(j) < len(jw):
+            jw[int(j)] = 0.0
+    return jw
+
+
+def build_window_static(cfg: ProxConfig, assets: ProxAssets,
+                        rec: ProxRecording, window_data: dict,
+                        joint_weights: np.ndarray, infill_result=None,
+                        stage: int = 0,
+                        with_candidates: bool = True) -> ProxStatic:
+    model = assets.model
+    dev = model.device
+    V = model.num_verts
+
+    def t(x, dtype=None):
+        return None if x is None else torch.as_tensor(
+            np.asarray(x), dtype=dtype, device=dev)
+
+    camera = PerspectiveCamera(cfg.focal_length_x, cfg.focal_length_y,
+                               (cfg.camera_center_x, cfg.camera_center_y))
+    R, tr = rec.load_cam2world()
+    sdf = sdf_q = grid_min = grid_max = None
+    if cfg.sdf_penetration or cfg.use_friction:
+        sdf, sdf_q, grid_min, grid_max = _load_sdf_cached(cfg, rec, dev)
+    jw = stage_joint_weights(cfg, joint_weights, stage)
+    _, body_mask = seg.head_and_body_masks(V)
+    keypoints = window_data["keypoints"]
+    depth = cfg.s2m or cfg.m2s
+    i64 = torch.int64
+    st = ProxStatic(
+        gt_joints=t(keypoints[:, :, :2]),
+        joints_conf=t(keypoints[:, :, 2]),
+        joint_weights=t(jw),
+        camera=camera,
+        R=t(R), t=t(tr),
+        scan=t(window_data["scan"]) if depth else None,
+        scan_mask=t(window_data["scan_mask"], torch.bool) if depth else None,
+        body_mask=t(body_mask, torch.bool),
+        sdf=sdf, sdf_packed=sdf_q, grid_min=grid_min, grid_max=grid_max,
+        scene_verts=(t(assets.scene_verts)
+                     if cfg.contact and assets.scene_verts is not None
+                     else None),
+        contact_verts_ids=(t(seg.contact_vertex_ids(cfg.contact_body_parts,
+                                                    V), i64)
+                           if cfg.contact else None),
+        fric_verts_ids=(t(seg.friction_vertex_ids(V), i64)
+                        if cfg.use_friction else None),
+        foot_ids=seg.foot_vertex_ids(V),
+        smooth_enc_params=assets.smooth_enc_params,
+        smooth_stats=assets.smooth_stats,
+        smooth_marker_ids=t(mk.marker_indices(True, num_verts=V), i64),
+        marker_mask=t(window_data["marker_mask"]),
+        infill_marker_ids=t(mk.marker_indices(False, num_verts=V), i64),
+        faces_vis=(t(model.faces, i64) if depth else None),
+    )
+    if with_candidates:
+        warm = {k: t(v) for k, v in window_data["warm_start"].items()}
+        upd = _candidate_updates(cfg, assets, warm, st)
+        if upd:
+            st = dataclasses.replace(st, **upd)
+    if infill_result is not None:
+        st = dataclasses.replace(
+            st, infill_targets=infill_result.targets_world,
+            infill_contact_lbl=infill_result.contact_lbl)
+    return st
+
+
+_CAMERA_PKL_PARAMS = {
+    # the PROX camera's pose is frozen at identity/zero (main_slide.py:
+    # 192-193); the reference still serializes it per frame
+    "rotation": np.eye(3, dtype=np.float32),
+    "translation": np.zeros(3, np.float32),
+}
+
+
+def _make_warm_world_markers(assets: ProxAssets, rec: ProxRecording):
+    """warm start -> (world 67-markers [T, 67, 3], world joints
+    [T, 25, 3]) for the infill pre-pass."""
+    model = assets.model
+    dev = model.device
+    fwd = make_forward_fn(model)
+    Rw, tw = rec.load_cam2world()
+    Rw = torch.as_tensor(Rw, device=dev)
+    tw = torch.as_tensor(tw, device=dev)
+    ids67 = torch.as_tensor(mk.marker_indices(False,
+                                              num_verts=model.num_verts),
+                            device=dev)
+
+    @torch.no_grad()
+    def warm_world_markers(warm):
+        params = {k: warm[k] for k in
+                  ("transl", "global_orient", "betas", "left_hand_pose",
+                   "right_hand_pose", "jaw_pose", "leye_pose", "reye_pose",
+                   "expression")}
+        params["body_pose"] = vp.decode(assets.vposer_params,
+                                        warm["pose_embedding"], "aa")
+        out = fwd(params, model.consts)
+        mv = torch.matmul(out["vertices"], Rw.T) + tw
+        mj = torch.matmul(out["joints"][:, :25], Rw.T) + tw
+        return mv.index_select(1, ids67), mj
+
+    return warm_world_markers
+
+
+def run_prox_fitting(cfg: ProxConfig, assets: ProxAssets | None = None,
+                     max_windows: int | None = None, verbose: bool = True,
+                     device=None) -> list:
+    """Fit a recording window by window; returns WindowResults, each with
+    the wall-clock split of its window in `timings` (seconds for load,
+    infill pre-pass, static build with the candidate pre-passes, fit and
+    save; every phase ends in a host read of device results, so the split
+    is synchronous). The fit runs on `assets.model.device` (or `device`
+    when assets are loaded here: None means the CUDA card)."""
+    check_ported(cfg)
+    if assets is None:
+        assets = load_assets(cfg, device)
+    exact_f32_matmuls()
+    rec = ProxRecording.from_recording_dir(cfg.recording_dir)
+    if cfg.contact and cfg.load_scene and assets.scene_verts is None:
+        assets = dataclasses.replace(assets,
+                                     scene_verts=rec.load_scene_mesh())
+    output_folder = osp.join(osp.expandvars(cfg.output_folder),
+                             rec.recording_name)
+    result_folder = osp.join(output_folder, cfg.result_folder)
+    os.makedirs(result_folder, exist_ok=True)
+    with open(osp.join(output_folder, "conf.yaml"), "w") as fh:
+        fh.write(dump_yaml(dataclasses.asdict(cfg)))
+
+    ds = ProxWindowDataset(
+        rec, output_params_dir=output_folder, batch_size=cfg.batch_size,
+        img_folder=cfg.img_folder,
+        read_depth=cfg.read_depth and (cfg.s2m or cfg.m2s
+                                       or cfg.init_mode == "scan"),
+        read_mask=cfg.read_mask, mask_on_color=cfg.mask_on_color,
+        flip=cfg.flip, use_hands=cfg.use_hands, use_face=cfg.use_face,
+        joints_to_ign=cfg.joints_to_ign, start=cfg.start, step=cfg.step,
+        frame_ids=cfg.frame_ids)
+    jw = ds.joint_weights()
+    mapper = smpl_to_openpose(cfg.model_type, cfg.use_hands, cfg.use_face,
+                              cfg.use_face_contour)
+    n_windows = len(ds.windows) if max_windows is None else \
+        min(max_windows, len(ds.windows))
+
+    # host-side loading of window i+1 (PNG decoding, scan unprojection)
+    # overlaps window i's fit; warm-start pkls are read only after the
+    # previous window saved (own-output-first resume)
+    from concurrent.futures import ThreadPoolExecutor
+
+    prefetcher = ThreadPoolExecutor(max_workers=1) \
+        if (cfg.prefetch_windows and n_windows > 0) else None
+    fut = prefetcher.submit(ds.load_window, 0, False) if prefetcher else None
+    try:
+        return _fit_windows_sequential(cfg, assets, rec, ds, jw, mapper,
+                                       result_folder, n_windows, verbose,
+                                       prefetcher, fut)
+    finally:
+        if prefetcher:
+            prefetcher.shutdown(wait=False, cancel_futures=True)
+
+
+def _fit_windows_sequential(cfg, assets, rec, ds, jw, mapper, result_folder,
+                            n_windows, verbose, prefetcher, fut):
+    model = assets.model
+    dev = model.device
+    priors = build_priors(cfg)
+    warm_world_markers = None
+    if cfg.use_motion_infill_prior and assets.infill_ae_params:
+        warm_world_markers = _make_warm_world_markers(assets, rec)
+    stage_fitters: dict = {}
+    results = []
+    for widx in range(n_windows):
+        t0 = time.perf_counter()
+        if prefetcher:
+            wd = fut.result()
+            if widx + 1 < n_windows:
+                fut = prefetcher.submit(ds.load_window, widx + 1, False)
+            wd["warm_start"] = ds.load_window_warm_start(widx)
+        else:
+            wd = ds.load_window(widx)
+        warm = {k: torch.as_tensor(v, device=dev)
+                for k, v in wd["warm_start"].items()}
+        timing = {"load_s": time.perf_counter() - t0}
+
+        t1 = time.perf_counter()
+        infill_result = None
+        if warm_world_markers is not None:
+            mv67, mj = warm_world_markers(warm)
+            infill_result = run_infill_prepass(
+                assets.infill_ae_params, mv67, mj,
+                torch.as_tensor(wd["marker_mask"], device=dev),
+                assets.infill_stats,
+                finetune_steps=int(cfg.infill_finetune_steps))
+        timing["prepass_s"] = time.perf_counter() - t1
+
+        # one full maxiters run per weight stage, the next stage
+        # warm-started from the previous one (fit_temp_loadprox_slide.py:
+        # 507-528)
+        result = None
+        wd_stage = wd
+        timing["static_s"] = timing["fit_s"] = 0.0
+        for stage in range(cfg.n_stages):
+            if stage > 0 and cfg.candidates_refresh_stages:
+                wd_stage = dict(wd)
+                wd_stage["warm_start"] = {k: v.cpu().numpy()
+                                          for k, v in warm.items()}
+            t1 = time.perf_counter()
+            static = build_window_static(cfg, assets, rec, wd_stage, jw,
+                                         infill_result, stage=stage)
+            timing["static_s"] += time.perf_counter() - t1
+            w_s = weights_from_config(cfg, stage)
+            if stage not in stage_fitters:
+                stage_fitters[stage] = make_window_fitter(
+                    model, assets.vposer_params, mapper, static, w_s,
+                    maxiters=cfg.maxiters, lr=cfg.lr,
+                    optim_type=cfg.optim_type, priors=priors,
+                    use_vposer=cfg.use_vposer)
+            t1 = time.perf_counter()
+            result_s = fit_window(
+                model, assets.vposer_params, mapper, static, w_s, warm,
+                first_window=(widx == 0), maxiters=cfg.maxiters, lr=cfg.lr,
+                fitter=stage_fitters[stage], use_vposer=cfg.use_vposer)
+            timing["fit_s"] += time.perf_counter() - t1
+            if result is None:
+                result = result_s
+            else:
+                result = dataclasses.replace(
+                    result_s,
+                    loss_history=np.concatenate(
+                        [result.loss_history, result_s.loss_history]),
+                    term_history={
+                        k: np.concatenate([result.term_history[k], v])
+                        for k, v in result_s.term_history.items()})
+            if stage + 1 < cfg.n_stages:
+                warm = {k: torch.as_tensor(v, device=dev)
+                        for k, v in result_s.params.items()}
+                warm["pose_embedding"] = torch.as_tensor(
+                    result_s.pose_embedding, device=dev)
+        t1 = time.perf_counter()
+        save_window_pkls(result, wd["fns"], result_folder,
+                         camera_params=_CAMERA_PKL_PARAMS)
+        timing["save_s"] = time.perf_counter() - t1
+        timing["total_s"] = time.perf_counter() - t0
+        results.append(dataclasses.replace(result, timings=timing))
+        if verbose:
+            print(f"[window {widx + 1}/{n_windows}] frames "
+                  f"{ds.windows[widx]}: loss {result.final_loss:.4f} "
+                  f"({timing['total_s']:.1f}s)", flush=True)
+    return results

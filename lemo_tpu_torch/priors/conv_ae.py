@@ -1,8 +1,10 @@
 """Convolutional motion priors over torch-layout parameter dicts (port of
-`lemo_tpu/priors/conv_ae.py`; this slice needs the smoothness encoder).
+`lemo_tpu/priors/conv_ae.py`): the smoothness encoder and the infill
+auto-encoder (models/AE.py:78-108).
 
 Parameters are a flat dict keyed by the torch `state_dict` names
-(`enc_blc1.main.0.weight` ...), Conv2d weights [O, I, kH, kW]. The
+(`enc_blc1.main.0.weight` ...), Conv2d weights [O, I, kH, kW],
+ConvTranspose2d weights [I, O, kH, kW]. The
 convolutions are `torch.nn.functional.conv2d`, as `lemo_tpu` leaves them
 to XLA; callers that need exact f32 turn cuDNN's TF32 off
 (`lemo_tpu_torch.exact_f32_matmuls`).
@@ -22,6 +24,26 @@ def conv2d(x, w, b, stride=(1, 1), padding=(1, 1)):
     return F.conv2d(x, w, b, stride=stride, padding=padding)
 
 
+def conv_transpose2d(x, w, b, stride, padding, out_hw):
+    """torch ConvTranspose2d with its `output_size=` semantics
+    (`lemo_tpu/priors/conv_ae.py:54-86`): `out_hw` pins the output size;
+    output_padding = out - ((in - 1) * stride - 2 * pad + kernel), added
+    at the bottom/right, and must be reachable."""
+    kh, kw = w.shape[2], w.shape[3]
+    sh, sw = stride
+    ph, pw = padding
+    in_h, in_w = x.shape[2], x.shape[3]
+    oph = out_hw[0] - ((in_h - 1) * sh - 2 * ph + kh)
+    opw = out_hw[1] - ((in_w - 1) * sw - 2 * pw + kw)
+    if not (0 <= oph < sh or (oph == 0 and sh == 1)) or not (
+            0 <= opw < sw or (opw == 0 and sw == 1)):
+        raise ValueError(
+            f"requested output size {tuple(out_hw)} unreachable from input "
+            f"{(in_h, in_w)} with stride {stride} kernel {(kh, kw)}")
+    return F.conv_transpose2d(x, w, b, stride=stride, padding=padding,
+                              output_padding=(oph, opw))
+
+
 def leaky_relu(x, slope=0.2):
     return torch.where(x >= 0, x, slope * x)
 
@@ -35,6 +57,39 @@ def _enc_block(p, prefix, x, *, kernel, pool, pool_stride):
     if pool:
         x = F.max_pool2d(x, (3, 3), pool_stride, (1, 1))
     return x
+
+
+def _dec_block(p, prefix, x, out_hw, *, kernel, stride, final_act=True):
+    pad = kernel // 2
+    x = leaky_relu(conv_transpose2d(
+        x, p[f"{prefix}.deconv1.weight"], p[f"{prefix}.deconv1.bias"],
+        stride, (pad, pad), out_hw))
+    x = conv_transpose2d(x, p[f"{prefix}.deconv2.weight"],
+                         p[f"{prefix}.deconv2.bias"], (1, 1), (pad, pad),
+                         out_hw)
+    return leaky_relu(x) if final_act else x
+
+
+def infill_ae_forward(params, x, *, kernel=3, downsample=True):
+    """AE.forward (models/AE.py:93-108): x [N, C_in, d, T] ->
+    (reconstruction [N, 1, d, T], z). The decoder's output sizes are
+    pinned to the encoder intermediates, as the reference passes
+    `x_down*.size()`."""
+    stride = (2, 2) if downsample else (2, 1)
+    sizes = [tuple(x.shape[2:])]
+    h = x
+    for i in range(1, 6):
+        h = _enc_block(params, f"enc_blc{i}", h, kernel=kernel, pool=True,
+                       pool_stride=stride)
+        sizes.append(tuple(h.shape[2:]))
+    z = h
+    for i, size in zip(range(1, 5), (sizes[4], sizes[3], sizes[2],
+                                     sizes[1])):
+        h = _dec_block(params, f"dec_blc{i}", h, size, kernel=kernel,
+                       stride=stride)
+    rec = _dec_block(params, "dec_blc5", h, sizes[0], kernel=kernel,
+                     stride=stride, final_act=False)
+    return rec, z
 
 
 def smooth_enc_forward(params, x, *, downsample=False):

@@ -1,7 +1,8 @@
-"""Synthetic SMPL-X model npz (copy of `lemo_tpu/testing/synthetic.py`'s
-`synthetic_smplx_npz`, random-triangle topology): the same keys, dtypes,
-shapes and kinematic topology as an official file, bit-identical to the
-JAX package's output for the same arguments."""
+"""Synthetic SMPL-X model npz and scene SDF (copies of
+`lemo_tpu/testing/synthetic.py`'s `synthetic_smplx_npz`, random-triangle
+topology, and `synthetic_sdf_grid`): the same keys, dtypes, shapes and
+kinematic topology as an official file, bit-identical to the JAX
+package's output for the same arguments."""
 
 from __future__ import annotations
 
@@ -128,3 +129,21 @@ def synthetic_smplx_npz(num_verts: int = 536, num_joints: int = 55,
         out["lmk_bary_coords"] = (bary / bary.sum(1, keepdims=True)).astype(
             np.float64)
     return out
+
+
+def synthetic_sdf_grid(dim: int = 64, floor_z: float = 0.0) -> dict:
+    """A scene SDF whose only geometry is a floor plane at z=floor_z,
+    matching the PROX scenes_sdf format (json + flat npy grid + normals)."""
+    lo = np.array([-3.0, -3.0, -1.0])
+    hi = np.array([3.0, 3.0, 3.0])
+    zs = np.linspace(lo[2], hi[2], dim)
+    sdf = np.broadcast_to(zs[None, None, :] - floor_z, (dim, dim, dim)).copy()
+    normals = np.zeros((dim, dim, dim, 3))
+    normals[..., 2] = 1.0
+    return {
+        "min": lo,
+        "max": hi,
+        "dim": dim,
+        "sdf": sdf.astype(np.float32),
+        "normals": normals.astype(np.float32),
+    }

@@ -24,22 +24,37 @@ Phases (any failure raises and the script exits non-zero):
    bodies and scans): d within 1e-6 m^2, idx equal on >= 99.99% of the
    queries and tied within 1e-6 m^2 where not; time, bound and error.
 6. The PROX slice: a full-size synthetic PROX recording (170 frames, two
-   windows of 100 at stride 70) written by the port's writer, fitted
-   through `run_prox_fitting` with cfg_files/PROXD_temp_S3_all_terms.yaml
-   read by the port's parser (interpenetration off, 100 Adam steps per
-   window instead of 900). Checks the reference-schema pkls, every term's
-   first and last value (s2m, m2s, contact non-zero) and 3 Chamfer
-   launches per step; reports ms/step and frame-iters/s of the second
-   window. Then refits each window from the same inputs once through the
-   kernels and once through the plain versions of all five kernels, both
-   under `torch.use_deterministic_algorithms`: the first step's loss
-   terms (same inputs, so only rounding differs) must agree within rel
-   1e-4 each and 1e-5 in total, and the last step's loss within rel
-   1e-3. The last-step
-   check is the coarse one (Adam's chatter on the L1 keypoint term
-   amplifies rounding to ~1e-3 of the loss over 100 steps); phase 5 and
-   the first-step terms hold the kernels tightly.
-   Phase 6 runs before phase 5, whose operands it captures.
+   windows of 100 at stride 70, the smooth-surface tube body at pose
+   scale 0.35, a 27-part segmentation pkl) written by the port's writer,
+   fitted through `run_prox_fitting` with
+   cfg_files/PROXD_temp_S3_all_terms.yaml read by the port's parser, as
+   shipped (interpenetration on: 8192 auto-grown candidates, six ignored
+   part pairs) but for 100 Adam steps per window instead of 900. Checks
+   the reference-schema pkls, every term's first and last value (s2m,
+   m2s, contact and self_penetration_loss non-zero), 3 Chamfer launches
+   and 1 intersection launch per step; reports each window's broad phase
+   (n_active, n_within, K, seconds) and the second window's ms/step and
+   frame-iters/s. Then refits each window from the same inputs once
+   through the kernels and once through the plain versions of all six
+   kernels, both under `torch.use_deterministic_algorithms`: the first
+   step's loss terms (same inputs, so only rounding differs) must agree
+   within rel 1e-4 each and 1e-5 in total, and the last step's loss
+   within rel 1e-3. The last-step check is the coarse one (Adam's
+   chatter on the L1 keypoint term amplifies rounding to ~1e-3 of the
+   loss over 100 steps); phases 5 and 7 and the first-step terms hold
+   the kernels tightly. The first-step coll term sees the body-model
+   kernels' rounding flip razor-edge gates; phase 7 is the intersection
+   kernel's own check. Each window's broad-phase warm-start bodies and
+   per-frame counts are kept in
+   lemo_tpu_torch/_build/prox_smoke/broad_phase_w<window>.npz, for
+   scripts/check_coll_broad_phase_jax.py.
+7. The intersection kernel against its plain version on the operands of
+   each window's first step: the [T=100, K] candidate subsets, one row
+   per distinct K with its launches, and all F faces of 4 frames of
+   window 1 (the `coll_candidates: 0` path). Energy within rel 1e-6 per
+   frame, gradients within 4e-5 of their largest magnitude, active-pair
+   counts equal; time, bound, and the face pairs tested and skipped.
+   Phase 6 runs before phases 5 and 7, whose operands it captures.
 
 Prints the kernels' JSON line, then as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -66,10 +81,22 @@ N_CALLS = 3
 REPS = 25
 PROX_FRAMES = 170
 PROX_STEPS = 100               # Adam steps per window (the config's 900, cut)
+REFIT_STEPS = 10               # steps of each refit in phase 6 (cut from 100)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PROX_CFG = os.path.join(ROOT, "cfg_files", "PROXD_temp_S3_all_terms.yaml")
 PROX_DIR = os.path.join(ROOT, "lemo_tpu_torch", "_build", "prox_smoke")
 CHAMFER_OPS_PER_PAIR = 9.0     # csrc/chamfer.cu: 3 mul + 2 add, add, mul, sub, cmp
+# csrc/intersection.cu, f32 operations of one face pair by the gate it
+# reaches: every tested pair the sphere gate (3 sub, 3 mul, 2 add, add,
+# mul, cmp); past it validity, adjacency and part (2 + 9 + 3); past those
+# the forward depths and straddle test (3 x (3 mul, 2 add, sub) + 2 min,
+# 2 max, 2 cmp); past that the reverse one (the same 24); past both the
+# cone tests (3 x (3 sub, 3 mul, 2 add, mul, sub, 2 cmp, select)) and
+# the accumulation of both roles (3 x (add, 2 mul, 2 add) + 3 x 3 x
+# (mul, sub) twice, about 51)
+ISECT_OPS = (11.0, 14.0, 24.0, 24.0, 39.0 + 51.0)
+ISECT_FACE_BYTES = 80.0 + 16.0 + 64.0   # per face: f32 data, ids, outputs
+N_FULL_F_FRAMES = 4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM data sheet, f32 outside tensor cores
 
@@ -116,21 +143,24 @@ def plain_twins():
     from lemo_tpu_torch.body_model import vertex_cuda as vc
     from lemo_tpu_torch.ops import chamfer as ch
     from lemo_tpu_torch.ops import chamfer_cuda as chc
+    from lemo_tpu_torch.ops import intersection as ti
+    from lemo_tpu_torch.ops import intersection_cuda as ic
 
     saved = (cc.chain_fwd_kernel, cc.chain_bwd_kernel,
              vc.vertex_fwd_kernel, vc.vertex_bwd_kernel,
-             chc.nn_select_kernel)
+             chc.nn_select_kernel, ic.cone_energy_kernel)
     cc.chain_fwd_kernel = cc.chain_planes_plain_fwd
     cc.chain_bwd_kernel = cc.chain_planes_plain_bwd
     vc.vertex_fwd_kernel = vc.vertex_plain_fwd
     vc.vertex_bwd_kernel = vc.vertex_plain_bwd
     chc.nn_select_kernel = ch.nn_select_plain
+    ic.cone_energy_kernel = ti.cone_energy_plain
     try:
         yield
     finally:
         (cc.chain_fwd_kernel, cc.chain_bwd_kernel,
          vc.vertex_fwd_kernel, vc.vertex_bwd_kernel,
-         chc.nn_select_kernel) = saved
+         chc.nn_select_kernel, ic.cone_energy_kernel) = saved
 
 
 @contextlib.contextmanager
@@ -415,45 +445,66 @@ def chamfer_spy(store: dict, tally: dict):
         chc.nn_select_kernel = real
 
 
+def smoke_model_dict() -> dict:
+    """The full-size synthetic SMPL-X (V=10475, 400 shape and 486 pose
+    directions) on the smooth-surface tube topology (F=20,080 faces that
+    only interpenetrate where body parts meet)."""
+    from lemo_tpu_torch.testing.synthetic import synthetic_smplx_npz
+
+    return synthetic_smplx_npz(full_size=True, smooth_surface=True)
+
+
 def prox_recording(model_dict, device):
-    """The phase-6 recording: 170 full-size frames written by the port's
-    writer into lemo_tpu_torch/_build/prox_smoke/ (git-ignored)."""
+    """The phase-6 recording: 170 full-size frames in mild contact (pose
+    scale 0.35) written by the port's writer into
+    lemo_tpu_torch/_build/prox_smoke/ (git-ignored), with a synthetic
+    27-part segmentation pkl (SMPL-X's part count) beside it."""
+    from lemo_tpu_torch.testing.synthetic import write_part_segm_pkl
     from lemo_tpu_torch.testing.synthetic_prox import \
         write_synthetic_prox_recording
 
     shutil.rmtree(PROX_DIR, ignore_errors=True)
-    return write_synthetic_prox_recording(
+    info = write_synthetic_prox_recording(
         os.path.join(PROX_DIR, "data"), num_frames=PROX_FRAMES,
-        model_dict=model_dict, seed=0, device=device)
+        model_dict=model_dict, seed=0, pose_scale=0.35, device=device)
+    info["part_segm_fn"] = os.path.join(PROX_DIR, "smplx_parts_segm.pkl")
+    write_part_segm_pkl(info["part_segm_fn"], model_dict["f"], num_parts=27)
+    return info
 
 
 def prox_config(info, out_dir: str, steps: int | None = None):
-    """The all-terms Stage-3 config, read by the port's own parser, with
-    interpenetration off (its kernel is not ported yet), `steps` Adam
-    steps per window, and no flip (the synthetic depth is rendered
+    """The all-terms Stage-3 config as shipped, read by the port's own
+    parser, with the recording's part segmentation, `steps` Adam steps
+    per window, and no flip (the synthetic depth is rendered
     unmirrored)."""
     from lemo_tpu_torch.config import parse_config
 
-    return parse_config(["--config", PROX_CFG, "--interpenetration", "false",
+    return parse_config(["--config", PROX_CFG,
                          "--recording_dir", info["recording_dir"],
+                         "--part_segm_fn", info["part_segm_fn"],
                          "--output_folder", out_dir, "--maxiters",
                          str(steps or PROX_STEPS), "--flip", "false"])
 
 
-def prox_assets(model, info):
+def prox_assets(model, info, cfg):
     """Synthetic assets: the recording's VPoser, a seeded random
-    smoothness encoder, and the shipped infill AE and statistics."""
+    smoothness encoder, the shipped infill AE and statistics, and the
+    part filter `cfg` names."""
     import torch
 
     from lemo_tpu_torch.data.stats import GlobalStats, Local4ChanStats
-    from lemo_tpu_torch.fitting.prox.driver import ProxAssets
+    from lemo_tpu_torch.fitting.prox.driver import ProxAssets, part_filter
     from lemo_tpu_torch.priors.conv_ae import init_smooth_enc, \
         load_state_dict_npz
 
     dev = model.device
     assets = os.path.join(ROOT, "lemo_tpu_torch", "assets")
+    faces_segm, ign_table = part_filter(cfg, model.faces)
+    if ign_table is None:
+        raise AssertionError("the part segmentation was not read")
     return ProxAssets(
         model=model, vposer_params=info["vposer_params"],
+        faces_segm=faces_segm, ign_table=ign_table,
         smooth_enc_params=init_smooth_enc(torch.Generator().manual_seed(1),
                                           device=dev),
         smooth_stats=GlobalStats.from_numpy(np.zeros((1, 1, 243)),
@@ -488,25 +539,78 @@ def _check_pkls(out_dir: str, info) -> int:
     return n
 
 
+@contextlib.contextmanager
+def intersection_spy(store: dict, tally: dict):
+    """Wrap the loss's self-intersection call: keep the first arguments of
+    each distinct (vertices, candidate ids) shape (vertices cloned), the
+    operands phase 7 rebuilds, and tally the calls per shape."""
+    from lemo_tpu_torch.fitting.prox import losses
+
+    real = losses.batched_self_intersection
+
+    def spy(verts, faces, **kw):
+        ids = kw.get("candidate_ids")
+        key = (tuple(verts.shape), None if ids is None else tuple(ids.shape))
+        tally[key] = tally.get(key, 0) + 1
+        if key not in store:
+            store[key] = (verts.detach().clone(), faces, kw)
+        return real(verts, faces, **kw)
+
+    losses.batched_self_intersection = spy
+    try:
+        yield
+    finally:
+        losses.batched_self_intersection = real
+
+
+@contextlib.contextmanager
+def broad_phase_spy(calls: list):
+    """Keep the warm-start bodies and the per-frame (n_active, n_within)
+    of each self-intersection broad phase (one a window)."""
+    from lemo_tpu_torch.fitting.prox import driver
+
+    real = driver._coll_candidate_scores
+
+    def spy(cfg, assets, verts):
+        scores, counts = real(cfg, assets, verts)
+        calls.append((verts.detach().cpu().numpy(), counts))
+        return scores, counts
+
+    driver._coll_candidate_scores = spy
+    try:
+        yield
+    finally:
+        driver._coll_candidate_scores = real
+
+
 def phase_prox(model, model_dict, card):
     """Phase 6a: the main-path PROX run with every launch counter at 0
-    before it. Returns (info, results, launch counts, each window's
-    fit_window inputs, chamfer operands and per-shape tally)."""
+    before it; writes each window's broad-phase inputs and counts to
+    PROX_DIR/broad_phase_w<window>.npz. Returns (info, results, launch
+    counts, each window's fit_window inputs, chamfer operands and
+    per-shape tally, self-intersection arguments and per-shape tally)."""
     import torch
 
     from lemo_tpu_torch.body_model import chain_cuda as cc
     from lemo_tpu_torch.body_model import vertex_cuda as vc
     from lemo_tpu_torch.fitting.prox import driver
     from lemo_tpu_torch.ops import chamfer_cuda as chc
+    from lemo_tpu_torch.ops import intersection_cuda as ic
 
     t0 = time.perf_counter()
     info = prox_recording(model_dict, model.device)
     _log(f"[prox] recording written in {time.perf_counter() - t0:.1f} s "
          f"({PROX_FRAMES} frames)")
-    assets = prox_assets(model, info)
     cfg = prox_config(info, os.path.join(PROX_DIR, "out_kernels"))
+    if not (cfg.interpenetration and cfg.coll_candidates > 0):
+        raise AssertionError("the shipped config no longer has the coll "
+                             "term on candidates")
+    assets = prox_assets(model, info, cfg)
     ops: dict = {}
     tally: dict = {}
+    isect: dict = {}
+    isect_tally: dict = {}
+    broad: list = []
     fits: list = []
     real_fit = driver.fit_window
 
@@ -514,29 +618,38 @@ def phase_prox(model, model_dict, card):
         fits.append((args, kw))             # the window's inputs
         return real_fit(*args, **kw)
 
-    for counts in (cc.launches, vc.launches, chc.launches):
+    launch_counts = (cc.launches, vc.launches, chc.launches, ic.launches)
+    for counts in launch_counts:
         for name in counts:
             counts[name] = 0
     driver.fit_window = recorded_fit
     try:
-        with chamfer_spy(ops, tally):
+        with chamfer_spy(ops, tally), intersection_spy(isect, isect_tally), \
+                broad_phase_spy(broad):
             results = driver.run_prox_fitting(cfg, assets, verbose=True)
     finally:
         driver.fit_window = real_fit
     torch.cuda.synchronize()
-    counts = {**cc.launches, **vc.launches, **chc.launches}
-    return info, results, counts, fits, ops, tally
+    counts = {k: v for c in launch_counts for k, v in c.items()}
+    for w, (verts, frame_counts) in enumerate(broad):
+        np.savez(os.path.join(PROX_DIR, f"broad_phase_w{w + 1}.npz"),
+                 verts=verts, counts=frame_counts, faces=model.faces,
+                 faces_segm=assets.faces_segm, ign_table=assets.ign_table,
+                 margin=float(cfg.coll_candidates_margin))
+    return info, results, counts, fits, ops, tally, isect, isect_tally
 
 
-def refit_windows(fits, plain_versions: bool, deterministic: bool = True):
+def refit_windows(fits, plain_versions: bool, deterministic: bool = True,
+                  steps: int | None = None):
     """Each window's fit again from the inputs the main run gave it
     (window statics, candidate sets and warm starts: the candidate sets
     are argsorts of distances, so 5e-7 m of f32 difference in the
     warm-start body changes which points are picked, and that, not the
     kernels, would dominate a whole-rerun comparison), by default under
     `torch.use_deterministic_algorithms`, so that repeat fits of one path
-    are bit-identical (scripts/prox_fit_spread.py). Returns (results,
-    fit seconds per window)."""
+    are bit-identical (scripts/prox_fit_spread.py); `steps` Adam steps
+    per window (default: the main run's). Returns (results, fit seconds
+    per window)."""
     import torch
 
     from lemo_tpu_torch.fitting.prox.window import fit_window, \
@@ -548,6 +661,8 @@ def refit_windows(fits, plain_versions: bool, deterministic: bool = True):
     try:
         with ctx:
             for args, kw in fits:
+                if steps is not None:
+                    kw = dict(kw, maxiters=steps)
                 model, vpp, mapper, static, weights = args[:5]
                 fitter = make_window_fitter(model, vpp, mapper, static,
                                             weights, maxiters=kw["maxiters"],
@@ -567,6 +682,7 @@ def phase_prox_check(info, results, counts, fits, card):
     1e-4, the total within 1e-5) and at the last (rel 1e-3)."""
 
     W = len(results)
+    steps = PROX_STEPS * W
     n_pkls = _check_pkls(os.path.join(PROX_DIR, "out_kernels"), info)
     _log(f"[prox] {W} windows, {n_pkls} pkls in the reference schema")
     if W != 2 or n_pkls != PROX_FRAMES:
@@ -578,20 +694,27 @@ def phase_prox_check(info, results, counts, fits, card):
         if not np.isfinite(r.loss_history).all() or \
                 not r.loss_history[-1] < r.loss_history[0]:
             raise AssertionError(f"window {w + 1} did not descend")
-        for k in ("s2m_dist", "m2s_dist", "contact_loss"):
+        for k in ("s2m_dist", "m2s_dist", "contact_loss",
+                  "self_penetration_loss"):
             if not th[k][0] > 0 or not th[k][-1] > 0:
                 raise AssertionError(f"window {w + 1}: {k} is zero")
-    steps = PROX_STEPS * W
+        bp = r.broad_phase
+        _log(f"[prox] window {w + 1} self-intersection broad phase: "
+             f"n_active {bp['n_active']}, n_within {bp['n_within']} (largest "
+             f"per frame), K {bp['K']}, scores pre-pass {bp['scores_s']:.3f} s"
+             f"; coll term first {th['self_penetration_loss'][0]:.6g} last "
+             f"{th['self_penetration_loss'][-1]:.6g} on {card}")
     # per window: 2 full-cloud + 2 candidate-subset selections in the
     # depth pre-pass, then 3 per step (s2m, m2s, contact); 2 forwards of
     # the warm start (candidate pre-passes, infill markers), then 1 a step
     per_step = (counts["chamfer"] - 4 * W) / steps
     _log(f"[prox] launches {counts}; chamfer per step {per_step:g}; "
+         f"intersection per step {counts['intersection'] / steps:g}; "
          f"chain/vertex fwd per step "
          f"{(counts['chain_fwd'] - 2 * W) / steps:g}, bwd per step "
          f"{counts['chain_bwd'] / steps:g}")
     if per_step != 3 or counts["vertex_bwd"] != steps or \
-            counts["chain_bwd"] != steps:
+            counts["chain_bwd"] != steps or counts["intersection"] != steps:
         raise AssertionError(f"kernel launches per step off: {counts}")
     T = results[1].params["transl"].shape[0]
     timing = results[1].timings
@@ -601,17 +724,20 @@ def phase_prox_check(info, results, counts, fits, card):
          f"(T={T}, {PROX_STEPS} steps after warm window 1) on {card}; "
          f"split {json.dumps(timing)}")
 
-    kern, kern_s = refit_windows(fits, plain_versions=False)
-    plain, plain_s = refit_windows(fits, plain_versions=True)
-    _log(f"[prox] refits under deterministic algorithms, window 2: kernels "
-         f"{kern_s[1] / PROX_STEPS * 1e3:.3f} ms/step, plain versions "
-         f"{plain_s[1] / PROX_STEPS * 1e3:.3f} ms/step on {card}")
+    kern, kern_s = refit_windows(fits, False, steps=REFIT_STEPS)
+    plain, plain_s = refit_windows(fits, True, steps=REFIT_STEPS)
+    _log(f"[prox] refits under deterministic algorithms ({REFIT_STEPS} "
+         f"steps a window), window 2: kernels "
+         f"{kern_s[1] / REFIT_STEPS * 1e3:.3f} ms/step, plain versions "
+         f"{plain_s[1] / REFIT_STEPS * 1e3:.3f} ms/step on {card}")
     faults = []
     for w, (r, k, p) in enumerate(zip(results, kern, plain)):
         # the first step sees the same inputs through both paths, so only
         # the body-model kernels' rounding (<= 1e-6 m, phase 3) separates
         # its terms: 1e-5 of the total, 1e-4 of each term (a term of
-        # millimetre distances, m2s, moves by ~2 * 1e-7 m / 2 mm a point)
+        # millimetre distances, m2s, moves by ~2 * 1e-7 m / 2 mm a point;
+        # the coll term by what that rounding does to razor-edge gates,
+        # while phase 7 holds the intersection kernel itself bit-equal)
         first = {n: (float(k.term_history[n][0]), float(p.term_history[n][0]))
                  for n in k.term_history}
         rel0 = {n: abs(a - b) / abs(b) for n, (a, b) in first.items() if b}
@@ -717,6 +843,112 @@ def phase_chamfer(ops, tally, card) -> list[dict]:
     return rows
 
 
+def _gate_counts(pack, ipack, tiles, ign) -> list[float]:
+    """Face pairs of the kernel's operands by the gate they reach: in the
+    tile pairs it tests (not skipped by the tile spheres; padding faces
+    not counted), past the sphere gate, past validity/adjacency/part,
+    past the forward straddle test, past both straddle tests (the plain
+    version's gate arithmetic, `ops.intersection`)."""
+    from lemo_tpu_torch.ops import intersection as ti
+
+    T, Kp, _ = pack.shape
+    NT = Kp // ti.TILE
+    tp, a, b = ti.tile_pairs(tiles).nonzero(as_tuple=True)
+    nvalid = pack[..., 9].reshape(T * NT, ti.TILE).sum(-1).double()
+    counts = [float((nvalid[tp * NT + a] * nvalid[tp * NT + b]).sum()),
+              0.0, 0.0, 0.0, 0.0]
+    flat = pack.reshape(T * Kp, ti.PACK)
+    ids = ipack.expand(T, -1, -1).reshape(T * Kp, 4)
+    for i, j in ti.sphere_pairs(pack):
+        m, fwd, rev, _, _ = ti.pair_gates(flat[i], flat[j], ids[i], ids[j],
+                                          ign)
+        m &= (flat[i, 9] > 0) & (flat[j, 9] > 0)
+        counts[1] += float(((flat[i, 9] > 0) & (flat[j, 9] > 0)).sum())
+        counts[2] += float(m.sum())
+        counts[3] += float((m & fwd).sum())
+        counts[4] += float((m & fwd & rev).sum())
+    return counts
+
+
+def phase_intersection(isect, tally, launches, card) -> list[dict]:
+    """Phase 7: the intersection kernel against its plain version on the
+    operands of the first self-intersection call of each shape phase 6
+    gave it (each window's [T, K] candidate subsets), and on all F faces
+    of 4 frames of the first (the full-F path). Returns one JSON row per
+    main-path shape, with its launches; the full-F shape, which the
+    shipped config does not run, is printed only."""
+    import torch
+
+    from lemo_tpu_torch.ops import intersection as ti
+    from lemo_tpu_torch.ops import intersection_cuda as ic
+
+    if sum(tally.values()) != launches:
+        raise AssertionError(f"intersection launches {launches} but the "
+                             f"loss called it {tally}")
+    sites = [(f"intersection/subset_K{key[1][-1]}", key) + isect[key]
+             for key in isect if key[1] is not None]
+    v0, faces, kw0 = next(iter(isect.values()))
+    sites.append(("intersection/full_F", None, v0[:N_FULL_F_FRAMES], faces,
+                  dict(kw0, candidate_ids=None)))
+    rows = []
+    for name, key, v, faces, kw_ in sites:
+        ops = ti.kernel_operands(v, faces, **kw_)
+        T, Kp = ops[0].shape[0], ops[0].shape[1]
+        ids = kw_.get("candidate_ids")
+        K = faces.shape[0] if ids is None else ids.shape[-1]
+        ke, kg, kt, ka = ic.cone_energy_kernel(*ops)
+        pe, pg, pt, pa = ti.cone_energy_plain(*ops)
+        torch.cuda.synchronize()
+        Ek, Ep = ke.sum(1), pe.sum(1)
+        e_rel = float(((Ek - Ep).abs() / Ep.abs().clamp_min(1e-300)).max())
+        e_ok = bool(((Ek - Ep).abs() <= 1e-6 * Ep.abs()).all())
+        g_err = max(_max_rel(kg, pg), _max_rel(kt, pt))
+        act_k, act_p = int(ka.sum()), int(pa.sum())
+        finite = all(bool(torch.isfinite(x).all()) for x in (ke, kg, kt))
+        ms = _time_ms(lambda: ic.cone_energy_kernel(*ops))
+        plain_ms = _time_ms(lambda: ti.cone_energy_plain(*ops), 5)
+        gates = _gate_counts(*ops)
+        all_pairs = float(T) * K * K
+        flops = sum(o * n for o, n in zip(ISECT_OPS, gates))
+        # each face's data, ids and outputs once, the tile spheres, the
+        # part table
+        nbytes = (ISECT_FACE_BYTES * T * K + 16.0 * ops[2].numel() / 4
+                  + (0 if ops[3] is None else ops[3].numel()))
+        bound, by = _bound_ms(nbytes, flops)
+        n_launch = tally[key] if key is not None else 0
+        _log(f"[intersection] {name} T={T} K={K} (padded {Kp}): energy "
+             f"{float(Ep.sum()):.6g} ({int((Ep > 0).sum())}/{T} frames "
+             f"non-zero), max rel err per frame {e_rel:.3e} (tol 1e-6), "
+             f"gradients {g_err:.3e} of their max (tol 4e-5), active pairs "
+             f"kernel {act_k} plain {act_p}; kernel {ms:.4f} ms, plain "
+             f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); face pairs "
+             f"tested {gates[0]:.4e} of {all_pairs:.4e} (skipped "
+             f"{all_pairs - gates[0]:.4e}), past the sphere gate "
+             f"{gates[1]:.4e}, past validity/adjacency/part {gates[2]:.4e}, "
+             f"past both straddle tests {gates[4]:.4e}; launched {n_launch}x "
+             f"in phase 6; on {card}")
+        if not (finite and e_ok and g_err <= 4e-5 and act_k == act_p):
+            raise AssertionError(f"{name}: kernel disagrees with plain "
+                                 f"(energy {e_rel}, grad {g_err}, active "
+                                 f"{act_k}/{act_p}, finite {finite})")
+        if n_launch:
+            rows.append({"name": name, "route": "cuda",
+                         "source": "lemo_tpu_torch/csrc/intersection.cu",
+                         "replaces": "lemo_tpu/ops/intersection_pallas.py:55",
+                         "launches": n_launch,
+                         "max_abs_err": max(float((kg - pg).abs().max()),
+                                            float((kt - pt).abs().max())),
+                         "max_rel_err": max(e_rel, g_err), "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound,
+                         "bound_by": by, "library_ms": None,
+                         "shape": [T, K], "pairs_tested": gates[0],
+                         "pairs_all": all_pairs})
+    if not rows:
+        raise AssertionError("the main path did not launch the "
+                             "intersection kernel")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -726,7 +958,6 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from lemo_tpu_torch import _build, exact_f32_matmuls
     from lemo_tpu_torch.body_model import load_model
-    from lemo_tpu_torch.testing.synthetic import synthetic_smplx_npz
 
     exact_f32_matmuls()
     card = _card_line()
@@ -738,11 +969,11 @@ def main() -> int:
          f"{os.path.relpath(path)}")
 
     t0 = time.perf_counter()
-    model_dict = synthetic_smplx_npz(full_size=True)
+    model_dict = smoke_model_dict()
     model = load_model(model_dict, use_pca=True, num_pca_comps=12,
                        device="cuda")
     _log(f"[setup] full-size model loaded in {time.perf_counter() - t0:.1f} s"
-         f" (V={model.num_verts}, fused_dirs "
+         f" (V={model.num_verts}, F={model.faces.shape[0]}, fused_dirs "
          f"{tuple(model.consts['fused_dirs'].shape)})")
 
     rows = phase_kernels(model, card)
@@ -750,9 +981,11 @@ def main() -> int:
     counts, _ = phase_slice(model, card)
     for row in rows:
         row["launches"] = counts[row["name"]]
-    info, results, p_counts, fits, ops, tally = \
+    info, results, p_counts, fits, ops, tally, isect, isect_tally = \
         phase_prox(model, model_dict, card)
     rows += phase_chamfer(ops, tally, card)
+    rows += phase_intersection(isect, isect_tally, p_counts["intersection"],
+                               card)
     phase_prox_check(info, results, p_counts, fits, card)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,7 @@ from functools import lru_cache
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("chain.cu", "vertex.cu", "chamfer.cu")
+SOURCES = ("chain.cu", "vertex.cu", "chamfer.cu", "intersection.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
@@ -40,6 +40,7 @@ SIGNATURES = {
                         _I, _I, _I, _I, _P],
     "lemo_vertex_bwd_tiles": [_I],
     "lemo_nn_select": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "lemo_cone_energy": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -107,6 +108,18 @@ def load_library() -> ctypes.CDLL:
     lib.lemo_error_string.argtypes = [ctypes.c_int]
     lib.lemo_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def check_operand(name: str, t, dtype, shapes) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` with one of
+    `shapes`: what a kernel's wrapper checks before it launches."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous {dtype}, got "
+                         f"{t.dtype} (contiguous={t.is_contiguous()})")
+    if tuple(t.shape) not in [tuple(s) for s in shapes]:
+        raise ValueError(f"{name}: shape {tuple(t.shape)} not in {shapes}")
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -2,9 +2,10 @@
 temp_prox/main_slide.py):
 
   python -m lemo_tpu_torch.cli.main_slide \
-      --config cfg_files/PROXD_temp_S3_all_terms.yaml --interpenetration false \
+      --config cfg_files/PROXD_temp_S3_all_terms.yaml \
       --recording_dir /path/to/PROX/recordings/N3OpenArea_00157_01 \
-      --model_folder /path/to/body_models --vposer_ckpt /path/to/vposer
+      --model_folder /path/to/body_models --vposer_ckpt /path/to/vposer \
+      --part_segm_fn /path/to/body_models/smplx_parts_segm.pkl
 
 Runs on the CUDA card.
 """

@@ -328,11 +328,6 @@ class ProxConfig:
 
 def check_ported(cfg: ProxConfig) -> None:
     """Raise on a set option whose path the port does not have yet."""
-    if cfg.interpenetration:
-        raise NotImplementedError(
-            "interpenetration: the self-intersection term is not ported to "
-            "lemo_tpu_torch yet (ROADMAP.md queue 1, slice 7); set "
-            "interpenetration: false")
     if cfg.window_parallel:
         raise NotImplementedError(
             "window_parallel: the window-parallel fitter is not ported to "

@@ -19,8 +19,9 @@ from lemo_tpu_torch.data.stats import GlobalStats, Local4ChanStats
 # ProxStatic fields that index (int64 in the port) or mask (bool)
 _ID_FIELDS = ("contact_verts_ids", "fric_verts_ids", "smooth_marker_ids",
               "infill_marker_ids", "sdf_candidate_ids",
-              "depth_scan_cand_ids", "depth_vert_cand_ids", "faces_vis")
-_MASK_FIELDS = ("scan_mask", "body_mask", "depth_vis_frozen")
+              "depth_scan_cand_ids", "depth_vert_cand_ids", "faces_vis",
+              "faces", "faces_segm", "coll_candidate_ids")
+_MASK_FIELDS = ("scan_mask", "body_mask", "depth_vis_frozen", "ign_table")
 
 
 def from_numpy_tree(tree, device):
@@ -42,8 +43,7 @@ def from_numpy_tree(tree, device):
 def prox_static_from_numpy(st, device, sdf_mode: str | None = None):
     """Any object with `lemo_tpu`'s ProxStatic fields (arrays as numpy or
     anything `np.asarray` takes) -> the port's ProxStatic on `device`.
-    Id fields become int64, masks bool; the self-intersection fields,
-    which the port's ProxStatic does not have yet, are dropped.
+    Id fields become int64, masks bool.
     `sdf_packed` is not carried (the JAX package packs it into uint32
     words); with `sdf_mode` ('bf16' or 'fp8') the port's quantized grid is
     built from `sdf` instead."""

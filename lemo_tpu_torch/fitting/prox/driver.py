@@ -8,9 +8,8 @@ a killed run resumes), runs the infill pre-pass and the candidate
 pre-passes, fits the window stage by stage, and writes per-frame pkls
 and a conf.yaml snapshot. Not ported yet, and raising when asked for
 (`config.prox_config.check_ported`): the window-parallel driver
-(ROADMAP.md queue 1, slice 8), self-interpenetration (slice 7) and the
-mesh/render saver (slice 10); the tensorboard logger (slice 10) is
-simply absent.
+(ROADMAP.md queue 1, slice 8) and the mesh/render saver (slice 10); the
+tensorboard logger (slice 10) is simply absent.
 """
 
 from __future__ import annotations
@@ -95,6 +94,43 @@ class ProxAssets:
     infill_ae_params: dict | None = None
     infill_stats: Local4ChanStats | None = None
     scene_verts: np.ndarray | None = None
+    # the part filter of the self-intersection term: [F] part id per face
+    # and the [P, P] bool ignore table folded from ign_part_pairs and the
+    # part parents (load_part_segm)
+    faces_segm: np.ndarray | None = None
+    ign_table: np.ndarray | None = None
+
+
+def load_part_segm(part_segm_fn: str, faces: np.ndarray,
+                   ign_part_pairs: list) -> tuple[np.ndarray, np.ndarray]:
+    """Read smplx_parts_segm.pkl ({'segm': [F], 'parents': [F]}, a latin1
+    pickle, as fit_temp_loadprox_slide.py:335-340 reads it) -> (faces_segm,
+    ign_table) for the intersection kernel."""
+    import pickle
+
+    from lemo_tpu_torch.ops.intersection import build_face_filter
+
+    with open(osp.expandvars(part_segm_fn), "rb") as fh:
+        data = pickle.load(fh, encoding="latin1")
+    filt = build_face_filter(faces, faces_segm=data["segm"],
+                             ign_part_pairs=list(ign_part_pairs),
+                             faces_parents=data.get("parents"))
+    return filt["segm"], filt["ign_table"]
+
+
+def part_filter(cfg: ProxConfig, faces: np.ndarray) -> tuple:
+    """(faces_segm, ign_table) of the self-intersection term: read from
+    cfg.part_segm_fn when interpenetration is on, else (None, None), with
+    a warning when ign_part_pairs is set but no part file is."""
+    if cfg.interpenetration and cfg.part_segm_fn:
+        return load_part_segm(cfg.part_segm_fn, faces, cfg.ign_part_pairs)
+    if cfg.interpenetration and cfg.ign_part_pairs:
+        warnings.warn(
+            "interpenetration is on and ign_part_pairs is set, but "
+            "part_segm_fn is empty: part-pair filtering is inert and the "
+            "term penalizes all overlapping pairs (point part_segm_fn at "
+            "smplx_parts_segm.pkl)")
+    return None, None
 
 
 def _load_vposer(expr_dir: str, device) -> dict:
@@ -150,9 +186,11 @@ def load_assets(cfg: ProxConfig, device=None) -> ProxAssets:
             if infill_stats is None:
                 infill_stats = Local4ChanStats.load(
                     osp.join(_ASSET_DIR, "infill_stats.npz"), dev)
+    faces_segm, ign_table = part_filter(cfg, model.faces)
     return ProxAssets(model=model, vposer_params=vposer_params,
                       smooth_enc_params=smooth_enc, smooth_stats=smooth_stats,
-                      infill_ae_params=infill_ae, infill_stats=infill_stats)
+                      infill_ae_params=infill_ae, infill_stats=infill_stats,
+                      faces_segm=faces_segm, ign_table=ign_table)
 
 
 _SDF_CACHE: dict = {}
@@ -210,6 +248,85 @@ def _sdf_candidate_ids(cfg: ProxConfig, verts: torch.Tensor,
             f"{cfg.sdf_candidates_margin} m of the scene at warm start; "
             "raise sdf_candidates or the term may miss penetrations")
     return np.argsort(min_sdf)[:K].astype(np.int64)
+
+
+def _coll_candidate_scores(cfg: ProxConfig, assets: ProxAssets,
+                           verts: torch.Tensor) -> tuple:
+    """Per-frame face slack scores [T, F] and (n_active, n_within) counts
+    [T, 2] of the self-intersection broad phase (one O(F^2) forward-only
+    sweep of the warm-start body `verts` [T, V, 3];
+    ops.intersection.intersection_candidate_scores_batched)."""
+    from lemo_tpu_torch.ops.intersection import \
+        intersection_candidate_scores_batched
+
+    dev = verts.device
+    segm = (torch.as_tensor(assets.faces_segm, device=dev)
+            if assets.faces_segm is not None else None)
+    tab = (torch.as_tensor(assets.ign_table, device=dev)
+           if assets.ign_table is not None else None)
+    scores, counts = intersection_candidate_scores_batched(
+        verts, torch.as_tensor(assets.model.faces, device=dev),
+        margin=float(cfg.coll_candidates_margin), segm=segm, ign_table=tab)
+    return scores.cpu().numpy(), counts.cpu().numpy()
+
+
+def _coll_pick_K(cfg: ProxConfig, n_active: int, n_within: int,
+                 F: int) -> int:
+    """Candidate-set size from the configured K and the warm-start live
+    count. With cfg.coll_candidates_auto, K grows to cover every face on a
+    firing pair, rounded up to a multiple of 1024, so the subset energy
+    is exact at refresh time at any configured K."""
+    K = min(int(cfg.coll_candidates), F)
+    if n_active > K:
+        if cfg.coll_candidates_auto:
+            K = min(F, -(-n_active // 1024) * 1024)
+            print(f"[lemo_tpu_torch] coll_candidates auto-grown to {K} "
+                  f"({n_active} faces on firing pairs at warm start > "
+                  f"configured {cfg.coll_candidates})", flush=True)
+        else:
+            warnings.warn(
+                f"coll_candidates={K} < {n_active} faces on FIRING energy "
+                "pairs at warm start: the subset energy is already "
+                "missing penetrations at refresh time; raise "
+                "coll_candidates or set coll_candidates_auto")
+    elif n_within > K:
+        warnings.warn(
+            f"coll_candidates={K} < {n_within} faces within "
+            f"{cfg.coll_candidates_margin} m of a collision partner at "
+            f"warm start ({n_active} live): the margin headroom is "
+            "truncated; raise coll_candidates or lower "
+            "coll_candidates_margin")
+    return K
+
+
+def _coll_ids_from_scores(scores: np.ndarray, K: int) -> np.ndarray:
+    """[T, F] slack scores -> [T, K] face ids (the K smallest slacks),
+    in face-id order: the subset energy is order-invariant, and face-id
+    order keeps the kernel's tiles compact on the mesh, so its tile-pair
+    skip works."""
+    ids = np.argsort(scores, axis=1)[:, :K]
+    return np.sort(ids, axis=-1).astype(np.int64)
+
+
+def _coll_candidate_ids(cfg: ProxConfig, assets: ProxAssets, warm: dict,
+                        verts: torch.Tensor | None = None
+                        ) -> tuple[np.ndarray, dict]:
+    """[T, K] face ids of the self-intersection broad phase
+    (cfg.coll_candidates): per frame, the K warm-start faces nearest to
+    firing. One O(F^2) sweep per window amortizes the reference's per-step
+    BVH rebuild (fit_temp_loadprox_slide.py:319-344). `verts`: the
+    warm-start body when the caller has it. Returns (ids, stats): the
+    largest per-frame n_active and n_within, the K chosen and the sweep's
+    seconds."""
+    if verts is None:
+        verts = _warm_start_vertices(cfg, assets, warm)
+    t0 = time.perf_counter()
+    scores, counts = _coll_candidate_scores(cfg, assets, verts)
+    n_active, n_within = int(counts[:, 0].max()), int(counts[:, 1].max())
+    K = _coll_pick_K(cfg, n_active, n_within, assets.model.faces.shape[0])
+    stats = dict(n_active=n_active, n_within=n_within, K=K,
+                 scores_s=time.perf_counter() - t0)
+    return _coll_ids_from_scores(scores, K), stats
 
 
 def _gmof_np(d: np.ndarray, rho: float) -> np.ndarray:
@@ -291,16 +408,22 @@ def _depth_candidate_data(cfg: ProxConfig, verts: torch.Tensor,
 def _candidate_updates(cfg: ProxConfig, assets: ProxAssets, warm: dict,
                        st: ProxStatic) -> dict:
     """The candidate-dependent ProxStatic fields from a warm start (the
-    window build and the stage-boundary refresh)."""
+    window build and the stage-boundary refresh), and under "broad_phase"
+    the self-intersection pre-pass's stats (`_coll_candidate_ids`)."""
     dev = assets.model.device
     upd: dict = {}
     want_sdf = bool(cfg.sdf_penetration and st.sdf is not None
                     and cfg.sdf_candidates > 0)
     want_depth = bool((cfg.s2m or cfg.m2s) and st.scan is not None
                       and cfg.depth_candidates > 0)
-    if not (want_sdf or want_depth):
+    want_coll = bool(cfg.interpenetration and cfg.coll_candidates > 0)
+    if not (want_sdf or want_depth or want_coll):
         return upd
     verts = _warm_start_vertices(cfg, assets, warm)      # one forward
+    if want_coll:
+        ids, upd["broad_phase"] = _coll_candidate_ids(cfg, assets, warm,
+                                                      verts)
+        upd["coll_candidate_ids"] = torch.as_tensor(ids, device=dev)
     if want_sdf:
         upd["sdf_candidate_ids"] = torch.as_tensor(
             _sdf_candidate_ids(cfg, verts, st), device=dev)
@@ -337,8 +460,10 @@ def stage_joint_weights(cfg: ProxConfig, joint_weights: np.ndarray,
 def build_window_static(cfg: ProxConfig, assets: ProxAssets,
                         rec: ProxRecording, window_data: dict,
                         joint_weights: np.ndarray, infill_result=None,
-                        stage: int = 0,
-                        with_candidates: bool = True) -> ProxStatic:
+                        stage: int = 0, with_candidates: bool = True
+                        ) -> tuple[ProxStatic, dict | None]:
+    """The window's ProxStatic and the stats of its self-intersection
+    broad phase (None when it did not run)."""
     model = assets.model
     dev = model.device
     V = model.num_verts
@@ -383,17 +508,26 @@ def build_window_static(cfg: ProxConfig, assets: ProxAssets,
         marker_mask=t(window_data["marker_mask"]),
         infill_marker_ids=t(mk.marker_indices(False, num_verts=V), i64),
         faces_vis=(t(model.faces, i64) if depth else None),
+        faces=t(model.faces, i64) if cfg.interpenetration else None,
+        faces_segm=(t(assets.faces_segm, i64)
+                    if cfg.interpenetration and assets.faces_segm is not None
+                    else None),
+        ign_table=(t(assets.ign_table, torch.bool)
+                   if cfg.interpenetration and assets.ign_table is not None
+                   else None),
     )
+    broad_phase = None
     if with_candidates:
         warm = {k: t(v) for k, v in window_data["warm_start"].items()}
         upd = _candidate_updates(cfg, assets, warm, st)
+        broad_phase = upd.pop("broad_phase", None)
         if upd:
             st = dataclasses.replace(st, **upd)
     if infill_result is not None:
         st = dataclasses.replace(
             st, infill_targets=infill_result.targets_world,
             infill_contact_lbl=infill_result.contact_lbl)
-    return st
+    return st, broad_phase
 
 
 _CAMERA_PKL_PARAMS = {
@@ -440,8 +574,10 @@ def run_prox_fitting(cfg: ProxConfig, assets: ProxAssets | None = None,
     the wall-clock split of its window in `timings` (seconds for load,
     infill pre-pass, static build with the candidate pre-passes, fit and
     save; every phase ends in a host read of device results, so the split
-    is synchronous). The fit runs on `assets.model.device` (or `device`
-    when assets are loaded here: None means the CUDA card)."""
+    is synchronous) and, with interpenetration candidates, the last
+    stage's self-intersection pre-pass in `broad_phase`. The fit runs on
+    `assets.model.device` (or `device` when assets are loaded here: None
+    means the CUDA card)."""
     check_ported(cfg)
     if assets is None:
         assets = load_assets(cfg, device)
@@ -529,14 +665,15 @@ def _fit_windows_sequential(cfg, assets, rec, ds, jw, mapper, result_folder,
         result = None
         wd_stage = wd
         timing["static_s"] = timing["fit_s"] = 0.0
+        broad_phase = None
         for stage in range(cfg.n_stages):
             if stage > 0 and cfg.candidates_refresh_stages:
                 wd_stage = dict(wd)
                 wd_stage["warm_start"] = {k: v.cpu().numpy()
                                           for k, v in warm.items()}
             t1 = time.perf_counter()
-            static = build_window_static(cfg, assets, rec, wd_stage, jw,
-                                         infill_result, stage=stage)
+            static, broad_phase = build_window_static(
+                cfg, assets, rec, wd_stage, jw, infill_result, stage=stage)
             timing["static_s"] += time.perf_counter() - t1
             w_s = weights_from_config(cfg, stage)
             if stage not in stage_fitters:
@@ -571,7 +708,8 @@ def _fit_windows_sequential(cfg, assets, rec, ds, jw, mapper, result_folder,
                          camera_params=_CAMERA_PKL_PARAMS)
         timing["save_s"] = time.perf_counter() - t1
         timing["total_s"] = time.perf_counter() - t0
-        results.append(dataclasses.replace(result, timings=timing))
+        results.append(dataclasses.replace(
+            result, timings=timing, broad_phase=broad_phase))
         if verbose:
             print(f"[window {widx + 1}/{n_windows}] frames "
                   f"{ds.windows[widx]}: loss {result.final_loss:.4f} "

@@ -4,12 +4,14 @@ SMPLifyLoss.forward, temp_prox/fitting_temp_slide.py:564-1062).
 Loss families: 2-D keypoints, pose/shape/angle/hand/expression priors,
 depth s2m/m2s Chamfer with z-buffer visibility, scene-SDF penetration,
 ground friction, scene-contact Chamfer, naive smoothness, the learned
-motion-smoothness prior and the motion-infill terms. Self-interpenetration
-(`w.coll > 0`) is not ported yet and raises (ROADMAP.md queue 1, slice 7).
+motion-smoothness prior, the motion-infill terms and self-interpenetration
+(`self_penetration_loss`, the cone energy of `ops.intersection`).
 
 The JAX package `vmap`s its per-frame Chamfer calls over the T frames of a
 window; here every Chamfer call is one batched `nn_distance` over all T
 frames, so a step issues one selection per direction (s2m, m2s, contact).
+The self-interpenetration term likewise takes all T frames in one call
+of the intersection kernel (the JAX package maps them one at a time).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from lemo_tpu_torch.fitting.amass_temp import smoothness_prior_loss
 from lemo_tpu_torch.fitting.prox.camera import PerspectiveCamera
 from lemo_tpu_torch.ops import robust
 from lemo_tpu_torch.ops.chamfer import nn_distance
+from lemo_tpu_torch.ops.intersection import batched_self_intersection
 from lemo_tpu_torch.ops.sdf import sample_sdf_world
 from lemo_tpu_torch.ops.select import take_rows
 from lemo_tpu_torch.ops.visibility import vertex_normals, visibility_zbuffer
@@ -58,6 +61,9 @@ class ProxWeights:
     friction_tangent: float = 20.0
     motion_infill_rec: float = 0.0
     motion_infill_contact: float = 0.0
+    # the JAX package's frame chunk of its dense self-intersection sweep;
+    # unused here: the kernel takes all T frames in one launch, and its
+    # plain version bounds its memory by chunking face pairs instead
     coll_frame_chunk: int = 2
     # the penetration term samples the fp8-quantized grid (ProxConfig
     # sdf_fp8); otherwise the bf16 one when `sdf_packed` holds it
@@ -102,6 +108,13 @@ class ProxStatic:
     m2s_frozen: Any = None           # [T, 2]: (frozen gmof*vis sum, count)
     depth_vis_frozen: Any = None     # [T, Kv] bool
     faces_vis: Any = None            # [F, 3] int64, vertex normals
+    # self-intersection: the body's faces, their part ids and the [P, P]
+    # part-pair ignore table (driver.load_part_segm), and per frame the
+    # K candidate faces in face-id order (driver._coll_candidate_ids)
+    faces: Any = None                # [F, 3] int64
+    faces_segm: Any = None           # [F] int64
+    ign_table: Any = None            # [P, P] bool
+    coll_candidate_ids: Any = None   # [T, K] int64
     image_size: tuple = (1920, 1080)
 
 
@@ -271,11 +284,6 @@ def make_prox_loss(forward_fn, consts, joint_mapper, vposer_params,
     VPoser the pose prior is the latent L2; hand/expression priors are
     summed then scaled by weight**2; the jaw prior sees jaw * weight.
     """
-    if w.coll > 0:
-        raise NotImplementedError(
-            "the self-interpenetration term is not ported to lemo_tpu_torch "
-            "yet (ROADMAP.md queue 1, slice 7: the intersection kernel); "
-            "set interpenetration: false")
     priors = dict(priors or {})
     p_body = priors.get("body", l2_prior)
     p_lhand = priors.get("left_hand", l2_prior)
@@ -326,7 +334,13 @@ def make_prox_loss(forward_fn, consts, joint_mapper, vposer_params,
             p_expr(opt_vars["expression"])) * w.expr ** 2
         terms["jaw_prior_loss"] = torch.sum(p_jaw(opt_vars["jaw_pose"]
                                                   * w.jaw))
-        terms["self_penetration_loss"] = zero
+        if w.coll > 0 and st.faces is not None:
+            terms["self_penetration_loss"] = w.coll * \
+                batched_self_intersection(
+                    verts, st.faces, candidate_ids=st.coll_candidate_ids,
+                    segm=st.faces_segm, ign_table=st.ign_table).sum()
+        else:
+            terms["self_penetration_loss"] = zero
 
         if (w.s2m > 0 or w.m2s > 0) and st.scan is not None:
             terms["s2m_dist"], terms["m2s_dist"] = depth_terms(verts, st, w)

@@ -43,6 +43,9 @@ class WindowResult:
     # wall-clock seconds of this window's phases in run_prox_fitting
     # (load, infill pre-pass, static build, fit, save, total)
     timings: dict[str, float] | None = None
+    # the self-intersection candidate pre-pass of the window's last stage
+    # (driver._coll_candidate_ids): n_active, n_within, K, scores_s
+    broad_phase: dict | None = None
 
 
 def init_opt_vars(prox_params: dict[str, torch.Tensor], T: int,

@@ -17,19 +17,10 @@ from __future__ import annotations
 import torch
 
 from lemo_tpu_torch import _build
+from lemo_tpu_torch._build import check_operand
 
 # launches of the kernel, counted where the wrapper launches it
 launches = {"chamfer": 0}
-
-
-def _check(name, t, dtype, shapes):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype or not t.is_contiguous():
-        raise ValueError(f"{name}: expected contiguous {dtype}, got "
-                         f"{t.dtype} (contiguous={t.is_contiguous()})")
-    if tuple(t.shape) not in [tuple(s) for s in shapes]:
-        raise ValueError(f"{name}: shape {tuple(t.shape)} not in {shapes}")
 
 
 def nn_select_kernel(query: torch.Tensor, points: torch.Tensor,
@@ -42,11 +33,13 @@ def nn_select_kernel(query: torch.Tensor, points: torch.Tensor,
     M = points.shape[1]
     query = query.contiguous()
     points = points.contiguous()
-    _check("query", query, torch.float32, [(T, N, 3)])
-    _check("points", points, torch.float32, [(T, M, 3), (1, M, 3)])
+    check_operand("query", query, torch.float32, [(T, N, 3)])
+    check_operand("points", points, torch.float32,
+                  [(T, M, 3), (1, M, 3)])
     if points_mask is not None:
         points_mask = points_mask.contiguous()
-        _check("points_mask", points_mask, torch.bool, [(T, M), (1, M)])
+        check_operand("points_mask", points_mask, torch.bool,
+                      [(T, M), (1, M)])
     if T * N == 0:
         return (torch.zeros((T, N), dtype=torch.int64, device=query.device),
                 torch.full((T, N), float("inf"), device=query.device))

@@ -1,8 +1,10 @@
-"""Synthetic SMPL-X model npz and scene SDF (copies of
-`lemo_tpu/testing/synthetic.py`'s `synthetic_smplx_npz`, random-triangle
-topology, and `synthetic_sdf_grid`): the same keys, dtypes, shapes and
-kinematic topology as an official file, bit-identical to the JAX
-package's output for the same arguments."""
+"""Synthetic SMPL-X model npz, scene SDF and part segmentation (copies of
+`lemo_tpu/testing/synthetic.py`'s `synthetic_smplx_npz` with both
+topologies, `synthetic_sdf_grid`, `compact_part_table` and
+`write_part_segm_pkl`): the same keys, dtypes, shapes and kinematic
+topology as an official file, bit-identical to the JAX package's output
+for the same arguments (the random numbers are drawn in the same
+order)."""
 
 from __future__ import annotations
 
@@ -56,16 +58,92 @@ def _synthetic_joints(num_joints: int) -> np.ndarray:
     return J
 
 
+def _tube_surface(num_verts: int, J: np.ndarray, parent: np.ndarray,
+                  rng: np.random.RandomState):
+    """Smooth articulated surface: one open tapered tube of quads (split
+    into triangles, outward normals) per kinematic bone.
+
+    Unlike the random-triangle soup, whose faces interpenetrate
+    everywhere, non-adjacent faces only collide where two body parts come
+    close: the regime of the self-intersection broad phase. Returns
+    (v_template [num_verts, 3], faces [F, 3] int64, face_part [F] int64 =
+    the joint id of each face's bone tube); up to n_seg-1 leftover
+    vertices are parked near joints, unreferenced by faces.
+    """
+    n_seg = 8
+    bones = [(j, int(parent[j])) for j in range(1, len(J))
+             if np.linalg.norm(J[j] - J[int(parent[j])]) > 1e-6]
+    if not bones:
+        raise ValueError(
+            "smooth_surface needs at least one bone of nonzero length; use "
+            "the default random-soup topology instead")
+    lens = np.array([np.linalg.norm(J[j] - J[p]) for j, p in bones])
+    budget = num_verts // n_seg          # total rings available
+    if budget < 2 * len(bones):          # tiny test meshes: longest bones
+        keep = np.argsort(-lens)[: max(1, budget // 2)]
+        bones = [bones[i] for i in keep]
+        lens = lens[keep]
+    share = np.maximum(lens, 0.02)
+    rings = np.maximum(2, np.floor(share / share.sum() * budget).astype(int))
+    while rings.sum() > budget:
+        rings[int(np.argmax(rings))] -= 1
+    order = np.argsort(-lens)
+    i = 0
+    while rings.sum() < budget:
+        rings[order[i % len(bones)]] += 1
+        i += 1
+
+    th = np.arange(n_seg) * (2.0 * np.pi / n_seg)
+    verts, faces, face_part, off = [], [], [], 0
+    for (j, p), n_r, L in zip(bones, rings, lens):
+        a, b = J[p], J[j]
+        axis = (b - a) / L
+        tmp = (np.array([1.0, 0.0, 0.0]) if abs(axis[0]) < 0.9
+               else np.array([0.0, 1.0, 0.0]))
+        u = np.cross(axis, tmp)
+        u /= np.linalg.norm(u)
+        w = np.cross(axis, u)
+        rb = float(np.clip(0.25 * L, 0.009, 0.05))
+        t = np.linspace(0.06, 0.94, n_r)
+        prof = rb * (0.18 + 0.82 * np.sin(np.pi * t) ** 0.8)  # taper ends
+        radial = np.cos(th)[:, None] * u[None] + np.sin(th)[:, None] * w[None]
+        centers = a[None] + t[:, None] * (b - a)[None]
+        pts = centers[:, None, :] + prof[:, None, None] * radial[None]
+        verts.append(pts.reshape(-1, 3))
+        ir = np.arange(n_r - 1)[:, None]
+        k = np.arange(n_seg)[None, :]
+        a0 = off + ir * n_seg + k
+        a1 = off + ir * n_seg + (k + 1) % n_seg
+        b0, b1 = a0 + n_seg, a1 + n_seg
+        quads = np.stack([np.stack([a0, a1, b0], -1),
+                          np.stack([b0, a1, b1], -1)], axis=2)
+        f_bone = quads.reshape(-1, 3)
+        faces.append(f_bone)
+        face_part.append(np.full(f_bone.shape[0], j, np.int64))
+        off += n_r * n_seg
+    v = np.concatenate(verts)
+    rem = num_verts - v.shape[0]
+    if rem > 0:
+        extra = J[rng.randint(0, len(J), rem)] + rng.randn(rem, 3) * 0.01
+        v = np.concatenate([v, extra])
+    return v, np.concatenate(faces).astype(np.int64), \
+        np.concatenate(face_part)
+
+
 def synthetic_smplx_npz(num_verts: int = 536, num_joints: int = 55,
                         num_shape: int = 20, seed: int = 0,
                         gender: str = "neutral",
-                        full_size: bool = False) -> dict:
+                        full_size: bool = False,
+                        smooth_surface: bool = False) -> dict:
     """A dict with the key layout of an official SMPL-X npz.
 
     `full_size=True` gives the production 10475-vertex / 400-dir layout;
     the default is small for fast tests. `num_joints` selects the family
     as the loaders infer it from the posedirs width (55 -> smplx,
-    24 -> smpl, 52 -> smplh, 16 -> mano).
+    24 -> smpl, 52 -> smplh, 16 -> mano). `smooth_surface=True` replaces
+    the random-triangle topology with per-bone tapered tubes
+    (`_tube_surface`), a surface whose faces only interpenetrate where
+    body parts meet, and adds the per-face part ids as `face_parts`.
     """
     if full_size:
         num_verts, num_joints, num_shape = 10475, 55, 400
@@ -76,11 +154,15 @@ def synthetic_smplx_npz(num_verts: int = 536, num_joints: int = 55,
     parent = (SMPL_PARENTS if num_joints <= 24
               else SMPLX_PARENTS)[:num_joints].copy()
     parent[0] = 0
-    bone_of_vert = rng.randint(0, num_joints, size=num_verts)
-    alpha = rng.rand(num_verts, 1)
-    seg_a, seg_b = J[bone_of_vert], J[parent[bone_of_vert]]
-    v_template = (seg_a * alpha + seg_b * (1 - alpha)
-                  + rng.randn(num_verts, 3) * 0.03)
+    f = face_parts = None
+    if smooth_surface:
+        v_template, f, face_parts = _tube_surface(num_verts, J, parent, rng)
+    else:
+        bone_of_vert = rng.randint(0, num_joints, size=num_verts)
+        alpha = rng.rand(num_verts, 1)
+        seg_a, seg_b = J[bone_of_vert], J[parent[bone_of_vert]]
+        v_template = (seg_a * alpha + seg_b * (1 - alpha)
+                      + rng.randn(num_verts, 3) * 0.03)
 
     # LBS weights: softmax-like over distance to the 4 nearest joints
     d = np.linalg.norm(v_template[:, None, :] - J[None, :, :], axis=-1)
@@ -97,10 +179,16 @@ def synthetic_smplx_npz(num_verts: int = 536, num_joints: int = 55,
         Jreg[j, nearest[:k, j]] = 1.0 / k
 
     shapedirs = rng.randn(num_verts, 3, num_shape) * 0.01
-    posedirs = rng.randn(num_verts, 3, 9 * (num_joints - 1)) * 0.001
+    # white-noise posedirs wrinkle the surface ~7 mm at typical poses;
+    # on the smooth surface that would make neighbouring faces straddle
+    # everywhere, so they are 10x smaller there
+    posedirs = rng.randn(num_verts, 3, 9 * (num_joints - 1)) * (
+        0.0001 if smooth_surface else 0.001)
 
-    nfaces = max(2 * num_verts - 4, 4)
-    f = rng.randint(0, num_verts, size=(nfaces, 3)).astype(np.int64)
+    if f is None:
+        f = rng.randint(0, num_verts, size=(max(2 * num_verts - 4, 4), 3)
+                        ).astype(np.int64)
+    nfaces = f.shape[0]
 
     parents_tab = (SMPL_PARENTS[:num_joints] if num_joints <= 24
                    else SMPLX_PARENTS[:num_joints])
@@ -119,6 +207,10 @@ def synthetic_smplx_npz(num_verts: int = 536, num_joints: int = 55,
         "weights": weights.astype(np.float64),
         "f": f,
     }
+    if face_parts is not None:
+        # per-face part id (the face's bone tube, a joint id); the model
+        # loaders ignore the extra key
+        out["face_parts"] = face_parts
     if num_joints == 55:  # smplx extras
         out["hands_componentsl"] = (rng.randn(45, 45) * 0.1).astype(np.float64)
         out["hands_componentsr"] = (rng.randn(45, 45) * 0.1).astype(np.float64)
@@ -147,3 +239,44 @@ def synthetic_sdf_grid(dim: int = 64, floor_z: float = 0.0) -> dict:
         "sdf": sdf.astype(np.float32),
         "normals": normals.astype(np.float32),
     }
+
+
+def compact_part_table(num_joints: int = 55):
+    """Joint id -> compact part id at SMPL-X granularity: body and head
+    joints keep their own part, finger joints collapse into their wrist's.
+    Returns (part_of_joint [J] int64, part_parent [P] int64), P <= 25."""
+    parents = (SMPL_PARENTS[:num_joints] if num_joints <= 24
+               else SMPLX_PARENTS[:num_joints]).copy()
+    part_of_joint = np.arange(num_joints, dtype=np.int64)
+    for j in range(25, num_joints):      # finger joints -> wrist part
+        a = j
+        while a >= 25:
+            a = int(parents[a])
+        part_of_joint[j] = a
+    used = np.unique(part_of_joint)
+    remap = {int(p): i for i, p in enumerate(used)}
+    compact = np.array([remap[int(p)] for p in part_of_joint])
+    part_parent = np.zeros(len(used), np.int64)
+    for i, p in enumerate(used):
+        pa = int(parents[int(p)]) if int(p) > 0 else 0
+        part_parent[i] = remap[int(part_of_joint[pa])]
+    return compact, part_parent
+
+
+def write_part_segm_pkl(path: str, faces: np.ndarray,
+                        num_parts: int = 8) -> dict:
+    """Synthetic smplx_parts_segm.pkl stand-in (the FilterFaces input,
+    fit_temp_loadprox_slide.py:335-340): faces bucketed into `num_parts`
+    contiguous vertex-id ranges; part p's parent is p-1. Returns the dict
+    that was pickled."""
+    import pickle
+
+    faces = np.asarray(faces)
+    V = int(faces.max()) + 1
+    segm = np.minimum(faces.min(axis=1) * num_parts // V,
+                      num_parts - 1).astype(np.int64)
+    part_parent = np.maximum(np.arange(num_parts) - 1, 0)
+    data = {"segm": segm, "parents": part_parent[segm]}
+    with open(path, "wb") as fh:
+        pickle.dump(data, fh, protocol=2)
+    return data

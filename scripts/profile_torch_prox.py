@@ -4,18 +4,22 @@ CUDA card.
     python3 scripts/profile_torch_prox.py [--steps 40] [--trace out.json]
 
 Builds the window `chip_smoke.py` phase 6 fits (the full-size synthetic
-SMPL-X, T=100 frames, cfg_files/PROXD_temp_S3_all_terms.yaml with
-interpenetration off: depth s2m/m2s on 2048 candidates, scene contact,
-fp8 SDF on 2048 candidates, friction, smoothness and infill priors) and
-reports, on the card named in the output:
+SMPL-X on the smooth-surface tube topology, T=100 frames in mild contact,
+cfg_files/PROXD_temp_S3_all_terms.yaml as shipped: depth s2m/m2s on 2048
+candidates, scene contact, fp8 SDF on 2048 candidates, friction,
+smoothness and infill priors, self-interpenetration on the auto-grown
+8192-face candidate sets with a 27-part filter) and reports, on the card
+named in the output:
 
-1. wall time per Adam step (host clock around `fit_window` calls, which
+1. the self-intersection candidate pre-pass (seconds, n_active,
+   n_within, K);
+2. wall time per Adam step (host clock around `fit_window` calls, which
    end in a read of the results), for the full loss and with one term
-   family switched off at a time;
-2. one fit under torch.profiler: device busy share (union of kernel
+   family switched off at a time (`no_coll`: interpenetration off);
+3. one fit under torch.profiler: device busy share (union of kernel
    intervals over the wall time), kernel launches per step, the Chamfer
-   kernel's launches and time per step, and the kernels that take the
-   most device time.
+   and intersection kernels' launches and time per step, and the kernels
+   that take the most device time.
 
 Prints human-readable lines and, last, one JSON object.
 """
@@ -68,21 +72,20 @@ def main() -> int:
         run_infill_prepass
     from lemo_tpu_torch.fitting.prox.window import fit_window, \
         make_window_fitter
-    from lemo_tpu_torch.ops import chamfer_cuda
-    from lemo_tpu_torch.testing.synthetic import synthetic_smplx_npz
+    from lemo_tpu_torch.ops import chamfer_cuda, intersection_cuda
 
     exact_f32_matmuls()
     card = cs._card_line()
     print(card, flush=True)
     _build.build_library()
-    md = synthetic_smplx_npz(full_size=True)
+    md = cs.smoke_model_dict()
     model = load_model(md, use_pca=True, num_pca_comps=12, device="cuda")
     cs.PROX_FRAMES = 100
     cs.PROX_DIR = os.path.join(cs.ROOT, "lemo_tpu_torch", "_build",
                                "prox_profile")
     info = cs.prox_recording(md, model.device)
     cfg = cs.prox_config(info, os.path.join(cs.PROX_DIR, "out"), a.steps)
-    assets = cs.prox_assets(model, info)
+    assets = cs.prox_assets(model, info, cfg)
     rec = ProxRecording.from_recording_dir(cfg.recording_dir)
     assets = dataclasses.replace(assets, scene_verts=rec.load_scene_mesh())
     ds = ProxWindowDataset(rec, output_params_dir=cfg.output_folder,
@@ -96,7 +99,10 @@ def main() -> int:
                             torch.as_tensor(wd["marker_mask"],
                                             device=model.device),
                             assets.infill_stats)
-    st = driver.build_window_static(cfg, assets, rec, wd, jw, ir)
+    st, bp = driver.build_window_static(cfg, assets, rec, wd, jw, ir)
+    print(f"[prepass] self-intersection candidates: {bp['scores_s']:.3f} s, "
+          f"n_active {bp['n_active']}, n_within {bp['n_within']}, K "
+          f"{bp['K']} on {card}", flush=True)
     mapper = smpl_to_openpose()
     w_full = driver.weights_from_config(cfg)
 
@@ -108,9 +114,10 @@ def main() -> int:
                                   fitter=fitter)
 
     result = {"card": card, "frames": cfg.batch_size, "steps": a.steps,
-              "ms_per_step": {}}
+              "coll_broad_phase": bp, "ms_per_step": {}}
     variants = {
         "full": w_full,
+        "no_coll": dataclasses.replace(w_full, coll=0.0),
         "no_depth": dataclasses.replace(w_full, s2m=0.0, m2s=0.0),
         "no_contact": dataclasses.replace(w_full, contact=0.0),
         "no_smooth_prior": dataclasses.replace(w_full, motion_smooth=0.0),
@@ -134,6 +141,7 @@ def main() -> int:
     fit()
     torch.cuda.synchronize()
     chamfer_cuda.launches["chamfer"] = 0
+    intersection_cuda.launches["intersection"] = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -152,6 +160,7 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:a.top]
     device_us = max(sum(v[1] for v in by_name.values()), 1e-9)
     nn = [v for n, v in by_name.items() if "nn_select" in n]
+    cone = [v for n, v in by_name.items() if "cone_energy" in n]
     result.update({
         "profiled_wall_ms_per_step": wall_us / steps / 1e3,
         "device_busy_ms_per_step": busy_us / steps / 1e3,
@@ -159,6 +168,11 @@ def main() -> int:
         "kernel_launches_per_step": len(kernels) / steps,
         "chamfer_launches_per_step": chamfer_cuda.launches["chamfer"] / steps,
         "chamfer_ms_per_step": sum(v[1] for v in nn) / steps / 1e3,
+        "intersection_launches_per_step":
+            intersection_cuda.launches["intersection"] / steps,
+        "intersection_ms_per_step": sum(v[1] for v in cone) / steps / 1e3,
+        "coll_term_wall_ms_per_step": (result["ms_per_step"]["full"]
+                                       - result["ms_per_step"]["no_coll"]),
         "top_kernels": [{"name": n[:90], "launches_per_step": c / steps,
                          "ms_per_step": us / steps / 1e3,
                          "share_of_device_time": us / device_us}
@@ -169,7 +183,11 @@ def main() -> int:
           f"({100 * busy_us / wall_us:.1f}%), "
           f"{len(kernels) / steps:.0f} kernel launches/step, chamfer "
           f"{result['chamfer_launches_per_step']:g} launches and "
-          f"{result['chamfer_ms_per_step']:.4f} ms per step", flush=True)
+          f"{result['chamfer_ms_per_step']:.4f} ms per step, intersection "
+          f"{result['intersection_launches_per_step']:g} launches and "
+          f"{result['intersection_ms_per_step']:.4f} ms per step (the coll "
+          f"term adds {result['coll_term_wall_ms_per_step']:.3f} ms of wall "
+          f"time a step)", flush=True)
     for row in result["top_kernels"]:
         print(f"[profile] {row['ms_per_step']:.4f} ms/step "
               f"x{row['launches_per_step']:.0f} "

@@ -34,6 +34,7 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFGS = sorted(glob.glob(os.path.join(REPO, "cfg_files", "*.yaml")))
+S3_ALL = os.path.join(REPO, "cfg_files", "PROXD_temp_S3_all_terms.yaml")
 
 
 @pytest.fixture(scope="module")
@@ -81,7 +82,16 @@ def test_yaml_outside_subset_raises(bad):
                                          ("save_meshes", True),
                                          ("render_results", True)])
 def test_unported_options_raise(field, value):
+    """Each option whose path is not ported raises naming its ROADMAP
+    slice; interpenetration, ported since, passes the check, as does the
+    all-terms config that ships with it on."""
     cfg = dataclasses.replace(ProxConfig(), **{field: value})
+    if field == "interpenetration":
+        check_ported(cfg)
+        shipped = parse_config(["--config", S3_ALL])
+        assert shipped.interpenetration and shipped.coll_candidates == 8192
+        check_ported(shipped)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_ported(cfg)
 

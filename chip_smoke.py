@@ -53,7 +53,10 @@ Phases (any failure raises and the script exits non-zero):
    per distinct K with its launches, and all F faces of 4 frames of
    window 1 (the `coll_candidates: 0` path). Energy within rel 1e-6 per
    frame, gradients within 4e-5 of their largest magnitude, active-pair
-   counts equal; time, bound, and the face pairs tested and skipped.
+   counts equal, and two launches bit-identical; time, bound, and the
+   face pairs by the gate they reach (on the bound's own culling,
+   ISECT_BOUND_RUN). The operands are kept in ISECT_OPERANDS for
+   scripts/bench_torch_intersection.py.
    Phase 6 runs before phases 5 and 7, whose operands it captures.
 
 Prints the kernels' JSON line, then as the last line
@@ -85,16 +88,24 @@ REFIT_STEPS = 10               # steps of each refit in phase 6 (cut from 100)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PROX_CFG = os.path.join(ROOT, "cfg_files", "PROXD_temp_S3_all_terms.yaml")
 PROX_DIR = os.path.join(ROOT, "lemo_tpu_torch", "_build", "prox_smoke")
+# phase 7's operands, for scripts/bench_torch_intersection.py
+ISECT_OPERANDS = os.path.join(PROX_DIR, "isect_operands.pt")
 CHAMFER_OPS_PER_PAIR = 9.0     # csrc/chamfer.cu: 3 mul + 2 add, add, mul, sub, cmp
-# csrc/intersection.cu, f32 operations of one face pair by the gate it
-# reaches: every tested pair the sphere gate (3 sub, 3 mul, 2 add, add,
-# mul, cmp); past it validity, adjacency and part (2 + 9 + 3); past those
-# the forward depths and straddle test (3 x (3 mul, 2 add, sub) + 2 min,
-# 2 max, 2 cmp); past that the reverse one (the same 24); past both the
-# cone tests (3 x (3 sub, 3 mul, 2 add, mul, sub, 2 cmp, select)) and
-# the accumulation of both roles (3 x (add, 2 mul, 2 add) + 3 x 3 x
-# (mul, sub) twice, about 51)
-ISECT_OPS = (11.0, 14.0, 24.0, 24.0, 39.0 + 51.0)
+# csrc/intersection.cu, f32 operations of one unordered face pair by the
+# gate it reaches. The gates are symmetric in the pair, so each is paid
+# once: every tested pair the sphere gate (3 sub, 3 mul, 2 add, add, mul,
+# cmp); past it validity, adjacency and part (2 + 9 + 3); past those one
+# straddle test (3 x (3 mul, 2 add, sub) + 2 min, 2 max, 2 cmp); past
+# that the other one (the same 24). Past both, each of the two directions
+# pays its cone test (3 x (3 sub, 3 mul, 2 add, mul, sub, 2 cmp, select))
+# and its accumulation (3 x (add, 2 mul, 2 add) + 3 x 3 x (mul, sub)
+# twice, about 51). The pairs that count as tested are fixed here, not by
+# any kernel's tiling, so no design can shrink its own bound: every pair
+# of distinct faces of two runs of ISECT_BOUND_RUN consecutive candidate
+# faces whose bounding spheres overlap (ops.intersection.tile_spheres /
+# tile_pairs at this run length).
+ISECT_OPS = (11.0, 14.0, 24.0, 24.0, 2 * (39.0 + 51.0))
+ISECT_BOUND_RUN = 32
 ISECT_FACE_BYTES = 80.0 + 16.0 + 64.0   # per face: f32 data, ids, outputs
 N_FULL_F_FRAMES = 4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
@@ -843,23 +854,33 @@ def phase_chamfer(ops, tally, card) -> list[dict]:
     return rows
 
 
-def _gate_counts(pack, ipack, tiles, ign) -> list[float]:
-    """Face pairs of the kernel's operands by the gate they reach: in the
-    tile pairs it tests (not skipped by the tile spheres; padding faces
-    not counted), past the sphere gate, past validity/adjacency/part,
-    past the forward straddle test, past both straddle tests (the plain
-    version's gate arithmetic, `ops.intersection`)."""
+def _gate_counts(pack, ipack, ign) -> list[float]:
+    """Unordered pairs of distinct faces of the kernel's operands by the
+    gate they reach (ISECT_OPS): tested (the pairs of sphere-overlapping
+    runs of ISECT_BOUND_RUN faces; padding faces not counted), past the
+    sphere gate, past validity/adjacency/part, past the forward straddle
+    test, past both straddle tests (the plain version's gate arithmetic,
+    `ops.intersection`)."""
+    import torch
+
     from lemo_tpu_torch.ops import intersection as ti
 
     T, Kp, _ = pack.shape
-    NT = Kp // ti.TILE
-    tp, a, b = ti.tile_pairs(tiles).nonzero(as_tuple=True)
-    nvalid = pack[..., 9].reshape(T * NT, ti.TILE).sum(-1).double()
-    counts = [float((nvalid[tp * NT + a] * nvalid[tp * NT + b]).sum()),
-              0.0, 0.0, 0.0, 0.0]
+    run = ISECT_BOUND_RUN
+    NR = Kp // run
+    tp, a, b = ti.tile_pairs(ti.tile_spheres(pack, run)).nonzero(
+        as_tuple=True)
+    nvalid = pack[..., 9].reshape(T * NR, run).sum(-1).double()
+    na, nb = nvalid[tp * NR + a], nvalid[tp * NR + b]
+    # each pair of distinct runs once, and a run's own n (n - 1) / 2
+    tested = torch.where(a < b, na * nb, torch.where(
+        a == b, na * (na - 1) / 2, torch.zeros_like(na)))
+    counts = [float(tested.sum()), 0.0, 0.0, 0.0, 0.0]
     flat = pack.reshape(T * Kp, ti.PACK)
     ids = ipack.expand(T, -1, -1).reshape(T * Kp, 4)
-    for i, j in ti.sphere_pairs(pack):
+    for i, j in ti.sphere_pairs(pack, run):
+        once = i < j
+        i, j = i[once], j[once]
         m, fwd, rev, _, _ = ti.pair_gates(flat[i], flat[j], ids[i], ids[j],
                                           ign)
         m &= (flat[i, 9] > 0) & (flat[j, 9] > 0)
@@ -868,6 +889,34 @@ def _gate_counts(pack, ipack, tiles, ign) -> list[float]:
         counts[3] += float((m & fwd).sum())
         counts[4] += float((m & fwd & rev).sum())
     return counts
+
+
+def check_cone_energy(name: str, got, again, ref) -> dict:
+    """Hold a cone-energy launch's outputs `got` (e, rowgrad, dtri,
+    active) against the plain version's `ref` and a second launch's
+    `again`: energy within rel 1e-6 a frame, gradients within 4e-5 of
+    their largest magnitude, active-pair counts equal, finite, and the
+    two launches bit-identical. Returns the errors; raises on failure."""
+    import torch
+
+    ke, kg, kt, ka = got
+    pe, pg, pt, pa = ref
+    torch.cuda.synchronize()
+    Ek, Ep = ke.sum(1), pe.sum(1)
+    out = {
+        "e_rel": float(((Ek - Ep).abs() / Ep.abs().clamp_min(1e-300)).max()),
+        "g_err": max(_max_rel(kg, pg), _max_rel(kt, pt)),
+        "max_abs_err": max(float((kg - pg).abs().max()),
+                           float((kt - pt).abs().max())),
+        "active": int(ka.sum()), "active_plain": int(pa.sum()),
+        "finite": all(bool(torch.isfinite(x).all()) for x in (ke, kg, kt)),
+        "repeat": all(torch.equal(x, y) for x, y in zip(got, again))}
+    e_ok = bool(((Ek - Ep).abs() <= 1e-6 * Ep.abs()).all())
+    if not (out["finite"] and e_ok and out["g_err"] <= 4e-5
+            and out["active"] == out["active_plain"] and out["repeat"]):
+        raise AssertionError(f"{name}: kernel disagrees with plain or with "
+                             f"itself: {out}")
+    return out
 
 
 def phase_intersection(isect, tally, launches, card) -> list[dict]:
@@ -890,59 +939,56 @@ def phase_intersection(isect, tally, launches, card) -> list[dict]:
     v0, faces, kw0 = next(iter(isect.values()))
     sites.append(("intersection/full_F", None, v0[:N_FULL_F_FRAMES], faces,
                   dict(kw0, candidate_ids=None)))
+    def cpu(x):
+        return x.cpu() if torch.is_tensor(x) else x
+
+    torch.save({name: (cpu(v), cpu(f), {k: cpu(x) for k, x in kw_.items()})
+                for name, _, v, f, kw_ in sites}, ISECT_OPERANDS)
     rows = []
     for name, key, v, faces, kw_ in sites:
         ops = ti.kernel_operands(v, faces, **kw_)
         T, Kp = ops[0].shape[0], ops[0].shape[1]
         ids = kw_.get("candidate_ids")
         K = faces.shape[0] if ids is None else ids.shape[-1]
-        ke, kg, kt, ka = ic.cone_energy_kernel(*ops)
-        pe, pg, pt, pa = ti.cone_energy_plain(*ops)
-        torch.cuda.synchronize()
-        Ek, Ep = ke.sum(1), pe.sum(1)
-        e_rel = float(((Ek - Ep).abs() / Ep.abs().clamp_min(1e-300)).max())
-        e_ok = bool(((Ek - Ep).abs() <= 1e-6 * Ep.abs()).all())
-        g_err = max(_max_rel(kg, pg), _max_rel(kt, pt))
-        act_k, act_p = int(ka.sum()), int(pa.sum())
-        finite = all(bool(torch.isfinite(x).all()) for x in (ke, kg, kt))
+        ref = ti.cone_energy_plain(*ops)
+        Ep = ref[0].sum(1)
+        chk = check_cone_energy(name, ic.cone_energy_kernel(*ops),
+                                ic.cone_energy_kernel(*ops), ref)
         ms = _time_ms(lambda: ic.cone_energy_kernel(*ops))
         plain_ms = _time_ms(lambda: ti.cone_energy_plain(*ops), 5)
-        gates = _gate_counts(*ops)
-        all_pairs = float(T) * K * K
+        gates = _gate_counts(ops[0], ops[1], ops[3])
+        all_pairs = float(T) * K * (K - 1) / 2
         flops = sum(o * n for o, n in zip(ISECT_OPS, gates))
-        # each face's data, ids and outputs once, the tile spheres, the
-        # part table
-        nbytes = (ISECT_FACE_BYTES * T * K + 16.0 * ops[2].numel() / 4
+        # each face's data, ids and outputs once, the part table
+        nbytes = (ISECT_FACE_BYTES * T * K
                   + (0 if ops[3] is None else ops[3].numel()))
         bound, by = _bound_ms(nbytes, flops)
         n_launch = tally[key] if key is not None else 0
         _log(f"[intersection] {name} T={T} K={K} (padded {Kp}): energy "
              f"{float(Ep.sum()):.6g} ({int((Ep > 0).sum())}/{T} frames "
-             f"non-zero), max rel err per frame {e_rel:.3e} (tol 1e-6), "
-             f"gradients {g_err:.3e} of their max (tol 4e-5), active pairs "
-             f"kernel {act_k} plain {act_p}; kernel {ms:.4f} ms, plain "
-             f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); face pairs "
-             f"tested {gates[0]:.4e} of {all_pairs:.4e} (skipped "
-             f"{all_pairs - gates[0]:.4e}), past the sphere gate "
+             f"non-zero), max rel err per frame {chk['e_rel']:.3e} (tol "
+             f"1e-6), gradients {chk['g_err']:.3e} of their max (tol 4e-5), "
+             f"active pairs kernel {chk['active']} plain "
+             f"{chk['active_plain']}; kernel {ms:.4f} ms, plain "
+             f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); unordered "
+             f"face pairs in sphere-overlapping {ISECT_BOUND_RUN}-face runs "
+             f"{gates[0]:.4e} of {all_pairs:.4e}, past the sphere gate "
              f"{gates[1]:.4e}, past validity/adjacency/part {gates[2]:.4e}, "
-             f"past both straddle tests {gates[4]:.4e}; launched {n_launch}x "
-             f"in phase 6; on {card}")
-        if not (finite and e_ok and g_err <= 4e-5 and act_k == act_p):
-            raise AssertionError(f"{name}: kernel disagrees with plain "
-                                 f"(energy {e_rel}, grad {g_err}, active "
-                                 f"{act_k}/{act_p}, finite {finite})")
+             f"past the forward straddle test {gates[3]:.4e}, past both "
+             f"{gates[4]:.4e}; repeat launch bit-identical {chk['repeat']}; "
+             f"launched {n_launch}x in phase 6; on {card}")
         if n_launch:
             rows.append({"name": name, "route": "cuda",
                          "source": "lemo_tpu_torch/csrc/intersection.cu",
                          "replaces": "lemo_tpu/ops/intersection_pallas.py:55",
                          "launches": n_launch,
-                         "max_abs_err": max(float((kg - pg).abs().max()),
-                                            float((kt - pt).abs().max())),
-                         "max_rel_err": max(e_rel, g_err), "ms": ms,
-                         "plain_ms": plain_ms, "bound_ms": bound,
+                         "max_abs_err": chk["max_abs_err"],
+                         "max_rel_err": max(chk["e_rel"], chk["g_err"]),
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                          "bound_by": by, "library_ms": None,
                          "shape": [T, K], "pairs_tested": gates[0],
-                         "pairs_all": all_pairs})
+                         "pairs_sphere": gates[1], "pairs_all": all_pairs,
+                         "bit_identical_repeat": chk["repeat"]})
     if not rows:
         raise AssertionError("the main path did not launch the "
                              "intersection kernel")

@@ -33,10 +33,11 @@ Arithmetic shared by the kernel, its plain version and the candidate
 scores: distances are differences then squares, dot products are
 (x + y) + z, and every product and sum is rounded on its own (no FMA), so
 all three make the same razor-edge gate decisions on the same inputs.
-The kernel processes faces in tiles of TILE faces, the plain version in
-runs of _PLAIN_TILE; a tile pair is skipped when the tiles' bounding
-spheres cannot overlap, which is exact because it implies that every
-face pair of the two tiles fails the sphere gate.
+The kernel and the plain version both cull with the bounding spheres of
+runs of 32 consecutive faces (the kernel also with each face's sphere
+against a run's): a pair of runs is skipped when their spheres cannot
+overlap, which is exact because it implies that every face pair of the
+two runs fails the sphere gate.
 
 `intersection_candidate_scores_batched` is the broad phase (plain
 PyTorch, as the JAX package computes it in XLA): per frame, each face's
@@ -50,7 +51,7 @@ import numpy as np
 import torch
 
 from lemo_tpu_torch.ops import intersection_cuda as _ic
-from lemo_tpu_torch.ops.intersection_cuda import PACK, TILE
+from lemo_tpu_torch.ops.intersection_cuda import PACK, RUN, TILE
 
 # face pairs whose sphere gate the plain version tests at once (about ten
 # [pairs] f32 blocks are live at a time)
@@ -155,15 +156,15 @@ def build_face_filter(faces: np.ndarray,
 @torch.no_grad()
 def pack_faces(s, n, tri, c, r, rad2, fid, seg=None):
     """Per-face data -> the kernel's operands (pack [T, Kp, PACK] f32,
-    ipack [T|1, Kp, 4] int32, tiles [T, Kp / TILE, 4] f32), K padded to
+    ipack [T|1, Kp, 4] int32, runs [T, Kp / RUN, 4] f32), K padded to
     Kp, a multiple of TILE, with invalid faces (valid = 0).
 
     pack: c (0:3), n (3:6), s (6), r (7), rad2 (8), valid (9), the
     triangle's vertices (10:19). ipack: vertex ids (0:3), part id (3); a
     shared [F, 3] `fid` and [F] `seg` give one frame of ipack for all.
-    tiles: each tile's centre (the mean centroid of its valid faces) and
-    skip radius (the largest |c - centre| + r of its valid faces), as
-    `intersection_pallas.py:255-262` computes them."""
+    runs: each run of RUN faces' bounding sphere (`tile_spheres`), the
+    kernel's culling; `intersection_pallas.py:255-262` computes the same
+    spheres for its 256-face tiles."""
     T, K = s.shape
     Kp = -(-K // TILE) * TILE
     dev = s.device
@@ -180,7 +181,7 @@ def pack_faces(s, n, tri, c, r, rad2, fid, seg=None):
     ipack[:, :K, 0:3] = fid.reshape(Ti, K, 3).to(torch.int32)
     ipack[:, :K, 3] = 0 if seg is None else seg.reshape(-1, K).to(
         torch.int32)
-    return pack, ipack, tile_spheres(pack, TILE)
+    return pack, ipack, tile_spheres(pack, RUN)
 
 
 def tile_spheres(pack: torch.Tensor, tile: int) -> torch.Tensor:
@@ -202,7 +203,8 @@ def tile_spheres(pack: torch.Tensor, tile: int) -> torch.Tensor:
 def tile_pairs(tiles: torch.Tensor) -> torch.Tensor:
     """[T, NT, 4] tile spheres -> [T, NT, NT] bool: the (row tile,
     column tile) pairs that may hold an overlapping face pair. The kernel
-    makes the same test with the same rounding."""
+    makes the same test on its runs with the radius sum widened by 2^-16
+    (so it keeps a superset)."""
     a, b = tiles[:, :, None, :], tiles[:, None, :, :]
     dx, dy, dz = a[..., 0] - b[..., 0], a[..., 1] - b[..., 1], \
         a[..., 2] - b[..., 2]
@@ -250,22 +252,20 @@ def _adjacent(fi, fj):
     return adj
 
 
-def sphere_pairs(pack: torch.Tensor):
+def sphere_pairs(pack: torch.Tensor, run: int = _PLAIN_TILE):
     """Yield, a chunk of `_PLAIN_PAIRS` tested pairs at a time, the face
     pairs that pass the sphere gate (the kernel's rounding), as row and
     column indices into pack.reshape(-1, PACK). Only the pairs of
-    `_PLAIN_TILE`-face runs whose spheres overlap are tested: finer than
-    the kernel's tiles, so fewer pairs are, and as exact."""
+    `run`-face runs whose spheres overlap are tested, which is exact."""
     T, Kp, _ = pack.shape
-    tp, a, b = tile_pairs(tile_spheres(pack, _PLAIN_TILE)).nonzero(
-        as_tuple=True)
+    tp, a, b = tile_pairs(tile_spheres(pack, run)).nonzero(as_tuple=True)
     flat = pack.reshape(T * Kp, PACK)
-    lane = torch.arange(_PLAIN_TILE, device=pack.device)
-    chunk = max(1, _PLAIN_PAIRS // (_PLAIN_TILE * _PLAIN_TILE))
+    lane = torch.arange(run, device=pack.device)
+    chunk = max(1, _PLAIN_PAIRS // (run * run))
     for p0 in range(0, tp.numel(), chunk):
         base = tp[p0:p0 + chunk] * Kp
-        gi = (base + a[p0:p0 + chunk] * _PLAIN_TILE)[:, None] + lane
-        gj = (base + b[p0:p0 + chunk] * _PLAIN_TILE)[:, None] + lane
+        gi = (base + a[p0:p0 + chunk] * run)[:, None] + lane
+        gj = (base + b[p0:p0 + chunk] * run)[:, None] + lane
         A, B = flat[gi][:, :, None], flat[gj][:, None]
         dx, dy, dz = (A[..., k] - B[..., k] for k in range(3))
         rsum = A[..., 7] + B[..., 7]
@@ -296,7 +296,7 @@ def pair_gates(a, b, ia, ib, ign=None):
 
 @torch.no_grad()
 def cone_energy_plain(pack: torch.Tensor, ipack: torch.Tensor,
-                      tiles: torch.Tensor, ign: torch.Tensor | None = None):
+                      runs: torch.Tensor, ign: torch.Tensor | None = None):
     """Plain version of the kernel (same operands, same results):
     -> (e [T, Kp] f64: each row face's energy, rowgrad [T, Kp, 4] f32:
     dE/dn (0:3) and dE/ds (3) of each row face, dtri [T, Kp, 9] f32:
@@ -304,7 +304,8 @@ def cone_energy_plain(pack: torch.Tensor, ipack: torch.Tensor,
     with energy of each row face).
 
     The sphere gate runs on the pairs of nearby face runs
-    (`sphere_pairs`; `tiles` is taken for the kernel's signature), the
+    (`sphere_pairs`, which makes its own runs from `pack`; `runs` is
+    taken for the kernel's signature), the
     other gates and the cone field only on the pairs past it, with the
     kernel's arithmetic; the per-pair sums reach the faces by index_add
     (deterministic under torch.use_deterministic_algorithms). `ign`:
@@ -352,7 +353,7 @@ def cone_energy_plain(pack: torch.Tensor, ipack: torch.Tensor,
 
 
 def _operands(s, n, tri, c, r, rad2, fid, seg, ign_table):
-    """Per-face data -> (pack, ipack, tiles, ign): `pack_faces` and the
+    """Per-face data -> (pack, ipack, runs, ign): `pack_faces` and the
     ignore table as bool, or None unless both `seg` and `ign_table` are
     given."""
     ign = None
@@ -373,12 +374,12 @@ def cone_energy_parts(s, n, tri, c, r, rad2, fid, seg=None,
     [T] int). The kernel on a CUDA tensor, the plain version on a CPU
     tensor; part filtering needs both `seg` and `ign_table`."""
     T, K = s.shape
-    pack, ipack, tiles, ign = _operands(s, n, tri, c, r, rad2, fid, seg,
-                                        ign_table)
+    pack, ipack, runs, ign = _operands(s, n, tri, c, r, rad2, fid, seg,
+                                       ign_table)
     if s.device.type == "cpu":
-        e, rowgrad, dtri, active = cone_energy_plain(pack, ipack, tiles, ign)
+        e, rowgrad, dtri, active = cone_energy_plain(pack, ipack, runs, ign)
     else:
-        e, rowgrad, dtri, active = _ic.cone_energy_kernel(pack, ipack, tiles,
+        e, rowgrad, dtri, active = _ic.cone_energy_kernel(pack, ipack, runs,
                                                           ign)
     return (e.sum(1).to(torch.float32), rowgrad[:, :K, 3],
             rowgrad[:, :K, 0:3], dtri[:, :K].reshape(T, K, 3, 3),
@@ -440,7 +441,7 @@ def kernel_operands(verts: torch.Tensor, faces: torch.Tensor,
                     sigma: float = 0.5, segm: torch.Tensor | None = None,
                     ign_table: torch.Tensor | None = None):
     """What `batched_self_intersection` hands the kernel for these
-    arguments: (pack, ipack, tiles, ign), the operands of
+    arguments: (pack, ipack, runs, ign), the operands of
     `intersection_cuda.cone_energy_kernel` and `cone_energy_plain`."""
     return _operands(*_face_data(verts, faces, candidate_ids, sigma, segm),
                      ign_table)
@@ -458,7 +459,7 @@ def batched_self_intersection(verts: torch.Tensor, faces: torch.Tensor,
     on these faces; exact whenever every face with a firing partner is in
     the set (the gates are re-applied on the subset, so extra faces change
     nothing). Kept in face-id order, the subset stays spatially coherent
-    and most tile pairs are skipped. All T frames go through one call of
+    and most run pairs are skipped. All T frames go through one call of
     the kernel (on the card) or its plain version (on the CPU), with no
     fallback between them; part filtering reads the [P, P] table at any
     P."""

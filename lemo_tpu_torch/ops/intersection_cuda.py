@@ -6,7 +6,10 @@ Replaces `lemo_tpu/ops/intersection_pallas.py` `_kernel` (pallas_call at
 as a cone owner, dE/dn and dE/ds as a cone owner, dE/d(vertices) as a
 vertex supplier and its count of pairs with energy; the
 `ops.intersection.ConeEnergy` autograd Function turns them into the
-energy and its backward.
+energy and its backward. A warp owns a run of RUN faces in both roles
+and culls with each run's bounding sphere (`runs`, from
+`ops.intersection.pack_faces`); the kernel keeps its pair queue in
+shared memory, so the wrapper allocates the four outputs and no scratch.
 
 Dispatch lives in `ops.intersection.cone_energy_parts`: a CPU tensor goes
 to `ops.intersection.cone_energy_plain`, any other tensor to
@@ -20,7 +23,8 @@ import torch
 from lemo_tpu_torch import _build
 from lemo_tpu_torch._build import check_operand
 
-TILE = 128   # faces per tile = threads per block (kTile in the source)
+TILE = 128   # faces per block; Kp is a multiple (kTile in the source)
+RUN = 32     # faces per run = lanes per warp (kRun in the source)
 PACK = 20    # floats per face in `pack` (kPack in the source)
 
 # launches of the kernel, counted where the wrapper launches it
@@ -28,8 +32,8 @@ launches = {"intersection": 0}
 
 
 def cone_energy_kernel(pack: torch.Tensor, ipack: torch.Tensor,
-                       tiles: torch.Tensor, ign: torch.Tensor | None):
-    """pack [T, Kp, 20] f32, ipack [T|1, Kp, 4] int32, tiles [T, Kp/128, 4]
+                       runs: torch.Tensor, ign: torch.Tensor | None):
+    """pack [T, Kp, 20] f32, ipack [T|1, Kp, 4] int32, runs [T, Kp/32, 4]
     f32 (`ops.intersection.pack_faces`), ign [P, P] bool or None ->
     (e [T, Kp] f64, rowgrad [T, Kp, 4] f32, dtri [T, Kp, 9] f32,
     active [T, Kp] int32), as `ops.intersection.cone_energy_plain`."""
@@ -39,7 +43,7 @@ def cone_energy_kernel(pack: torch.Tensor, ipack: torch.Tensor,
     check_operand("pack", pack, torch.float32, [(T, Kp, PACK)])
     check_operand("ipack", ipack, torch.int32,
                   [(T, Kp, 4), (1, Kp, 4)])
-    check_operand("tiles", tiles, torch.float32, [(T, Kp // TILE, 4)])
+    check_operand("runs", runs, torch.float32, [(T, Kp // RUN, 4)])
     P = 0
     if ign is not None:
         P = ign.shape[0]
@@ -54,7 +58,7 @@ def cone_energy_kernel(pack: torch.Tensor, ipack: torch.Tensor,
         return e, rowgrad, dtri, active
     lib = _build.load_library()
     rc = lib.lemo_cone_energy(
-        pack.data_ptr(), ipack.data_ptr(), tiles.data_ptr(),
+        pack.data_ptr(), ipack.data_ptr(), runs.data_ptr(),
         None if ign is None else ign.data_ptr(), P, e.data_ptr(),
         rowgrad.data_ptr(), dtri.data_ptr(), active.data_ptr(), T, Kp,
         int(ipack.shape[0] == T and T > 1),

@@ -301,6 +301,115 @@ def test_cpu_tensors_never_reach_the_kernel(bodies):
         intersection_cuda.cone_energy_kernel(pack, ipack, tiles, None)
 
 
+def _may_touch(a, b):
+    """csrc/intersection.cu's culls in plain PyTorch: may the spheres a and
+    b ([..., 4]: centre, radius) overlap, with the radius sum widened by
+    2^-16, in the kernel's rounding."""
+    lim = (a[..., 3] + b[..., 3]) * (1.0 + 2.0 ** -16)
+    dx, dy, dz = (a[..., k] - b[..., k] for k in range(3))
+    return (dx * dx + dy * dy) + dz * dz <= lim * lim
+
+
+def _operands_on_path(bodies, path):
+    verts, f, _ = bodies
+    ids = None
+    if path == "candidates":
+        scores, counts = ti.intersection_candidate_scores_batched(
+            _t(verts), _t(f), margin=0.01)
+        K = int(counts[:, 1].max())
+        ids = torch.sort(torch.argsort(scores, dim=1)[:, :K], dim=1).values
+    return ti.kernel_operands(_t(verts), _t(f), candidate_ids=ids)
+
+
+def _dense_sphere_pairs(pack):
+    """Every pair of valid faces of each frame past the sphere gate, with
+    no culling, in the kernel's rounding: flat row and column indices into
+    pack.reshape(-1, PACK)."""
+    T, Kp, _ = pack.shape
+    c, r = pack[..., 0:3], pack[..., 7]
+    dx, dy, dz = (c[:, :, None, k] - c[:, None, :, k] for k in range(3))
+    rsum = r[:, :, None] + r[:, None, :]
+    valid = pack[..., 9] > 0
+    hit = ((dx * dx + dy * dy) + dz * dz < rsum * rsum) \
+        & valid[:, :, None] & valid[:, None, :]
+    t, i, j = hit.nonzero(as_tuple=True)
+    return t * Kp + i, t * Kp + j
+
+
+@pytest.mark.parametrize("path", ["full", "candidates"])
+def test_kernel_culls_are_exact(bodies, path):
+    """Every pair of valid faces past the sphere gate, found by a sweep of
+    all K x K pairs of each frame with no culling, lies in a run pair the
+    kernel keeps and in a run whose faces reach the other run's sphere,
+    so the kernel's skips drop only pairs that fail the sphere gate or
+    the validity gate (padding faces have no radius and are left out of
+    their run's sphere)."""
+    pack, _, runs, _ = _operands_on_path(bodies, path)
+    T, Kp, _ = pack.shape
+    run = intersection_cuda.RUN
+    assert runs.shape == (T, Kp // run, 4)
+    torch.testing.assert_close(runs, ti.tile_spheres(pack, run), rtol=0,
+                               atol=0)
+    keep = _may_touch(runs[:, :, None], runs[:, None, :])
+    assert bool((keep == keep.transpose(1, 2)).all())
+    spheres = torch.cat([pack[..., 0:3], pack[..., 7:8]], -1).reshape(-1, 4)
+    i, j = _dense_sphere_pairs(pack)
+    t, W, J = i // Kp, (i % Kp) // run, (j % Kp) // run
+    assert bool(keep[t, W, J].all())
+    assert bool(_may_touch(spheres[j], runs[t, W]).all())
+    # the culls skip something: run pairs, and whole runs for some faces
+    assert int(keep.sum()) < keep.numel()
+    face_run = _may_touch(spheres.reshape(T, Kp, 1, 4), runs[:, None])
+    assert not bool(face_run.all())
+
+
+def test_gates_are_symmetric_but_the_cone(bodies):
+    """The kernel evaluates the gates of a pair once for both directions:
+    validity and adjacency agree in both orders, the forward straddle
+    test of (i, j) is the reverse one of (j, i) and its depths are (j,
+    i)'s forward depths bit for bit; only the cone test differs."""
+    verts, f, md = bodies
+    seg = _t(md["face_parts"] % 27)
+    pack, ipack, _, _ = ti.kernel_operands(_t(verts), _t(f), segm=seg,
+                                           ign_table=torch.ones(27, 27,
+                                                                dtype=bool))
+    T, Kp, _ = pack.shape
+    flat = pack.reshape(T * Kp, ti.PACK)
+    idx = ipack.expand(T, -1, -1).reshape(T * Kp, 4)
+    i, j = next(ti.sphere_pairs(pack))
+    m1, fwd1, rev1, dep1, _ = ti.pair_gates(flat[i], flat[j], idx[i], idx[j])
+    m2, fwd2, rev2, dep2, _ = ti.pair_gates(flat[j], flat[i], idx[j], idx[i])
+    assert torch.equal(m1, m2) and torch.equal(fwd1, rev2) \
+        and torch.equal(rev1, fwd2)
+    _, _, _, _, rdep1 = ti._pair_geometry(
+        flat[i, 0:3], flat[i, 7], flat[i, 3:6], flat[i, 6], flat[i, 10:19],
+        flat[j, 0:3], flat[j, 7], flat[j, 3:6], flat[j, 6], flat[j, 10:19])
+    for a, b in zip(rdep1, dep2):
+        assert torch.equal(a, b)
+    assert bool(m1.any() & fwd1.any())
+
+
+@pytest.mark.parametrize("run", [16, 32, 128])
+@pytest.mark.parametrize("path", ["full", "candidates"])
+def test_sphere_pairs_are_exact_at_any_run_length(bodies, path, run):
+    """The plain version's culled sphere gate (`sphere_pairs`, which the
+    plain cone energy and the bound's pair counts run) yields exactly the
+    pairs of valid faces that an uncut K x K sweep passes, whatever the
+    run length it culls with."""
+    pack, _, _, _ = _operands_on_path(bodies, path)
+    valid = pack.reshape(-1, ti.PACK)[:, 9] > 0
+    got = []
+    for i, j in ti.sphere_pairs(pack, run):
+        both = valid[i] & valid[j]
+        got.append(torch.stack([i[both], j[both]], 1))
+    got = torch.cat(got)
+    want = torch.stack(_dense_sphere_pairs(pack), 1)
+    assert got.shape == want.shape and want.shape[0] > 0
+    key = pack.shape[0] * pack.shape[1]
+    assert torch.equal(torch.sort(got[:, 0] * key + got[:, 1]).values,
+                       torch.sort(want[:, 0] * key + want[:, 1]).values)
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card(bodies):
     if not torch.cuda.is_available():
@@ -313,8 +422,12 @@ def test_kernel_matches_plain_on_card(bodies):
                             ("s", "n", "tri", "c", "r", "rad2")),
                           _t(f).cuda(), seg)
     ign = tab.cuda()
-    ke, kg, kt, ka = intersection_cuda.cone_energy_kernel(*packs, ign)
+    got = intersection_cuda.cone_energy_kernel(*packs, ign)
+    again = intersection_cuda.cone_energy_kernel(*packs, ign)
+    ke, kg, kt, ka = got
     pe, pg, pt, pa = ti.cone_energy_plain(*packs, ign)
+    # repeat launches give the same bits (no atomics, a fixed order)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
     assert abs(float(ke.sum() - pe.sum())) <= 1e-6 * float(pe.sum())
     assert torch.equal(ka, pa)
     for a, b in ((kg, pg), (kt, pt)):

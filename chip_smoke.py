@@ -11,7 +11,10 @@ Phases (any failure raises and the script exits non-zero):
    forward/backward of the full-size synthetic SMPL-X model (V=10475,
    J=55, D=507) at B=100, then hold each kernel against its plain
    PyTorch twin on the same operands and time both with CUDA events
-   (median of 25).
+   (median of 25). The vertex backward's three stages (the pointwise
+   pass, the dcat and the dA2 reductions) are each held against their
+   own plain versions (rel 5e-5) and timed, and two launches of the
+   whole backward must give the same bits.
 3. Body model: full-size forward and backward through `make_forward_fn`
    (kernels) against the same with the plain twins, on the card.
 4. The Stage-2 slice: the AMASS temporal fit (`make_temporal_fitter`,
@@ -216,13 +219,12 @@ def _max_rel(a, b) -> float:
     return float((a - b).abs().max()) / scale
 
 
-def phase_kernels(model, card) -> list[dict]:
-    """Phase 2: every kernel vs its plain twin at the main-path shapes."""
+def body_operands(model) -> dict:
+    """The operands each body-model kernel wrapper gets in one forward and
+    backward of `model` at B=T_FRAMES on random seeded parameters."""
     import torch
 
-    from lemo_tpu_torch.body_model import chain_cuda as cc
     from lemo_tpu_torch.body_model import make_forward_fn
-    from lemo_tpu_torch.body_model import vertex_cuda as vc
 
     rng = np.random.RandomState(1)
     params = _random_params(model, T_FRAMES, rng)
@@ -237,7 +239,55 @@ def phase_kernels(model, card) -> list[dict]:
         loss = (out["vertices"] * gv).sum() + (out["joints"] ** 2).sum()
         loss.backward()
     torch.cuda.synchronize()
+    return ops
 
+
+def vertex_bwd_stages(catT, A2, dirs, w, dout, card, tol=5e-5) -> dict:
+    """Each stage of the vertex backward against its plain version on the
+    same inputs (the reductions on the plain first stage's vs and dvs),
+    relative to each output's largest magnitude; times both. Raises on a
+    disagreement; returns {stage: {max_rel_err, ms, plain_ms}}."""
+    import torch
+
+    from lemo_tpu_torch.body_model import vertex_cuda as vc
+
+    vs, dvs = vc.vertex_plain_bwd_pointwise(catT, A2, dirs, w, dout)
+    stages = {
+        "pointwise": (
+            lambda: vc.vertex_bwd_pointwise_kernel(catT, A2, dirs, w, dout),
+            lambda: vc.vertex_plain_bwd_pointwise(catT, A2, dirs, w, dout)),
+        "dcat": (lambda: vc.dcat_kernel_from_dvs(dirs, dvs),
+                 lambda: vc.dcat_plain_from_dvs(dirs, dvs)),
+        "da2": (lambda: vc.da2_kernel_from_vs(w, vs, dout),
+                lambda: vc.da2_plain_from_vs(w, vs, dout)),
+    }
+    out = {}
+    for name, (kern, plain) in stages.items():
+        got, ref = kern(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        torch.cuda.synchronize()
+        rel = max(_max_rel(g, r) for g, r in zip(got, ref))
+        if not all(bool(torch.isfinite(g).all()) for g in got) or \
+                not rel <= tol:
+            raise AssertionError(f"vertex_bwd stage {name}: error {rel:.3e}"
+                                 f" > {tol:g} rel")
+        ms, plain_ms = _time_ms(kern), _time_ms(plain)
+        _log(f"[kernels] vertex_bwd stage {name}: max rel err {rel:.3e} "
+             f"(tol {tol:g} rel); kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+             f"ms on {card}")
+        out[name] = {"max_rel_err": rel, "ms": ms, "plain_ms": plain_ms}
+    return out
+
+
+def phase_kernels(model, card) -> list[dict]:
+    """Phase 2: every kernel vs its plain twin at the main-path shapes."""
+    import torch
+
+    from lemo_tpu_torch.body_model import chain_cuda as cc
+    from lemo_tpu_torch.body_model import vertex_cuda as vc
+
+    ops = body_operands(model)
     rl, tl, parents = ops["chain_fwd_kernel"]
     _, _, rg, drg, dtg, _ = ops["chain_bwd_kernel"]
     catT, A2, dirs, w = ops["vertex_fwd_kernel"]
@@ -274,6 +324,7 @@ def phase_kernels(model, card) -> list[dict]:
                      "max_abs_err": abs_err, "max_rel_err": rel_err,
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                      "bound_by": by, "library_ms": None})
+        return rows[-1]
 
     chain_src = "lemo_tpu_torch/csrc/chain.cu"
     vert_src = "lemo_tpu_torch/csrc/vertex.cu"
@@ -300,14 +351,25 @@ def phase_kernels(model, card) -> list[dict]:
         flops=2.0 * 3 * V * D * B + 2.0 * 12 * V * J * B + 18.0 * V * B)
     # the backward recomputes vs (3 blends) and T[0..8] from its inputs,
     # then forms dcat (3 blends) and dA2 (12 skinning products)
-    add("vertex_bwd", vert_src,
-        "lemo_tpu/body_model/vertex_pallas.py:103",
-        lambda: vc.vertex_bwd_kernel(catT, A2, dirs, w, dout),
-        lambda: vc.vertex_plain_bwd(catT, A2, dirs, w, dout),
-        5e-5, True,
-        nbytes=f4 * (2 * D * B + 24 * J * B + 3 * V * D + V * J
-                     + 3 * V * B),
-        flops=2.0 * 6 * V * D * B + 2.0 * 21 * V * J * B + 27.0 * V * B)
+    bwd = add("vertex_bwd", vert_src,
+              "lemo_tpu/body_model/vertex_pallas.py:103",
+              lambda: vc.vertex_bwd_kernel(catT, A2, dirs, w, dout),
+              lambda: vc.vertex_plain_bwd(catT, A2, dirs, w, dout),
+              5e-5, True,
+              nbytes=f4 * (2 * D * B + 24 * J * B + 3 * V * D + V * J
+                           + 3 * V * B),
+              flops=2.0 * 6 * V * D * B + 2.0 * 21 * V * J * B
+              + 27.0 * V * B)
+    bwd["stages"] = vertex_bwd_stages(catT, A2, dirs, w, dout, card)
+    first = vc.vertex_bwd_kernel(catT, A2, dirs, w, dout)
+    again = vc.vertex_bwd_kernel(catT, A2, dirs, w, dout)
+    bwd["bit_identical_repeat"] = all(
+        torch.equal(a, b) for a, b in zip(first, again))
+    _log(f"[kernels] vertex_bwd: two launches bit-identical "
+         f"{bwd['bit_identical_repeat']}")
+    if not bwd["bit_identical_repeat"]:
+        raise AssertionError("vertex_bwd: two launches on the same operands "
+                             "differ")
     return rows
 
 

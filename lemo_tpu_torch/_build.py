@@ -30,15 +30,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point -> argument types; every entry point returns an int: the
-# launches return their cudaGetLastError(), `lemo_vertex_bwd_tiles` the
-# scratch size the kernel's own tile constant gives
+# launches return their cudaGetLastError(), `lemo_vertex_bwd_slices` 0
+# once it has written the backward's scratch extents (the split-K slice
+# counts its own tiling gives) into its int[2]
 SIGNATURES = {
     "lemo_chain_fwd": [_P, _P, _P, _P, _P, _I, _I, _P],
     "lemo_chain_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "lemo_vertex_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "lemo_vertex_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "lemo_vertex_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _P],
-    "lemo_vertex_bwd_tiles": [_I],
+    "lemo_vertex_bwd_slices": [_I, _I, _I, _I, ctypes.POINTER(_I)],
+    "lemo_vertex_bwd_pointwise": [_P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _P],
+    "lemo_vertex_bwd_dcat": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "lemo_vertex_bwd_da2": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "lemo_nn_select": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "lemo_cone_energy": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
 }

@@ -7,15 +7,26 @@ Port of `lemo_tpu/body_model/vertex_pallas.py`. Per vertex tile, with
     T      = W @ A2                        # skinning blend, 12 planes
     out[m] = sum_n T[3m+n] * vs[n] + T[9+m]
 
-The backward recomputes T and vs and returns (dcat, dA2); dirs and W are
-model constants and get no cotangent. The kernels (`csrc/vertex.cu`)
-never write vs or T to device memory.
+The backward returns (dcat, dA2); dirs and W are model constants and get
+no cotangent. It runs in three stages, each with a plain twin here:
+
+    vs, dvs = pointwise(catT, A2, dirs, w, dout)   # dvs[n] = sum_m T[3m+n] dout[m]
+    dcat    = sum_n dirs[n]^T @ dvs[n]             # split-K reduction over V
+    dA2[k]  = W^T @ dT[k]                          # dT from dout and vs
+
+The forward kernel never writes vs or T to device memory; the backward
+recomputes vs and T per vertex tile and keeps vs and dvs in scratch
+slabs [3, Vp, Bp] for its two reductions (`csrc/vertex.cu`).
 
 Dispatch: a CPU tensor goes to the plain twin; any other tensor goes to
 the kernel, which checks that it is on CUDA and raises otherwise.
 """
 
 from __future__ import annotations
+
+import ctypes
+import math
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -27,6 +38,10 @@ TILE_V = 256   # vertex padding of the fused constants (bit-equal to JAX)
 
 # launches of each kernel, counted where the wrapper launches it
 launches = {"vertex_fwd": 0, "vertex_bwd": 0}
+# launches of the backward's stages on their own (the checks of each
+# stage; the main path launches them only through `vertex_bwd_kernel`)
+stage_launches = {"vertex_bwd_pointwise": 0, "vertex_bwd_dcat": 0,
+                  "vertex_bwd_da2": 0}
 
 
 def pad_to(x: int, mult: int) -> int:
@@ -106,31 +121,111 @@ def vertex_fwd_kernel(catT, A2, dirs, w):
     return out
 
 
+@lru_cache(maxsize=None)
+def bwd_slices(D: int, Jp: int, Vp: int, Bp: int) -> tuple[int, int]:
+    """The backward's split-K slice counts (dcat, dA2) at these shapes,
+    from the kernel's own tiling (`lemo_vertex_bwd_slices`)."""
+    lib = _build.load_library()
+    out = (ctypes.c_int * 2)()
+    rc = lib.lemo_vertex_bwd_slices(D, Jp, Vp, Bp, out)
+    if rc:
+        raise ValueError(f"vertex kernel: shapes D={D} Jp={Jp} Vp={Vp} "
+                         f"Bp={Bp} are not whole tiles of the kernel")
+    return out[0], out[1]
+
+
+def _bwd_scratch(D, Jp, Vp, Bp, dev):
+    """The backward's scratch as views of one buffer: vs, dvs
+    [3, Vp, Bp], the dcat partials [S0, D, Bp] and the dA2 partials
+    [S1, 12, Jp, Bp] (every view starts on a 16-byte boundary)."""
+    s_dcat, s_da2 = bwd_slices(D, Jp, Vp, Bp)
+    shapes = [(3, Vp, Bp), (3, Vp, Bp), (s_dcat, D, Bp),
+              (s_da2, 12, Jp, Bp)]
+    sizes = [math.prod(s) for s in shapes]
+    flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    return [v.view(s) for v, s in zip(flat.split(sizes), shapes)]
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def vertex_bwd_kernel(catT, A2, dirs, w, dout):
-    """Kernel 4: -> (dcat [D, Bp], dA2 [12, Jp, Bp]). Per-V-tile partial
-    sums go to scratch [tiles, ...] and a second pass in the same C call
-    sums them in a fixed order (deterministic, no atomics)."""
+    """Kernel 4: -> (dcat [D, Bp], dA2 [12, Jp, Bp]). One C call launches
+    the pointwise pass, the two split-K reductions and their fixed-order
+    sums on the current stream (deterministic, no atomics)."""
     D, Jp, Vp, Bp = _check_operands(catT, A2, dirs, w)
     _check("dout", dout, (3, Vp, Bp))
     lib = _build.load_library()
     dev = catT.device
-    tiles = lib.lemo_vertex_bwd_tiles(Vp)
-    if tiles <= 0:
-        raise ValueError(f"vertex kernel: Vp={Vp} is not a whole number of "
-                         "the kernel's vertex tiles")
+    vs, dvs, part_dcat, part_da2 = _bwd_scratch(D, Jp, Vp, Bp, dev)
     dcat = torch.empty((D, Bp), dtype=torch.float32, device=dev)
     da2 = torch.empty((12, Jp, Bp), dtype=torch.float32, device=dev)
-    part_dcat = torch.empty((tiles, D, Bp), dtype=torch.float32, device=dev)
-    part_da2 = torch.empty((tiles, 12, Jp, Bp), dtype=torch.float32,
-                           device=dev)
     rc = lib.lemo_vertex_bwd(
         catT.data_ptr(), A2.data_ptr(), dirs.data_ptr(), w.data_ptr(),
-        dout.data_ptr(), dcat.data_ptr(), da2.data_ptr(),
-        part_dcat.data_ptr(), part_da2.data_ptr(), D, Jp, Vp, Bp,
-        torch.cuda.current_stream(dev).cuda_stream)
+        dout.data_ptr(), dcat.data_ptr(), da2.data_ptr(), vs.data_ptr(),
+        dvs.data_ptr(), part_dcat.data_ptr(), part_da2.data_ptr(), D, Jp,
+        Vp, Bp, _stream(catT))
     _build.check(lib, rc, f"lemo_vertex_bwd (D={D} Jp={Jp} Vp={Vp} Bp={Bp})")
     launches["vertex_bwd"] += 1
     return dcat, da2
+
+
+def vertex_bwd_pointwise_kernel(catT, A2, dirs, w, dout):
+    """The backward's first stage alone -> (vs, dvs) [3, Vp, Bp]."""
+    D, Jp, Vp, Bp = _check_operands(catT, A2, dirs, w)
+    _check("dout", dout, (3, Vp, Bp))
+    lib = _build.load_library()
+    vs, dvs = (torch.empty((3, Vp, Bp), dtype=torch.float32,
+                           device=catT.device) for _ in range(2))
+    rc = lib.lemo_vertex_bwd_pointwise(
+        catT.data_ptr(), A2.data_ptr(), dirs.data_ptr(), w.data_ptr(),
+        dout.data_ptr(), vs.data_ptr(), dvs.data_ptr(), D, Jp, Vp, Bp,
+        _stream(catT))
+    _build.check(lib, rc, "lemo_vertex_bwd_pointwise")
+    stage_launches["vertex_bwd_pointwise"] += 1
+    return vs, dvs
+
+
+def dcat_kernel_from_dvs(dirs, dvs):
+    """The dcat reduction alone: dirs [3, Vp, D], dvs [3, Vp, Bp] ->
+    dcat [D, Bp]."""
+    _, Vp, D = dirs.shape
+    Bp = dvs.shape[2]
+    _check("dirs", dirs, (3, Vp, D))
+    _check("dvs", dvs, (3, Vp, Bp))
+    lib = _build.load_library()
+    s_dcat, _ = bwd_slices(D, 1, Vp, Bp)   # S0 does not depend on Jp
+    part = torch.empty((s_dcat, D, Bp), dtype=torch.float32,
+                       device=dirs.device)
+    dcat = torch.empty((D, Bp), dtype=torch.float32, device=dirs.device)
+    rc = lib.lemo_vertex_bwd_dcat(dirs.data_ptr(), dvs.data_ptr(),
+                                  dcat.data_ptr(), part.data_ptr(), D, Vp,
+                                  Bp, _stream(dirs))
+    _build.check(lib, rc, "lemo_vertex_bwd_dcat")
+    stage_launches["vertex_bwd_dcat"] += 1
+    return dcat
+
+
+def da2_kernel_from_vs(w, vs, dout):
+    """The dA2 reduction alone: w [Vp, Jp], vs and dout [3, Vp, Bp] ->
+    dA2 [12, Jp, Bp]."""
+    Vp, Jp = w.shape
+    Bp = vs.shape[2]
+    _check("w", w, (Vp, Jp))
+    _check("vs", vs, (3, Vp, Bp))
+    _check("dout", dout, (3, Vp, Bp))
+    lib = _build.load_library()
+    _, s_da2 = bwd_slices(1, Jp, Vp, Bp)   # nor S1 on D
+    part = torch.empty((s_da2, 12, Jp, Bp), dtype=torch.float32,
+                       device=w.device)
+    da2 = torch.empty((12, Jp, Bp), dtype=torch.float32, device=w.device)
+    rc = lib.lemo_vertex_bwd_da2(w.data_ptr(), vs.data_ptr(), dout.data_ptr(),
+                                 da2.data_ptr(), part.data_ptr(), Jp, Vp, Bp,
+                                 _stream(w))
+    _build.check(lib, rc, "lemo_vertex_bwd_da2")
+    stage_launches["vertex_bwd_da2"] += 1
+    return da2
 
 
 def _skin_blend(A2, w):
@@ -147,17 +242,34 @@ def vertex_plain_fwd(catT, A2, dirs, w):
         + T[3 * m + 2] * vs[2] for m in range(3)])
 
 
-def vertex_plain_bwd(catT, A2, dirs, w, dout):
-    """Plain twin of kernel 4 -> (dcat [D, Bp], dA2 [12, Jp, Bp])."""
+def vertex_plain_bwd_pointwise(catT, A2, dirs, w, dout):
+    """Plain twin of the backward's first stage -> (vs, dvs) [3, Vp, Bp]:
+    vs[n] = dirs[n] @ cat and dvs[n] = sum_m T[3m+n] * dout[m]."""
     vs = torch.matmul(dirs, catT)
     T = _skin_blend(A2, w)
-    dT = torch.stack([dout[k // 3] * vs[k % 3] for k in range(9)]
-                     + [dout[m] for m in range(3)])  # [12, Vp, Bp]
-    da2 = torch.einsum("vj,kvb->kjb", w, dT)
     dvs = torch.stack([T[n] * dout[0] + T[3 + n] * dout[1]
                        + T[6 + n] * dout[2] for n in range(3)])
-    dcat = torch.einsum("nvd,nvb->db", dirs, dvs)
-    return dcat, da2
+    return vs, dvs
+
+
+def dcat_plain_from_dvs(dirs, dvs):
+    """Plain twin of the dcat reduction: sum_n dirs[n]^T @ dvs[n]."""
+    return torch.einsum("nvd,nvb->db", dirs, dvs)
+
+
+def da2_plain_from_vs(w, vs, dout):
+    """Plain twin of the dA2 reduction: W^T @ dT[k], with
+    dT[3m+n] = dout[m] * vs[n] and dT[9+m] = dout[m]."""
+    dT = torch.stack([dout[k // 3] * vs[k % 3] for k in range(9)]
+                     + [dout[m] for m in range(3)])  # [12, Vp, Bp]
+    return torch.einsum("vj,kvb->kjb", w, dT)
+
+
+def vertex_plain_bwd(catT, A2, dirs, w, dout):
+    """Plain twin of kernel 4 -> (dcat [D, Bp], dA2 [12, Jp, Bp]): its
+    three stages in turn."""
+    vs, dvs = vertex_plain_bwd_pointwise(catT, A2, dirs, w, dout)
+    return dcat_plain_from_dvs(dirs, dvs), da2_plain_from_vs(w, vs, dout)
 
 
 class _VertexCore(torch.autograd.Function):

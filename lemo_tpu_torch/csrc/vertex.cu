@@ -25,22 +25,42 @@
 // CUDA-core peak versus ~20 us of HBM traffic. lemo_tpu computes these
 // products exactly in f32 (Precision.HIGHEST), and TF32 would miss the
 // 2e-6 m tolerance, so the tensor cores are out: the design is a classic
-// register-tiled SGEMM on the CUDA cores, fused so that no [B, V, 3]
-// intermediate (vs, T) ever reaches device memory.
+// register-tiled SGEMM on the CUDA cores.
 //
-// Design: one block of 128 threads per (64-vertex x 32-frame) tile; each
+// Forward: one block of 128 threads per (64-vertex x 32-frame) tile; each
 // thread owns a 4x4 (vertex x frame) micro-tile and keeps its 48 blend
 // sums in registers (phase 1: dirs and cat staged through shared memory in
 // chunks of D, read as float4). Phase 2 stages W once and one A2 plane at a
 // time and forms each T[k] micro-tile in registers, folding it straight
 // into the output. The B tile is the fastest grid index, so the blocks
 // that read the same dirs rows run together and share them through L2.
+// No [B, V, 3] intermediate (vs, T) reaches device memory.
 //
-// The TPU backward sums dcat and dA2 across V tiles in scratch, because its
-// grid runs in order. Hopper's blocks run in parallel and in no order, so
-// each V tile writes its partial dcat [D, Bp] and dA2 [12, Jp, Bp] to a
-// scratch slab [nVtiles, ...] and a second pass sums the slabs in a fixed
-// order: deterministic, no atomics.
+// Backward: a pointwise pass and two cross-vertex reductions, six
+// launches in one C call (`lemo_vertex_bwd`):
+//
+//   K1 (`lemo_vertex_bwd_pointwise`) recomputes vs and forms dvs, both to
+//      scratch slabs [3, Vp, Bp]:
+//      K1a vs [3Vp, Bp] = dirs [3Vp, D] cat [D, Bp]: a GEMM with
+//          M = 3 Vp, N = Bp and K = D (`VsProblem`);
+//      K1b dvs[n] = sum_m T[3m+n] * dout[m] (`vertex_bwd_dvs_kernel`):
+//          T[0..8] = W A2[k] formed on a 64-vertex x 64-frame tile, the
+//          three planes of one n staged together.
+//   K2 dcat [D, Bp] = dirs^T dvs: a GEMM with M = D, N = Bp and
+//      K = 3 Vp (dirs [3, Vp, D] and dvs [3, Vp, Bp] are [3Vp, D] and
+//      [3Vp, Bp] row-major, so both operands stream along K).
+//   K3 dA2 [12, Jp, Bp] = W^T dT: a GEMM with M = Jp, N = 12 Bp and
+//      K = Vp; dT is formed from dout and vs while it is staged.
+//
+// The three GEMMs share one register-tiled split-K SGEMM
+// (`splitk_gemm_kernel`): 256 threads, 8x8 outputs a thread, K staged
+// through shared memory in chunks of 16 with the next chunk's loads in
+// flight. K1a needs no split. The TPU sums K2 and K3 across V tiles in
+// scratch because its grid runs in order; Hopper's blocks run in parallel
+// and in no order, so each K slice writes its partial product to a scratch
+// slab [S, ...] and `sum_slices_kernel` adds the S slabs in slice order:
+// deterministic, no atomics. S follows from the shapes alone (`split_k`):
+// enough slices that each product's grid fills two waves of 132 SMs.
 //
 // Everything accumulates in f32 with FMA: no TF32, no half precision.
 
@@ -55,7 +75,6 @@ constexpr int KD = 16;        // D chunk of the blend phase
 constexpr int MAXJ = 64;      // largest Jp the tiles hold
 constexpr int LDV = TV + 4;   // padded row of a [.][TV] smem tile
 constexpr int LDB = TB + 4;   // padded row of a [.][TB] smem tile
-constexpr int LDJ = MAXJ + 4; // padded row of a [.][MAXJ] smem tile
 
 // floats of the blend-phase staging: dirs [3][KD][LDV] + cat [KD][TB]
 constexpr int STAGE_BLEND = 3 * KD * LDV + KD * TB;
@@ -188,179 +207,306 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// Backward shared memory (floats): vs, dout, dvs tiles [3][TV][TB] each,
-// W as [j][v], and one staging area reused by every phase.
-constexpr int SM_TILE = 3 * TV * TB;
-constexpr int STAGE_BWD =
-    STAGE_BLEND > TV * LDJ ? (STAGE_BLEND > SM_A ? STAGE_BLEND : SM_A)
-                           : (TV * LDJ > SM_A ? TV * LDJ : SM_A);
-constexpr int BWD_SMEM_FLOATS = 3 * SM_TILE + SM_W + STAGE_BWD;
-constexpr int KD4 = 64;  // D chunk of the dcat phase (staged as [v][LDJ])
-static_assert(TV * LDJ >= TV * (KD4 + 4), "dcat staging must fit");
+// K1b: dvs[n] = sum_m T[3m+n] * dout[m] on a 64-vertex x 64-frame tile;
+// for each n the three A2 planes 3m+n are staged at once. 128 threads, 8
+// vertices x 4 frames each; dvs goes to scratch [3, Vp, Bp].
+constexpr int DV = 64, DB = 64, LDD = DB + 4;
+
+int dvs_smem_bytes(int Jp) {
+  return (Jp * LDV + 3 * Jp * LDD) * (int)sizeof(float);
+}
 
 __global__ void __launch_bounds__(NT)
-    vertex_bwd_kernel(const float* __restrict__ cat,
-                      const float* __restrict__ a2,
-                      const float* __restrict__ dirs,
-                      const float* __restrict__ w,
-                      const float* __restrict__ dout,
-                      float* __restrict__ part_dcat,
-                      float* __restrict__ part_da2, int D, int Jp, int Vp,
-                      int Bp) {
+    vertex_bwd_dvs_kernel(const float* __restrict__ a2,
+                          const float* __restrict__ w,
+                          const float* __restrict__ dout,
+                          float* __restrict__ dvs_out, int Jp, int Vp,
+                          int Bp) {
   extern __shared__ __align__(16) float dsm[];
-  float* s_vs = dsm;                    // [3][TV][TB]
-  float* s_dout = s_vs + SM_TILE;       // [3][TV][TB]
-  float* s_dvs = s_dout + SM_TILE;      // [3][TV][TB]
-  float* s_w = s_dvs + SM_TILE;         // [MAXJ][LDV]
-  float* stage = s_w + SM_W;
-
-  const int tid = threadIdx.x, tb = tid % 8, tv = tid / 8;
-  const int bbase = blockIdx.x * TB, vbase = blockIdx.y * TV;
-  const int tile = blockIdx.y;
-
-  // phase 1: recompute vs; park it and dout in shared memory
-  {
-    float vs[3][4][4];
-    blend_phase(cat, dirs, stage, vs, D, Vp, Bp, vbase, bbase, tv, tb);
-#pragma unroll
-    for (int n = 0; n < 3; ++n)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        st4(&s_vs[(n * TV + 4 * tv + r) * TB + 4 * tb],
-            make_float4(vs[n][r][0], vs[n][r][1], vs[n][r][2], vs[n][r][3]));
+  float* s_w = dsm;                 // [Jp][LDV]
+  float* s_a = dsm + Jp * LDV;      // [3][Jp][LDD]
+  const int tid = threadIdx.x, tb = tid % 16, tv = tid / 16;
+  const int bbase = blockIdx.x * DB, vbase = blockIdx.y * DV;
+  const bool live = bbase + 4 * tb < Bp;   // Bp % 64 == 32: a half tile
+  for (int idx = tid; idx < Jp * DV; idx += NT) {
+    const int j = idx % Jp, v = idx / Jp;
+    s_w[j * LDV + v] = w[(long)(vbase + v) * Jp + j];
   }
-  for (int idx = tid; idx < 3 * TV * TB; idx += NT) {
-    const int b = idx % TB, v = (idx / TB) % TV, m = idx / (TB * TV);
-    s_dout[idx] = dout[((long)m * Vp + vbase + v) * Bp + bbase + b];
-  }
-  stage_w_jv(w, s_w, Jp, vbase);
-
-  // phase 2: dvs[n] = sum_m T[3m+n] * dout[m]
-  {
-    float dvs[3][4][4];
+  for (int n = 0; n < 3; ++n) {
+    __syncthreads();
+    for (int idx = tid; idx < 3 * Jp * (DB / 4); idx += NT) {
+      const int b4 = idx % (DB / 4), j = (idx / (DB / 4)) % Jp;
+      const int m = idx / ((DB / 4) * Jp), b = bbase + 4 * b4;
+      st4(&s_a[(m * Jp + j) * LDD + 4 * b4],
+          b < Bp ? ld4(&a2[((long)(3 * m + n) * Jp + j) * Bp + b])
+                 : make_float4(0.f, 0.f, 0.f, 0.f));
+    }
+    __syncthreads();
+    float acc[8][4];
 #pragma unroll
-    for (int n = 0; n < 3; ++n)
+    for (int r = 0; r < 8; ++r)
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dvs[n][r][i] = 0.f;
+      for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
     for (int m = 0; m < 3; ++m) {
+      float T[8][4];
 #pragma unroll
-      for (int n = 0; n < 3; ++n) {
-        float T[4][4];
-        skin_plane(a2, s_w, stage, 3 * m + n, T, Jp, Bp, bbase, tv, tb);
+      for (int r = 0; r < 8; ++r)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float4 d4 = ld4(&s_dout[(m * TV + 4 * tv + r) * TB + 4 * tb]);
+        for (int i = 0; i < 4; ++i) T[r][i] = 0.f;
+#pragma unroll 4
+      for (int j = 0; j < Jp; ++j) {
+        const float4 w0 = ld4(&s_w[j * LDV + 4 * tv]);
+        const float4 w1 = ld4(&s_w[j * LDV + DV / 2 + 4 * tv]);
+        const float4 av = ld4(&s_a[(m * Jp + j) * LDD + 4 * tb]);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) dvs[n][r][i] += T[r][i] * comp(d4, i);
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            T[r][i] += comp(w0, r) * comp(av, i);
+            T[4 + r][i] += comp(w1, r) * comp(av, i);
+          }
+      }
+      if (live) {
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const int v = vbase + (r < 4 ? 4 * tv + r : DV / 2 + 4 * tv + r - 4);
+          const float4 d4 =
+              ld4(&dout[((long)m * Vp + v) * Bp + bbase + 4 * tb]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[r][i] += T[r][i] * comp(d4, i);
         }
       }
     }
+    if (live) {
 #pragma unroll
-    for (int n = 0; n < 3; ++n)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        st4(&s_dvs[(n * TV + 4 * tv + r) * TB + 4 * tb],
-            make_float4(dvs[n][r][0], dvs[n][r][1], dvs[n][r][2],
-                        dvs[n][r][3]));
-  }
-
-  // phase 3: partial dA2[k][j][b] = sum_v W[v][j] dT[k][v][b]; W staged as
-  // [v][j]; thread owns 4 joints (4*tj..) x 4 frames
-  __syncthreads();
-  float* s_wvj = stage;  // [TV][LDJ]
-  for (int idx = tid; idx < TV * MAXJ; idx += NT) {
-    const int j = idx % MAXJ, v = idx / MAXJ;
-    s_wvj[v * LDJ + j] = j < Jp ? w[(long)(vbase + v) * Jp + j] : 0.f;
-  }
-  __syncthreads();
-  const int tj = tid / 8;
-#pragma unroll 1
-  for (int k = 0; k < 12; ++k) {
-    float acc[4][4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[c][i] = 0.f;
-    const float* dsrc = s_dout + (k < 9 ? k / 3 : k - 9) * TV * TB;
-    const float* vsrc = s_vs + (k % 3) * TV * TB;
-#pragma unroll 4
-    for (int v = 0; v < TV; ++v) {
-      const float4 wv = ld4(&s_wvj[v * LDJ + 4 * tj]);
-      float4 dt = ld4(&dsrc[v * TB + 4 * tb]);
-      if (k < 9) {
-        const float4 s4 = ld4(&vsrc[v * TB + 4 * tb]);
-        dt = make_float4(dt.x * s4.x, dt.y * s4.y, dt.z * s4.z, dt.w * s4.w);
+      for (int r = 0; r < 8; ++r) {
+        const int v = vbase + (r < 4 ? 4 * tv + r : DV / 2 + 4 * tv + r - 4);
+        st4(&dvs_out[((long)n * Vp + v) * Bp + bbase + 4 * tb],
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]));
       }
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[c][i] += comp(wv, c) * comp(dt, i);
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = 4 * tj + c;
-      if (j < Jp)
-        st4(&part_da2[(((long)tile * 12 + k) * Jp + j) * Bp + bbase + 4 * tb],
-            make_float4(acc[c][0], acc[c][1], acc[c][2], acc[c][3]));
-    }
-  }
-
-  // phase 4: partial dcat[d][b] = sum_n sum_v dirs[n][v][d] dvs[n][v][b];
-  // one n at a time, dirs staged as [v][d] in chunks of KD4; thread owns
-  // 4 d (4*td..) x 4 frames
-  const int td = tid / 8;
-  for (int d0 = 0; d0 < D; d0 += KD4) {
-    float acc[4][4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[c][i] = 0.f;
-    for (int n = 0; n < 3; ++n) {
-      __syncthreads();
-      for (int idx = tid; idx < TV * KD4; idx += NT) {
-        const int dd = idx % KD4, v = idx / KD4, d = d0 + dd;
-        stage[v * LDJ + dd] =
-            d < D ? dirs[((long)n * Vp + vbase + v) * D + d] : 0.f;
-      }
-      __syncthreads();
-      const float* g = s_dvs + n * TV * TB;
-#pragma unroll 4
-      for (int v = 0; v < TV; ++v) {
-        const float4 a = ld4(&stage[v * LDJ + 4 * td]);
-        const float4 g4 = ld4(&g[v * TB + 4 * tb]);
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[c][i] += comp(a, c) * comp(g4, i);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int d = d0 + 4 * td + c;
-      if (d < D)
-        st4(&part_dcat[((long)tile * D + d) * Bp + bbase + 4 * tb],
-            make_float4(acc[c][0], acc[c][1], acc[c][2], acc[c][3]));
     }
   }
 }
 
-// out[i] = sum_t part[t * n + i], t in order: the deterministic second pass.
-__global__ void sum_tiles_kernel(const float* __restrict__ part,
-                                 float* __restrict__ out, long n,
-                                 int tiles) {
+// ---- the register-tiled split-K SGEMM of the backward ------------------
+//
+// C[m, n] = sum_k A(k, m) B(k, n) over one K slice per blockIdx.z. A
+// problem type P supplies M, N, K, the element A(k, m), the float4
+// B(k, n..n+3) (n % 4 == 0), `store`, which writes a float4 of slice s's
+// partial at (m, n..n+3), and kAlongK: whether A's memory runs along k
+// (dirs as [3 Vp, D] in vs = dirs cat) or along m (the reductions), which
+// sets the order the block reads A in. Out-of-range m, n and k are masked
+// here.
+
+constexpr int GT = 256;                // threads of a GEMM block
+constexpr int WAVE_BLOCKS = 2 * 132;   // two blocks on each of 132 SMs
+
+// BM x BN block tile, K staged through shared memory KC rows at a time
+template <int BM, int BN, int KC, class P>
+__global__ void __launch_bounds__(GT, 2)
+    splitk_gemm_kernel(const P p, int kslice) {
+  constexpr int TX = BN / 8, TY = BM / 8;   // 8x8 outputs a thread
+  static_assert(TX * TY == GT, "the block tile must give 8x8 a thread");
+  constexpr int LA = KC * BM / GT;          // A elements a thread stages
+  constexpr int LB = KC * BN / (4 * GT);    // B float4s a thread stages
+  static_assert(LA * GT == KC * BM && LB * 4 * GT == KC * BN, "tile");
+  // A's rows padded by 4: 2-way bank conflicts at most when kAlongK
+  __shared__ __align__(16) float sa[2][KC][BM + 4];
+  __shared__ __align__(16) float sb[2][KC][BN];
+  const auto a_at = [](int idx, int& kk, int& mm) {
+    kk = P::kAlongK ? idx % KC : idx / BM;
+    mm = P::kAlongK ? idx / KC : idx % BM;
+  };
+
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int kbeg = blockIdx.z * kslice;
+  const int kend = min(p.K, kbeg + kslice);
+  const int nchunks = kend > kbeg ? (kend - kbeg + KC - 1) / KC : 0;
+
+  float ra[LA];
+  float4 rb[LB];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < LA; ++i) {
+      int kk, mm;
+      a_at(tid + i * GT, kk, mm);
+      const int k = k0 + kk, m = m0 + mm;
+      ra[i] = k < kend && m < p.M ? p.a(k, m) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < LB; ++i) {
+      const int idx = tid + i * GT;
+      const int k = k0 + idx / (BN / 4), n = n0 + 4 * (idx % (BN / 4));
+      rb[i] = k < kend && n < p.N ? p.b(k, n) : make_float4(0, 0, 0, 0);
+    }
+  };
+  auto stash = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < LA; ++i) {
+      int kk, mm;
+      a_at(tid + i * GT, kk, mm);
+      sa[buf][kk][mm] = ra[i];
+    }
+#pragma unroll
+    for (int i = 0; i < LB; ++i) {
+      const int idx = tid + i * GT;
+      st4(&sb[buf][idx / (BN / 4)][4 * (idx % (BN / 4))], rb[i]);
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  if (nchunks > 0) {
+    load(kbeg);
+    stash(0);
+  }
+  __syncthreads();
+  for (int c = 0; c < nchunks; ++c) {
+    const int buf = c & 1;
+    if (c + 1 < nchunks) load(kbeg + (c + 1) * KC);
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) {
+      const float4 a0 = ld4(&sa[buf][kk][4 * ty]);
+      const float4 a1 = ld4(&sa[buf][kk][BM / 2 + 4 * ty]);
+      const float4 b0 = ld4(&sb[buf][kk][4 * tx]);
+      const float4 b1 = ld4(&sb[buf][kk][BN / 2 + 4 * tx]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    // the other buffer was last read before the previous barrier
+    if (c + 1 < nchunks) stash(buf ^ 1);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i < 4 ? 4 * ty + i : BM / 2 + 4 * ty + i - 4);
+    if (m >= p.M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + h * (BN / 2) + 4 * tx;
+      if (n < p.N)
+        p.store(blockIdx.z, m, n,
+                make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                            acc[i][4 * h + 2], acc[i][4 * h + 3]));
+    }
+  }
+}
+
+// K1a: vs [3 Vp, Bp] = dirs [3 Vp, D] cat [D, Bp], K = D, one slice.
+struct VsProblem {
+  const float* dirs;   // [3 Vp, D]
+  const float* cat;    // [D, Bp]
+  float* vs;           // [3 Vp, Bp]
+  int M, N, K;         // 3 Vp, Bp, D
+  static constexpr bool kAlongK = true;
+  __device__ float a(int k, int m) const { return dirs[(long)m * K + k]; }
+  __device__ float4 b(int k, int n) const {
+    return ld4(&cat[(long)k * N + n]);
+  }
+  __device__ void store(int, int m, int n, float4 v) const {
+    st4(&vs[(long)m * N + n], v);
+  }
+};
+constexpr int VS_BM = 128, VS_BN = 128, VS_KC = 16;
+
+// K2: dcat partials [S, D, Bp] = dirs^T dvs over K = 3 Vp.
+struct DcatProblem {
+  const float* dirs;   // [3 Vp, D]
+  const float* dvs;    // [3 Vp, Bp]
+  float* part;         // [S, D, Bp]
+  int M, N, K;                      // D, Bp, 3 Vp
+  static constexpr bool kAlongK = false;
+  __device__ float a(int k, int m) const { return dirs[(long)k * M + m]; }
+  __device__ float4 b(int k, int n) const {
+    return ld4(&dvs[(long)k * N + n]);
+  }
+  __device__ void store(int s, int m, int n, float4 v) const {
+    st4(&part[((long)s * M + m) * N + n], v);
+  }
+};
+constexpr int DCAT_BM = 128, DCAT_BN = 128, DCAT_KC = 16;
+
+// K3: dA2 partials [S, 12, Jp, Bp] = W^T dT over K = Vp, with column
+// n = q Bp + b of plane q: dT[q] = dout[q/3] * vs[q%3] (q < 9), dout[q-9].
+struct Da2Problem {
+  const float* w;      // [Vp, Jp]
+  const float* vs;     // [3, Vp, Bp]
+  const float* dout;   // [3, Vp, Bp]
+  float* part;         // [S, 12, Jp, Bp]
+  int M, N, K, Bp;                  // Jp, 12 Bp, Vp
+  static constexpr bool kAlongK = false;
+  __device__ float a(int k, int m) const { return w[(long)k * M + m]; }
+  __device__ float4 b(int k, int n) const {
+    const int q = n / Bp, col = n - q * Bp;
+    const long plane = (long)K * Bp;
+    float4 d = ld4(&dout[(q < 9 ? q / 3 : q - 9) * plane + (long)k * Bp +
+                         col]);
+    if (q < 9) {
+      const float4 s = ld4(&vs[(q % 3) * plane + (long)k * Bp + col]);
+      d = make_float4(d.x * s.x, d.y * s.y, d.z * s.z, d.w * s.w);
+    }
+    return d;
+  }
+  __device__ void store(int s, int m, int n, float4 v) const {
+    const int q = n / Bp, col = n - q * Bp;
+    st4(&part[(((long)s * 12 + q) * M + m) * Bp + col], v);
+  }
+};
+constexpr int DA2_BM = 64, DA2_BN = 256, DA2_KC = 16;
+
+// out[i] = sum_s part[s * n + i], s in order: the deterministic last pass.
+__global__ void sum_slices_kernel(const float* __restrict__ part,
+                                  float* __restrict__ out, long n,
+                                  int slices) {
   for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < n;
        i += (long)gridDim.x * blockDim.x) {
     float s = 0.f;
-    for (int t = 0; t < tiles; ++t) s += part[(long)t * n + i];
+    for (int t = 0; t < slices; ++t) s += part[(long)t * n + i];
     out[i] = s;
   }
+}
+
+// The K slices of an M x N x K product cut into BM x BN tiles: enough that
+// the grid holds about WAVE_BLOCKS blocks, each slice a whole number of
+// KC-row chunks. From the shapes alone, so the scratch and the order of
+// the sums are fixed for given shapes. Returns S and sets *kslice.
+int split_k(int M, int N, int K, int BM, int BN, int KC, int* kslice) {
+  const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  const int chunks = (K + KC - 1) / KC;
+  int s = (WAVE_BLOCKS + tiles - 1) / tiles;
+  s = s < 1 ? 1 : (s > chunks ? chunks : s);
+  const int per = (chunks + s - 1) / s;
+  *kslice = per * KC;
+  return (chunks + per - 1) / per;
 }
 
 bool shapes_ok(int D, int Jp, int Vp, int Bp) {
   return D > 0 && Jp > 0 && Jp <= MAXJ && Vp > 0 && Vp % TV == 0 &&
          Bp > 0 && Bp % TB == 0;
+}
+
+template <int BM, int BN, int KC, class P>
+int launch_reduction(const P& p, float* part, float* out, long n_out,
+                     cudaStream_t s) {
+  int kslice;
+  const int slices = split_k(p.M, p.N, p.K, BM, BN, KC, &kslice);
+  const dim3 grid((p.M + BM - 1) / BM, (p.N + BN - 1) / BN, slices);
+  splitk_gemm_kernel<BM, BN, KC, P><<<grid, GT, 0, s>>>(p, kslice);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sum_slices_kernel<<<(int)((n_out + 255) / 256), 256, 0, s>>>(
+      part, out, n_out, slices);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -377,38 +523,77 @@ int lemo_vertex_fwd(const float* cat, const float* a2, const float* dirs,
   return (int)cudaGetLastError();
 }
 
-// Number of V tiles, the leading extent of the backward's scratch slabs
-// (the caller sizes them with it); -1 when Vp is not a whole number of
-// tiles.
-int lemo_vertex_bwd_tiles(int Vp) {
-  return Vp > 0 && Vp % TV == 0 ? Vp / TV : -1;
+// The backward's split-K slice counts, the leading extents of its partial
+// slabs (the caller sizes them, and the vs/dvs slabs [3, Vp, Bp], with
+// them): slices[0] for dcat [S0, D, Bp], slices[1] for dA2
+// [S1, 12, Jp, Bp]. Returns cudaErrorInvalidValue for shapes the kernels
+// do not take.
+int lemo_vertex_bwd_slices(int D, int Jp, int Vp, int Bp, int* slices) {
+  if (!shapes_ok(D, Jp, Vp, Bp)) return (int)cudaErrorInvalidValue;
+  int kslice;
+  slices[0] = split_k(D, Bp, 3 * Vp, DCAT_BM, DCAT_BN, DCAT_KC, &kslice);
+  slices[1] = split_k(Jp, 12 * Bp, Vp, DA2_BM, DA2_BN, DA2_KC, &kslice);
+  return 0;
 }
 
-// part_dcat: scratch [tiles, D, Bp]; part_da2: scratch [tiles, 12, Jp, Bp],
-// tiles = lemo_vertex_bwd_tiles(Vp)
+// K1 alone: vs, dvs [3, Vp, Bp] (K1a then K1b).
+int lemo_vertex_bwd_pointwise(const float* cat, const float* a2,
+                              const float* dirs, const float* w,
+                              const float* dout, float* vs, float* dvs,
+                              int D, int Jp, int Vp, int Bp, void* stream) {
+  if (!shapes_ok(D, Jp, Vp, Bp)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const VsProblem p{dirs, cat, vs, 3 * Vp, Bp, D};
+  const dim3 grid_vs((p.M + VS_BM - 1) / VS_BM, (p.N + VS_BN - 1) / VS_BN);
+  splitk_gemm_kernel<VS_BM, VS_BN, VS_KC, VsProblem>
+      <<<grid_vs, GT, 0, s>>>(p, D);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int smem = dvs_smem_bytes(Jp);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      vertex_bwd_dvs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (attr != cudaSuccess) return (int)attr;
+  vertex_bwd_dvs_kernel<<<dim3((Bp + DB - 1) / DB, Vp / DV), NT, smem, s>>>(
+      a2, w, dout, dvs, Jp, Vp, Bp);
+  return (int)cudaGetLastError();
+}
+
+// K2 and its sum: dcat [D, Bp] from dirs and dvs; part_dcat [S0, D, Bp].
+int lemo_vertex_bwd_dcat(const float* dirs, const float* dvs, float* dcat,
+                         float* part_dcat, int D, int Vp, int Bp,
+                         void* stream) {
+  if (!shapes_ok(D, 1, Vp, Bp)) return (int)cudaErrorInvalidValue;
+  const DcatProblem p{dirs, dvs, part_dcat, D, Bp, 3 * Vp};
+  return launch_reduction<DCAT_BM, DCAT_BN, DCAT_KC>(
+      p, part_dcat, dcat, (long)D * Bp, (cudaStream_t)stream);
+}
+
+// K3 and its sum: dA2 [12, Jp, Bp] from W, vs and dout; part_da2
+// [S1, 12, Jp, Bp].
+int lemo_vertex_bwd_da2(const float* w, const float* vs, const float* dout,
+                        float* da2, float* part_da2, int Jp, int Vp, int Bp,
+                        void* stream) {
+  if (!shapes_ok(1, Jp, Vp, Bp)) return (int)cudaErrorInvalidValue;
+  const Da2Problem p{w, vs, dout, part_da2, Jp, 12 * Bp, Vp, Bp};
+  return launch_reduction<DA2_BM, DA2_BN, DA2_KC>(
+      p, part_da2, da2, 12L * Jp * Bp, (cudaStream_t)stream);
+}
+
+// The whole backward, K1 then K2 and K3 with their sums, on one stream.
+// Scratch: vs, dvs [3, Vp, Bp]; part_dcat and part_da2 sized by
+// lemo_vertex_bwd_slices.
 int lemo_vertex_bwd(const float* cat, const float* a2, const float* dirs,
                     const float* w, const float* dout, float* dcat,
-                    float* da2, float* part_dcat, float* part_da2, int D,
-                    int Jp, int Vp, int Bp, void* stream) {
-  if (!shapes_ok(D, Jp, Vp, Bp)) return (int)cudaErrorInvalidValue;
-  const int smem = BWD_SMEM_FLOATS * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      vertex_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid(Bp / TB, Vp / TV);
-  vertex_bwd_kernel<<<grid, NT, smem, s>>>(cat, a2, dirs, w, dout,
-                                           part_dcat, part_da2, D, Jp, Vp,
-                                           Bp);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = Vp / TV;
-  const long n_dcat = (long)D * Bp, n_da2 = 12L * Jp * Bp;
-  sum_tiles_kernel<<<(int)((n_dcat + 255) / 256), 256, 0, s>>>(
-      part_dcat, dcat, n_dcat, tiles);
-  sum_tiles_kernel<<<(int)((n_da2 + 255) / 256), 256, 0, s>>>(
-      part_da2, da2, n_da2, tiles);
-  return (int)cudaGetLastError();
+                    float* da2, float* vs, float* dvs, float* part_dcat,
+                    float* part_da2, int D, int Jp, int Vp, int Bp,
+                    void* stream) {
+  int err = lemo_vertex_bwd_pointwise(cat, a2, dirs, w, dout, vs, dvs, D, Jp,
+                                      Vp, Bp, stream);
+  if (err) return err;
+  err = lemo_vertex_bwd_dcat(dirs, dvs, dcat, part_dcat, D, Vp, Bp, stream);
+  if (err) return err;
+  return lemo_vertex_bwd_da2(w, vs, dout, da2, part_da2, Jp, Vp, Bp, stream);
 }
 
 }  // extern "C"

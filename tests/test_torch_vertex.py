@@ -128,3 +128,109 @@ def test_kernel_wrappers_refuse_cpu_tensors(consts):
         TV.vertex_fwd_kernel(torch.as_tensor(catT), torch.as_tensor(A2),
                              torch.as_tensor(consts["fused_dirs"]),
                              torch.as_tensor(consts["lbs_w_pad"]))
+
+
+def _plain_bwd_one_pass(catT, A2, dirs, w, dout):
+    """The backward's plain twin as one function, as it stood before it
+    was split into stages: the composition must keep its bits."""
+    vs = torch.matmul(dirs, catT)
+    T = torch.einsum("vj,kjb->kvb", w, A2)
+    dT = torch.stack([dout[k // 3] * vs[k % 3] for k in range(9)]
+                     + [dout[m] for m in range(3)])
+    da2 = torch.einsum("vj,kvb->kjb", w, dT)
+    dvs = torch.stack([T[n] * dout[0] + T[3 + n] * dout[1]
+                       + T[6 + n] * dout[2] for n in range(3)])
+    dcat = torch.einsum("nvd,nvb->db", dirs, dvs)
+    return dcat, da2
+
+
+def _torch_operands(consts, B, seed):
+    catT, A2, dout = _operands(consts, B, seed)
+    return (torch.as_tensor(catT), torch.as_tensor(A2),
+            torch.as_tensor(consts["fused_dirs"]),
+            torch.as_tensor(consts["lbs_w_pad"]), torch.as_tensor(dout))
+
+
+@pytest.mark.parametrize("B", [1, 5])
+def test_plain_backward_is_its_stages_bit_for_bit(consts, B):
+    ops = _torch_operands(consts, B, seed=50 + B)
+    dcat, da2 = TV.vertex_plain_bwd(*ops)
+    ref_dcat, ref_da2 = _plain_bwd_one_pass(*ops)
+    np.testing.assert_array_equal(dcat.numpy(), ref_dcat.numpy())
+    np.testing.assert_array_equal(da2.numpy(), ref_da2.numpy())
+
+
+@pytest.mark.parametrize("stage", ["pointwise", "dcat", "da2"])
+@pytest.mark.parametrize("B", [1, 5])
+def test_plain_backward_stage_matches_pallas_vjp(consts, stage, B):
+    """Each stage of the plain backward against lemo_tpu's Pallas VJP
+    (interpret mode). The reductions take the plain pointwise stage's vs
+    and dvs; the pointwise stage is held through both reductions taken
+    exactly (f64) on its outputs."""
+    catT, A2, dirs, w, dout = _torch_operands(consts, B, seed=60 + B)
+    dirs_j, w_j = jnp.asarray(dirs.numpy()), jnp.asarray(w.numpy())
+    _, vjp = jax.vjp(lambda c, a: JV._vertex_core(c, a, dirs_j, w_j),
+                     jnp.asarray(catT.numpy()), jnp.asarray(A2.numpy()))
+    dcat_ref, da2_ref = (np.asarray(x) for x in vjp(jnp.asarray(
+        dout.numpy())))
+    vs, dvs = TV.vertex_plain_bwd_pointwise(catT, A2, dirs, w, dout)
+    if stage == "pointwise":
+        d64 = dirs.double()
+        dcat = TV.dcat_plain_from_dvs(d64, dvs.double())
+        da2 = TV.da2_plain_from_vs(w.double(), vs.double(), dout.double())
+        assert _rel(dcat.numpy(), dcat_ref) < 5e-5
+        assert _rel(da2.numpy(), da2_ref) < 5e-5
+    elif stage == "dcat":
+        assert _rel(TV.dcat_plain_from_dvs(dirs, dvs).numpy(),
+                    dcat_ref) < 5e-5
+    else:
+        assert _rel(TV.da2_plain_from_vs(w, vs, dout).numpy(),
+                    da2_ref) < 5e-5
+
+
+_BWD_WRAPPERS = {
+    "vertex_bwd_kernel": lambda c, a, d, w, g: TV.vertex_bwd_kernel(
+        c, a, d, w, g),
+    "vertex_bwd_pointwise_kernel": lambda c, a, d, w, g:
+        TV.vertex_bwd_pointwise_kernel(c, a, d, w, g),
+    "dcat_kernel_from_dvs": lambda c, a, d, w, g:
+        TV.dcat_kernel_from_dvs(d, g),
+    "da2_kernel_from_vs": lambda c, a, d, w, g:
+        TV.da2_kernel_from_vs(w, g, g),
+}
+
+
+@pytest.mark.parametrize("name", list(_BWD_WRAPPERS))
+def test_backward_wrappers_refuse_cpu_tensors(consts, name):
+    counts = dict(TV.launches), dict(TV.stage_launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        _BWD_WRAPPERS[name](*_torch_operands(consts, 2, seed=70))
+    assert (TV.launches, TV.stage_launches) == counts
+
+
+def test_backward_scratch_views(monkeypatch):
+    """The backward's scratch: one buffer cut into vs, dvs and the two
+    partial slabs at the extents the kernel reports, disjoint, each on a
+    16-byte boundary (the kernels read and write float4)."""
+    monkeypatch.setattr(TV, "bwd_slices", lambda D, Jp, Vp, Bp: (5, 3))
+    D, Jp, Vp, Bp = 21, 56, 256, 32
+    views = TV._bwd_scratch(D, Jp, Vp, Bp, "cpu")
+    assert [tuple(v.shape) for v in views] == [
+        (3, Vp, Bp), (3, Vp, Bp), (5, D, Bp), (3, 12, Jp, Bp)]
+    spans = sorted((v.data_ptr(), v.data_ptr() + 4 * v.numel())
+                   for v in views)
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert all(v.is_contiguous() and v.data_ptr() % 16 == 0 for v in views)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_matches_plain_on_card(consts):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    ops = [t.cuda() for t in _torch_operands(consts, 5, seed=80)]
+    got = TV.vertex_bwd_kernel(*ops)
+    again = TV.vertex_bwd_kernel(*ops)
+    ref = TV.vertex_plain_bwd(*ops)
+    for g, a, r in zip(got, again, ref):
+        assert torch.equal(g, a)
+        assert _rel(g.cpu().numpy(), r.cpu().numpy()) < 5e-5

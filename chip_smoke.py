@@ -11,10 +11,13 @@ Phases (any failure raises and the script exits non-zero):
    forward/backward of the full-size synthetic SMPL-X model (V=10475,
    J=55, D=507) at B=100, then hold each kernel against its plain
    PyTorch twin on the same operands and time both with CUDA events
-   (median of 25). The vertex backward's three stages (the pointwise
-   pass, the dcat and the dA2 reductions) are each held against their
-   own plain versions (rel 5e-5) and timed, and two launches of the
-   whole backward must give the same bits.
+   (median of 25). Each stage of the vertex kernels is held against its
+   own plain version and timed: the forward's blend and apply (1e-5 m
+   abs; the blend's plain version is cuBLAS, printed beside it as the
+   SGEMM yardstick), the backward's pointwise pass and its dcat and dA2
+   reductions (rel 5e-5). Two launches of each vertex kernel must give
+   the same bits, and so must the backward from the forward's kept blend
+   and the one that forms the blend again.
 3. Body model: full-size forward and backward through `make_forward_fn`
    (kernels) against the same with the plain twins, on the card.
 4. The Stage-2 slice: the AMASS temporal fit (`make_temporal_fitter`,
@@ -242,17 +245,57 @@ def body_operands(model) -> dict:
     return ops
 
 
+def _hold_stages(kernel: str, stages: dict, tol: float, relative: bool,
+                 card) -> dict:
+    """Each stage's kernel against its plain version on the same inputs,
+    absolute or relative to each output's largest magnitude; times both.
+    Raises on a disagreement; returns {stage: {max_<rel|abs>_err, ms,
+    plain_ms}}."""
+    import torch
+
+    kind = "rel" if relative else "abs"
+    out = {}
+    for name, (kern, plain) in stages.items():
+        got, ref = kern(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        torch.cuda.synchronize()
+        err = max(_max_rel(g, r) if relative else float((g - r).abs().max())
+                  for g, r in zip(got, ref))
+        if not all(bool(torch.isfinite(g).all()) for g in got) or \
+                not err <= tol:
+            raise AssertionError(f"{kernel} stage {name}: error {err:.3e}"
+                                 f" > {tol:g} {kind}")
+        ms, plain_ms = _time_ms(kern), _time_ms(plain)
+        _log(f"[kernels] {kernel} stage {name}: max {kind} err {err:.3e} "
+             f"(tol {tol:g} {kind}); kernel {ms:.4f} ms, plain "
+             f"{plain_ms:.4f} ms on {card}")
+        out[name] = {f"max_{kind}_err": err, "ms": ms, "plain_ms": plain_ms}
+    return out
+
+
+def vertex_fwd_stages(catT, A2, dirs, w, card, tol=1e-5) -> dict:
+    """Each stage of the vertex forward against its plain version (the
+    apply on the plain blend's vs), in m; times both."""
+    from lemo_tpu_torch.body_model import vertex_cuda as vc
+
+    vs = vc.vertex_plain_blend(catT, dirs)
+    return _hold_stages("vertex_fwd", {
+        "blend": (lambda: vc.vertex_blend_kernel(catT, dirs),
+                  lambda: vc.vertex_plain_blend(catT, dirs)),
+        "apply": (lambda: vc.vertex_fwd_apply_kernel(vs, A2, w),
+                  lambda: vc.vertex_plain_fwd_apply(vs, A2, w)),
+    }, tol, False, card)
+
+
 def vertex_bwd_stages(catT, A2, dirs, w, dout, card, tol=5e-5) -> dict:
     """Each stage of the vertex backward against its plain version on the
     same inputs (the reductions on the plain first stage's vs and dvs),
-    relative to each output's largest magnitude; times both. Raises on a
-    disagreement; returns {stage: {max_rel_err, ms, plain_ms}}."""
-    import torch
-
+    relative to each output's largest magnitude; times both."""
     from lemo_tpu_torch.body_model import vertex_cuda as vc
 
     vs, dvs = vc.vertex_plain_bwd_pointwise(catT, A2, dirs, w, dout)
-    stages = {
+    return _hold_stages("vertex_bwd", {
         "pointwise": (
             lambda: vc.vertex_bwd_pointwise_kernel(catT, A2, dirs, w, dout),
             lambda: vc.vertex_plain_bwd_pointwise(catT, A2, dirs, w, dout)),
@@ -260,24 +303,19 @@ def vertex_bwd_stages(catT, A2, dirs, w, dout, card, tol=5e-5) -> dict:
                  lambda: vc.dcat_plain_from_dvs(dirs, dvs)),
         "da2": (lambda: vc.da2_kernel_from_vs(w, vs, dout),
                 lambda: vc.da2_plain_from_vs(w, vs, dout)),
-    }
-    out = {}
-    for name, (kern, plain) in stages.items():
-        got, ref = kern(), plain()
-        got = got if isinstance(got, tuple) else (got,)
-        ref = ref if isinstance(ref, tuple) else (ref,)
-        torch.cuda.synchronize()
-        rel = max(_max_rel(g, r) for g, r in zip(got, ref))
-        if not all(bool(torch.isfinite(g).all()) for g in got) or \
-                not rel <= tol:
-            raise AssertionError(f"vertex_bwd stage {name}: error {rel:.3e}"
-                                 f" > {tol:g} rel")
-        ms, plain_ms = _time_ms(kern), _time_ms(plain)
-        _log(f"[kernels] vertex_bwd stage {name}: max rel err {rel:.3e} "
-             f"(tol {tol:g} rel); kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-             f"ms on {card}")
-        out[name] = {"max_rel_err": rel, "ms": ms, "plain_ms": plain_ms}
-    return out
+    }, tol, True, card)
+
+
+def _repeat_check(row: dict, key: str, what: str, first, again) -> None:
+    """Record whether two results have the same bits; raise if not."""
+    import torch
+
+    first = first if isinstance(first, tuple) else (first,)
+    again = again if isinstance(again, tuple) else (again,)
+    row[key] = all(torch.equal(a, b) for a, b in zip(first, again))
+    _log(f"[kernels] {row['name']}: {what} bit-identical {row[key]}")
+    if not row[key]:
+        raise AssertionError(f"{row['name']}: {what} differ")
 
 
 def phase_kernels(model, card) -> list[dict]:
@@ -290,7 +328,7 @@ def phase_kernels(model, card) -> list[dict]:
     ops = body_operands(model)
     rl, tl, parents = ops["chain_fwd_kernel"]
     _, _, rg, drg, dtg, _ = ops["chain_bwd_kernel"]
-    catT, A2, dirs, w = ops["vertex_fwd_kernel"]
+    catT, A2, dirs, w = ops["vertex_fwd_kernel"][:4]
     dout = ops["vertex_bwd_kernel"][4]
     # bounds count the work this run's data needs: B real frames, V real
     # vertices and J real joints, not the padding of the plane layout
@@ -342,13 +380,15 @@ def phase_kernels(model, card) -> list[dict]:
         5e-5, True,
         nbytes=f4 * 45 * J * B + 4 * J,
         flops=135.0 * (J - 1) * B)
-    add("vertex_fwd", vert_src,
-        "lemo_tpu/body_model/vertex_pallas.py:89",
-        lambda: vc.vertex_fwd_kernel(catT, A2, dirs, w),
-        lambda: vc.vertex_plain_fwd(catT, A2, dirs, w),
-        1e-5, False,
-        nbytes=f4 * (D * B + 12 * J * B + 3 * V * D + V * J + 3 * V * B),
-        flops=2.0 * 3 * V * D * B + 2.0 * 12 * V * J * B + 18.0 * V * B)
+    fwd = add("vertex_fwd", vert_src,
+              "lemo_tpu/body_model/vertex_pallas.py:89",
+              lambda: vc.vertex_fwd_kernel(catT, A2, dirs, w),
+              lambda: vc.vertex_plain_fwd(catT, A2, dirs, w),
+              1e-5, False,
+              nbytes=f4 * (D * B + 12 * J * B + 3 * V * D + V * J
+                           + 3 * V * B),
+              flops=2.0 * 3 * V * D * B + 2.0 * 12 * V * J * B
+              + 18.0 * V * B)
     # the backward recomputes vs (3 blends) and T[0..8] from its inputs,
     # then forms dcat (3 blends) and dA2 (12 skinning products)
     bwd = add("vertex_bwd", vert_src,
@@ -360,16 +400,25 @@ def phase_kernels(model, card) -> list[dict]:
                            + 3 * V * B),
               flops=2.0 * 6 * V * D * B + 2.0 * 21 * V * J * B
               + 27.0 * V * B)
+    fwd["stages"] = vertex_fwd_stages(catT, A2, dirs, w, card)
+    blend = fwd["stages"]["blend"]
+    gflop = 2.0 * 3 * dirs.shape[1] * D * catT.shape[1] / 1e9   # padded
+    _log(f"[kernels] vertex blend [{3 * dirs.shape[1]}, {D}] x [{D}, "
+         f"{catT.shape[1]}], yardstick of the SGEMM tile: K1a "
+         f"{blend['ms']:.4f} ms ({gflop / blend['ms']:.2f} TFLOP/s), cuBLAS "
+         f"torch.matmul with TF32 off {blend['plain_ms']:.4f} ms "
+         f"({gflop / blend['plain_ms']:.2f} TFLOP/s) on {card}")
+    vs = torch.empty_like(dout)
+    _repeat_check(fwd, "bit_identical_repeat", "two launches",
+                  vc.vertex_fwd_kernel(catT, A2, dirs, w, vs),
+                  vc.vertex_fwd_kernel(catT, A2, dirs, w))
     bwd["stages"] = vertex_bwd_stages(catT, A2, dirs, w, dout, card)
     first = vc.vertex_bwd_kernel(catT, A2, dirs, w, dout)
-    again = vc.vertex_bwd_kernel(catT, A2, dirs, w, dout)
-    bwd["bit_identical_repeat"] = all(
-        torch.equal(a, b) for a, b in zip(first, again))
-    _log(f"[kernels] vertex_bwd: two launches bit-identical "
-         f"{bwd['bit_identical_repeat']}")
-    if not bwd["bit_identical_repeat"]:
-        raise AssertionError("vertex_bwd: two launches on the same operands "
-                             "differ")
+    _repeat_check(bwd, "bit_identical_repeat", "two launches", first,
+                  vc.vertex_bwd_kernel(catT, A2, dirs, w, dout))
+    _repeat_check(bwd, "bit_identical_from_fwd_vs",
+                  "from the forward's kept blend and from its own", first,
+                  vc.vertex_bwd_kernel(catT, A2, dirs, w, dout, vs))
     return rows
 
 

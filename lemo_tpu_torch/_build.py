@@ -36,9 +36,13 @@ _I = ctypes.c_int
 SIGNATURES = {
     "lemo_chain_fwd": [_P, _P, _P, _P, _P, _I, _I, _P],
     "lemo_chain_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "lemo_vertex_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "lemo_vertex_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "lemo_vertex_blend": [_P, _P, _P, _I, _I, _I, _P],
+    "lemo_vertex_fwd_apply": [_P, _P, _P, _P, _I, _I, _I, _P],
     "lemo_vertex_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _P],
+    "lemo_vertex_bwd_from_vs": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _P],
     "lemo_vertex_bwd_slices": [_I, _I, _I, _I, ctypes.POINTER(_I)],
     "lemo_vertex_bwd_pointwise": [_P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _P],

@@ -7,6 +7,11 @@ Port of `lemo_tpu/body_model/vertex_pallas.py`. Per vertex tile, with
     T      = W @ A2                        # skinning blend, 12 planes
     out[m] = sum_n T[3m+n] * vs[n] + T[9+m]
 
+The forward runs in two stages, each with a plain twin here:
+
+    vs  = blend(catT, dirs)                # a GEMM into a slab [3, Vp, Bp]
+    out = fwd_apply(vs, A2, w)             # T formed per tile, then applied
+
 The backward returns (dcat, dA2); dirs and W are model constants and get
 no cotangent. It runs in three stages, each with a plain twin here:
 
@@ -14,9 +19,10 @@ no cotangent. It runs in three stages, each with a plain twin here:
     dcat    = sum_n dirs[n]^T @ dvs[n]             # split-K reduction over V
     dA2[k]  = W^T @ dT[k]                          # dT from dout and vs
 
-The forward kernel never writes vs or T to device memory; the backward
-recomputes vs and T per vertex tile and keeps vs and dvs in scratch
-slabs [3, Vp, Bp] for its two reductions (`csrc/vertex.cu`).
+`_VertexCore` keeps the forward's vs for the backward, whose pointwise
+stage then skips the blend: the same kernel on the same operands, so the
+same bits as recomputing it. T never reaches device memory
+(`csrc/vertex.cu`).
 
 Dispatch: a CPU tensor goes to the plain twin; any other tensor goes to
 the kernel, which checks that it is on CUDA and raises otherwise.
@@ -38,9 +44,11 @@ TILE_V = 256   # vertex padding of the fused constants (bit-equal to JAX)
 
 # launches of each kernel, counted where the wrapper launches it
 launches = {"vertex_fwd": 0, "vertex_bwd": 0}
-# launches of the backward's stages on their own (the checks of each
-# stage; the main path launches them only through `vertex_bwd_kernel`)
-stage_launches = {"vertex_bwd_pointwise": 0, "vertex_bwd_dcat": 0,
+# launches of the stages on their own (the checks of each stage; the main
+# path launches them only through `vertex_fwd_kernel` and
+# `vertex_bwd_kernel`)
+stage_launches = {"vertex_blend": 0, "vertex_fwd_apply": 0,
+                  "vertex_bwd_pointwise": 0, "vertex_bwd_dcat": 0,
                   "vertex_bwd_da2": 0}
 
 
@@ -106,18 +114,64 @@ def _check_operands(catT, A2, dirs, w):
     return D, Jp, Vp, Bp
 
 
-def vertex_fwd_kernel(catT, A2, dirs, w):
+def _planes(like, Vp, Bp):
+    return torch.empty((3, Vp, Bp), dtype=torch.float32, device=like.device)
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def vertex_fwd_kernel(catT, A2, dirs, w, vs=None):
     """Kernel 3: catT [D, Bp], A2 [12, Jp, Bp], dirs [3, Vp, D],
-    w [Vp, Jp] -> vertex planes [3, Vp, Bp]."""
+    w [Vp, Jp] -> vertex planes [3, Vp, Bp]. One C call launches the
+    blend into `vs` [3, Vp, Bp] (scratch when None; a caller that passes
+    it keeps the blend) and then the skinning and affine apply."""
     D, Jp, Vp, Bp = _check_operands(catT, A2, dirs, w)
+    if vs is None:
+        vs = _planes(catT, Vp, Bp)
+    _check("vs", vs, (3, Vp, Bp))
     lib = _build.load_library()
-    out = torch.empty((3, Vp, Bp), dtype=torch.float32, device=catT.device)
+    out = _planes(catT, Vp, Bp)
     rc = lib.lemo_vertex_fwd(
         catT.data_ptr(), A2.data_ptr(), dirs.data_ptr(), w.data_ptr(),
-        out.data_ptr(), D, Jp, Vp, Bp,
-        torch.cuda.current_stream(catT.device).cuda_stream)
+        vs.data_ptr(), out.data_ptr(), D, Jp, Vp, Bp, _stream(catT))
     _build.check(lib, rc, f"lemo_vertex_fwd (D={D} Jp={Jp} Vp={Vp} Bp={Bp})")
     launches["vertex_fwd"] += 1
+    return out
+
+
+def vertex_blend_kernel(catT, dirs):
+    """The blend alone, both directions' first launch: catT [D, Bp],
+    dirs [3, Vp, D] -> vs [3, Vp, Bp]."""
+    D, Bp = catT.shape
+    Vp = dirs.shape[1]
+    _check("catT", catT, (D, Bp))
+    _check("dirs", dirs, (3, Vp, D))
+    lib = _build.load_library()
+    vs = _planes(catT, Vp, Bp)
+    rc = lib.lemo_vertex_blend(catT.data_ptr(), dirs.data_ptr(),
+                               vs.data_ptr(), D, Vp, Bp, _stream(catT))
+    _build.check(lib, rc, "lemo_vertex_blend")
+    stage_launches["vertex_blend"] += 1
+    return vs
+
+
+def vertex_fwd_apply_kernel(vs, A2, w):
+    """The forward's second stage alone: vs [3, Vp, Bp], A2 [12, Jp, Bp],
+    w [Vp, Jp] -> vertex planes [3, Vp, Bp]."""
+    Vp, Jp = w.shape
+    Bp = vs.shape[2]
+    _check("vs", vs, (3, Vp, Bp))
+    _check("A2", A2, (12, Jp, Bp))
+    _check("w", w, (Vp, Jp))
+    lib = _build.load_library()
+    out = _planes(vs, Vp, Bp)
+    rc = lib.lemo_vertex_fwd_apply(vs.data_ptr(), A2.data_ptr(),
+                                   w.data_ptr(), out.data_ptr(), Jp, Vp, Bp,
+                                   _stream(vs))
+    _build.check(lib, rc, "lemo_vertex_fwd_apply")
+    stage_launches["vertex_fwd_apply"] += 1
     return out
 
 
@@ -134,39 +188,47 @@ def bwd_slices(D: int, Jp: int, Vp: int, Bp: int) -> tuple[int, int]:
     return out[0], out[1]
 
 
-def _bwd_scratch(D, Jp, Vp, Bp, dev):
-    """The backward's scratch as views of one buffer: vs, dvs
-    [3, Vp, Bp], the dcat partials [S0, D, Bp] and the dA2 partials
-    [S1, 12, Jp, Bp] (every view starts on a 16-byte boundary)."""
+def _bwd_scratch(D, Jp, Vp, Bp, dev, vs=None):
+    """The backward's scratch as views of one buffer: vs (unless given),
+    dvs [3, Vp, Bp], the dcat partials [S0, D, Bp] and the dA2 partials
+    [S1, 12, Jp, Bp] (every view starts on a 16-byte boundary). Returns
+    [vs, dvs, dcat partials, dA2 partials]."""
     s_dcat, s_da2 = bwd_slices(D, Jp, Vp, Bp)
-    shapes = [(3, Vp, Bp), (3, Vp, Bp), (s_dcat, D, Bp),
-              (s_da2, 12, Jp, Bp)]
+    shapes = [(3, Vp, Bp), (s_dcat, D, Bp), (s_da2, 12, Jp, Bp)]
+    if vs is None:
+        shapes.insert(0, (3, Vp, Bp))
     sizes = [math.prod(s) for s in shapes]
     flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
-    return [v.view(s) for v, s in zip(flat.split(sizes), shapes)]
+    views = [v.view(s) for v, s in zip(flat.split(sizes), shapes)]
+    return views if vs is None else [vs] + views
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def vertex_bwd_kernel(catT, A2, dirs, w, dout):
+def vertex_bwd_kernel(catT, A2, dirs, w, dout, vs=None):
     """Kernel 4: -> (dcat [D, Bp], dA2 [12, Jp, Bp]). One C call launches
-    the pointwise pass, the two split-K reductions and their fixed-order
-    sums on the current stream (deterministic, no atomics)."""
+    the blend (skipped when `vs`, the forward's blend [3, Vp, Bp], is
+    given), the pointwise pass, the two split-K reductions and their
+    fixed-order sums on the current stream (deterministic, no atomics)."""
     D, Jp, Vp, Bp = _check_operands(catT, A2, dirs, w)
     _check("dout", dout, (3, Vp, Bp))
+    if vs is not None:
+        _check("vs", vs, (3, Vp, Bp))
     lib = _build.load_library()
     dev = catT.device
-    vs, dvs, part_dcat, part_da2 = _bwd_scratch(D, Jp, Vp, Bp, dev)
+    scratch, dvs, part_dcat, part_da2 = _bwd_scratch(D, Jp, Vp, Bp, dev, vs)
     dcat = torch.empty((D, Bp), dtype=torch.float32, device=dev)
     da2 = torch.empty((12, Jp, Bp), dtype=torch.float32, device=dev)
-    rc = lib.lemo_vertex_bwd(
-        catT.data_ptr(), A2.data_ptr(), dirs.data_ptr(), w.data_ptr(),
-        dout.data_ptr(), dcat.data_ptr(), da2.data_ptr(), vs.data_ptr(),
-        dvs.data_ptr(), part_dcat.data_ptr(), part_da2.data_ptr(), D, Jp,
-        Vp, Bp, _stream(catT))
-    _build.check(lib, rc, f"lemo_vertex_bwd (D={D} Jp={Jp} Vp={Vp} Bp={Bp})")
+    tail = (dcat.data_ptr(), da2.data_ptr(), scratch.data_ptr(),
+            dvs.data_ptr(), part_dcat.data_ptr(), part_da2.data_ptr(), D, Jp,
+            Vp, Bp, _stream(catT))
+    if vs is None:
+        rc = lib.lemo_vertex_bwd(catT.data_ptr(), A2.data_ptr(),
+                                 dirs.data_ptr(), w.data_ptr(),
+                                 dout.data_ptr(), *tail)
+    else:
+        rc = lib.lemo_vertex_bwd_from_vs(A2.data_ptr(), dirs.data_ptr(),
+                                         w.data_ptr(), dout.data_ptr(), *tail)
+    _build.check(lib, rc, f"lemo_vertex_bwd (D={D} Jp={Jp} Vp={Vp} Bp={Bp}"
+                 f"{', from vs' if vs is not None else ''})")
     launches["vertex_bwd"] += 1
     return dcat, da2
 
@@ -176,8 +238,7 @@ def vertex_bwd_pointwise_kernel(catT, A2, dirs, w, dout):
     D, Jp, Vp, Bp = _check_operands(catT, A2, dirs, w)
     _check("dout", dout, (3, Vp, Bp))
     lib = _build.load_library()
-    vs, dvs = (torch.empty((3, Vp, Bp), dtype=torch.float32,
-                           device=catT.device) for _ in range(2))
+    vs, dvs = _planes(catT, Vp, Bp), _planes(catT, Vp, Bp)
     rc = lib.lemo_vertex_bwd_pointwise(
         catT.data_ptr(), A2.data_ptr(), dirs.data_ptr(), w.data_ptr(),
         dout.data_ptr(), vs.data_ptr(), dvs.data_ptr(), D, Jp, Vp, Bp,
@@ -233,19 +294,35 @@ def _skin_blend(A2, w):
     return torch.einsum("vj,kjb->kvb", w, A2)
 
 
-def vertex_plain_fwd(catT, A2, dirs, w):
-    """Plain twin of kernel 3 (the same arithmetic in PyTorch ops)."""
-    vs = torch.matmul(dirs, catT)                     # [3, Vp, Bp]
+def vertex_plain_blend(catT, dirs):
+    """Plain twin of the blend: vs[n] = dirs[n] @ cat -> [3, Vp, Bp]."""
+    return torch.matmul(dirs, catT)
+
+
+def vertex_plain_fwd_apply(vs, A2, w):
+    """Plain twin of the forward's second stage: out[m] = T[9+m] +
+    sum_n T[3m+n] * vs[n], with T = W @ A2."""
     T = _skin_blend(A2, w)
     return torch.stack([
         T[9 + m] + T[3 * m] * vs[0] + T[3 * m + 1] * vs[1]
         + T[3 * m + 2] * vs[2] for m in range(3)])
 
 
-def vertex_plain_bwd_pointwise(catT, A2, dirs, w, dout):
+def vertex_plain_fwd(catT, A2, dirs, w, vs=None):
+    """Plain twin of kernel 3: its two stages in turn; the blend is also
+    written into `vs` when given."""
+    blend = vertex_plain_blend(catT, dirs)
+    if vs is not None:
+        vs.copy_(blend)
+    return vertex_plain_fwd_apply(blend, A2, w)
+
+
+def vertex_plain_bwd_pointwise(catT, A2, dirs, w, dout, vs=None):
     """Plain twin of the backward's first stage -> (vs, dvs) [3, Vp, Bp]:
-    vs[n] = dirs[n] @ cat and dvs[n] = sum_m T[3m+n] * dout[m]."""
-    vs = torch.matmul(dirs, catT)
+    vs[n] = dirs[n] @ cat (or the given blend) and dvs[n] =
+    sum_m T[3m+n] * dout[m]."""
+    if vs is None:
+        vs = vertex_plain_blend(catT, dirs)
     T = _skin_blend(A2, w)
     dvs = torch.stack([T[n] * dout[0] + T[3 + n] * dout[1]
                        + T[6 + n] * dout[2] for n in range(3)])
@@ -265,28 +342,32 @@ def da2_plain_from_vs(w, vs, dout):
     return torch.einsum("vj,kvb->kjb", w, dT)
 
 
-def vertex_plain_bwd(catT, A2, dirs, w, dout):
+def vertex_plain_bwd(catT, A2, dirs, w, dout, vs=None):
     """Plain twin of kernel 4 -> (dcat [D, Bp], dA2 [12, Jp, Bp]): its
-    three stages in turn."""
-    vs, dvs = vertex_plain_bwd_pointwise(catT, A2, dirs, w, dout)
+    three stages in turn, from the given blend `vs` if any."""
+    vs, dvs = vertex_plain_bwd_pointwise(catT, A2, dirs, w, dout, vs)
     return dcat_plain_from_dvs(dirs, dvs), da2_plain_from_vs(w, vs, dout)
 
 
 class _VertexCore(torch.autograd.Function):
+    """The forward keeps its blend vs [3, Vp, Bp] for the backward, which
+    then does not form it again."""
+
     @staticmethod
     def forward(ctx, catT, A2, dirs, w):
         cpu = catT.device.type == "cpu"
+        vs = catT.new_empty((3, dirs.shape[1], catT.shape[1]))
         out = (vertex_plain_fwd if cpu else vertex_fwd_kernel)(
-            catT, A2, dirs, w)
-        ctx.save_for_backward(catT, A2, dirs, w)
+            catT, A2, dirs, w, vs)
+        ctx.save_for_backward(catT, A2, dirs, w, vs)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        catT, A2, dirs, w = ctx.saved_tensors
+        catT, A2, dirs, w, vs = ctx.saved_tensors
         cpu = catT.device.type == "cpu"
         dcat, da2 = (vertex_plain_bwd if cpu else vertex_bwd_kernel)(
-            catT, A2, dirs, w, dout.contiguous())
+            catT, A2, dirs, w, dout.contiguous(), vs)
         # dirs / w are frozen model constants: no cotangent by contract
         return dcat, da2, None, None
 

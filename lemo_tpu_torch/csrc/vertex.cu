@@ -27,25 +27,29 @@
 // 2e-6 m tolerance, so the tensor cores are out: the design is a classic
 // register-tiled SGEMM on the CUDA cores.
 //
-// Forward: one block of 128 threads per (64-vertex x 32-frame) tile; each
-// thread owns a 4x4 (vertex x frame) micro-tile and keeps its 48 blend
-// sums in registers (phase 1: dirs and cat staged through shared memory in
-// chunks of D, read as float4). Phase 2 stages W once and one A2 plane at a
-// time and forms each T[k] micro-tile in registers, folding it straight
-// into the output. The B tile is the fastest grid index, so the blocks
-// that read the same dirs rows run together and share them through L2.
-// No [B, V, 3] intermediate (vs, T) reaches device memory.
+// Both directions start from the blend K1a, vs [3 Vp, Bp] = dirs [3 Vp, D]
+// cat [D, Bp]: a GEMM with M = 3 Vp, N = Bp and K = D (`VsProblem`) into a
+// scratch slab [3, Vp, Bp]. Its 128 x 128 tile covers all of Bp = 128, so
+// dirs is read once.
+//
+// Forward, two launches in one C call (`lemo_vertex_fwd`):
+//
+//   K1a the blend;
+//   F2  out[m] = T[9+m] + sum_n T[3m+n] * vs[n] (`vertex_fwd_apply_kernel`)
+//       on a 64-vertex x 64-frame tile: for each m the four A2 planes 9+m,
+//       3m, 3m+1 and 3m+2 are staged together, their T micro-tiles formed
+//       in registers (two per pass over j) and added in the TPU kernel's
+//       order. vs was just written and is read back from L2.
 //
 // Backward: a pointwise pass and two cross-vertex reductions, six
-// launches in one C call (`lemo_vertex_bwd`):
+// launches in one C call (`lemo_vertex_bwd`), or five from the forward's
+// vs (`lemo_vertex_bwd_from_vs`, which skips K1a: the same kernel on the
+// same operands gives the same bits):
 //
-//   K1 (`lemo_vertex_bwd_pointwise`) recomputes vs and forms dvs, both to
-//      scratch slabs [3, Vp, Bp]:
-//      K1a vs [3Vp, Bp] = dirs [3Vp, D] cat [D, Bp]: a GEMM with
-//          M = 3 Vp, N = Bp and K = D (`VsProblem`);
-//      K1b dvs[n] = sum_m T[3m+n] * dout[m] (`vertex_bwd_dvs_kernel`):
-//          T[0..8] = W A2[k] formed on a 64-vertex x 64-frame tile, the
-//          three planes of one n staged together.
+//   K1a the blend, as above;
+//   K1b dvs[n] = sum_m T[3m+n] * dout[m] (`vertex_bwd_dvs_kernel`):
+//       T[0..8] = W A2[k] formed on the same 64 x 64 tile, the three
+//       planes of one n staged together; dvs to scratch [3, Vp, Bp].
 //   K2 dcat [D, Bp] = dirs^T dvs: a GEMM with M = D, N = Bp and
 //      K = 3 Vp (dirs [3, Vp, D] and dvs [3, Vp, Bp] are [3Vp, D] and
 //      [3Vp, Bp] row-major, so both operands stream along K).
@@ -68,19 +72,11 @@
 
 namespace {
 
-constexpr int TV = 64;        // vertices per block tile
-constexpr int TB = 32;        // frames per block tile
-constexpr int NT = 128;       // threads per block: 16 (vertex) x 8 (frame)
-constexpr int KD = 16;        // D chunk of the blend phase
-constexpr int MAXJ = 64;      // largest Jp the tiles hold
-constexpr int LDV = TV + 4;   // padded row of a [.][TV] smem tile
-constexpr int LDB = TB + 4;   // padded row of a [.][TB] smem tile
-
-// floats of the blend-phase staging: dirs [3][KD][LDV] + cat [KD][TB]
-constexpr int STAGE_BLEND = 3 * KD * LDV + KD * TB;
-// W as [j][v], A2 plane as [j][b]
-constexpr int SM_W = MAXJ * LDV;
-constexpr int SM_A = MAXJ * LDB;
+constexpr int NT = 128;           // threads of a skinning block: 16 x 8
+constexpr int DV = 64, DB = 64;   // vertices and frames of a skinning tile
+constexpr int MAXJ = 64;          // largest Jp the kernels take
+constexpr int LDV = DV + 4;       // padded row of W staged as [j][v]
+constexpr int LDD = DB + 4;       // padded row of an A2 plane as [j][b]
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -92,130 +88,140 @@ __device__ __forceinline__ float comp(const float4& v, int i) {
   return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
 }
 
-// Phase 1: vs[n][r][i] for the thread's 4 vertices (r) x 4 frames (i).
-__device__ __forceinline__ void blend_phase(
-    const float* __restrict__ cat, const float* __restrict__ dirs,
-    float* stage, float vs[3][4][4], int D, int Vp, int Bp, int vbase,
-    int bbase, int tv, int tb) {
-  float* s_dirs = stage;                 // [3][KD][LDV]
-  float* s_cat = stage + 3 * KD * LDV;   // [KD][TB]
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int n = 0; n < 3; ++n)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) vs[n][r][i] = 0.f;
+// ---- the skinning tile of F2 and K1b ------------------------------------
+//
+// 128 threads own a 64-vertex x 64-frame tile, 8 vertices x 4 frames a
+// thread: frames 4 tb..4 tb+3 (tb = tid % 16) of vertices 4 tv..4 tv+3 and
+// 32+4 tv..32+4 tv+3 (tv = tid / 16), so each float4 read of staged W or
+// A2 serves four outputs. Row r < 8 of the thread's micro-tile:
+__device__ __forceinline__ int tile_row(int r, int tv) {
+  return r < 4 ? 4 * tv + r : DV / 2 + 4 * tv + r - 4;
+}
 
-  for (int d0 = 0; d0 < D; d0 += KD) {
-    __syncthreads();
-    for (int idx = tid; idx < 3 * TV * KD; idx += NT) {
-      const int kd = idx % KD, v = (idx / KD) % TV, n = idx / (KD * TV);
-      const int d = d0 + kd;
-      s_dirs[(n * KD + kd) * LDV + v] =
-          d < D ? dirs[((long)n * Vp + vbase + v) * D + d] : 0.f;
-    }
-    for (int idx = tid; idx < KD * TB; idx += NT) {
-      const int b = idx % TB, kd = idx / TB, d = d0 + kd;
-      s_cat[kd * TB + b] = d < D ? cat[(long)d * Bp + bbase + b] : 0.f;
-    }
-    __syncthreads();
+// W rows vbase.. staged as s_w[j][v].
+__device__ __forceinline__ void stage_w(const float* __restrict__ w,
+                                        float* s_w, int Jp, int vbase) {
+  for (int idx = threadIdx.x; idx < Jp * DV; idx += NT) {
+    const int j = idx % Jp, v = idx / Jp;
+    s_w[j * LDV + v] = w[(long)(vbase + v) * Jp + j];
+  }
+}
+
+// A2 planes plane(0..NQ-1) at frames bbase.. (zero past Bp) staged as
+// s_a[q][j][b].
+template <int NQ, class Plane>
+__device__ __forceinline__ void stage_planes(const float* __restrict__ a2,
+                                             float* s_a, Plane plane, int Jp,
+                                             int Bp, int bbase) {
+  for (int idx = threadIdx.x; idx < NQ * Jp * (DB / 4); idx += NT) {
+    const int b4 = idx % (DB / 4), j = (idx / (DB / 4)) % Jp;
+    const int q = idx / ((DB / 4) * Jp), b = bbase + 4 * b4;
+    st4(&s_a[(q * Jp + j) * LDD + 4 * b4],
+        b < Bp ? ld4(&a2[((long)plane(q) * Jp + j) * Bp + b])
+               : make_float4(0.f, 0.f, 0.f, 0.f));
+  }
+}
+
+// T[q] = sum_j W[v, j] A2[q, j, b] on the thread's micro-tile for the NQ
+// staged planes, in one pass over j.
+template <int NQ>
+__device__ __forceinline__ void skin_tiles(const float* s_w, const float* s_a,
+                                           float T[NQ][8][4], int Jp, int tv,
+                                           int tb) {
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) T[q][r][i] = 0.f;
 #pragma unroll 4
-    for (int kd = 0; kd < KD; ++kd) {
-      const float4 c = ld4(&s_cat[kd * TB + 4 * tb]);
+  for (int j = 0; j < Jp; ++j) {
+    const float4 w0 = ld4(&s_w[j * LDV + 4 * tv]);
+    const float4 w1 = ld4(&s_w[j * LDV + DV / 2 + 4 * tv]);
 #pragma unroll
-      for (int n = 0; n < 3; ++n) {
-        const float4 a = ld4(&s_dirs[(n * KD + kd) * LDV + 4 * tv]);
+    for (int q = 0; q < NQ; ++q) {
+      const float4 av = ld4(&s_a[(q * Jp + j) * LDD + 4 * tb]);
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+      for (int r = 0; r < 4; ++r)
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            vs[n][r][i] += comp(a, r) * comp(c, i);
+        for (int i = 0; i < 4; ++i) {
+          T[q][r][i] += comp(w0, r) * comp(av, i);
+          T[q][4 + r][i] += comp(w1, r) * comp(av, i);
+        }
+    }
+  }
+}
+
+// dynamic shared memory of a skinning block with NQ staged planes
+int skin_smem_bytes(int Jp, int nq) {
+  return (Jp * LDV + nq * Jp * LDD) * (int)sizeof(float);
+}
+
+// F2: out [3, Vp, Bp] from vs [3, Vp, Bp]. For each m the planes 9+m,
+// 3m, 3m+1, 3m+2 are staged in that order, one barrier pair for the four;
+// F2_PLANES of them are formed per pass over j and folded into the sum in
+// that order, the TPU kernel's: T[9+m], + T[3m] vs[0], + T[3m+1] vs[1],
+// + T[3m+2] vs[2]. Two planes a pass under a 3-block cap (168 registers,
+// no spills) beat four a pass (253 registers, two blocks an SM, so the
+// 328 blocks ran in 1.24 waves) and one a pass (PERF.md, section 6).
+constexpr int F2_PLANES = 2;       // T micro-tiles in registers at once
+constexpr int F2_MIN_BLOCKS = 3;   // blocks an SM (__launch_bounds__)
+
+__global__ void __launch_bounds__(NT, F2_MIN_BLOCKS)
+    vertex_fwd_apply_kernel(const float* __restrict__ vs,
+                            const float* __restrict__ a2,
+                            const float* __restrict__ w,
+                            float* __restrict__ out, int Jp, int Vp,
+                            int Bp) {
+  extern __shared__ __align__(16) float fsm[];
+  float* s_w = fsm;                 // [Jp][LDV]
+  float* s_a = fsm + Jp * LDV;      // [4][Jp][LDD]: 9+m, 3m, 3m+1, 3m+2
+  const int tid = threadIdx.x, tb = tid % 16, tv = tid / 16;
+  const int bbase = blockIdx.x * DB, vbase = blockIdx.y * DV;
+  const bool live = bbase + 4 * tb < Bp;   // Bp % 64 == 32: a half tile
+  const long plane = (long)Vp * Bp;
+  stage_w(w, s_w, Jp, vbase);
+  for (int m = 0; m < 3; ++m) {
+    __syncthreads();
+    stage_planes<4>(
+        a2, s_a, [m](int q) { return q == 0 ? 9 + m : 3 * m + q - 1; }, Jp,
+        Bp, bbase);
+    __syncthreads();
+    float acc[8][4];
+#pragma unroll
+    for (int p0 = 0; p0 < 4; p0 += F2_PLANES) {
+      float T[F2_PLANES][8][4];
+      skin_tiles<F2_PLANES>(s_w, s_a + p0 * Jp * LDD, T, Jp, tv, tb);
+      if (!live) continue;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const long at = (long)(vbase + tile_row(r, tv)) * Bp + bbase + 4 * tb;
+#pragma unroll
+        for (int q = 0; q < F2_PLANES; ++q) {
+          const int n = p0 + q - 1;   // the staged plane 3m+n; -1: 9+m
+          if (n < 0) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[r][i] = T[q][r][i];
+          } else {
+            const float4 v = ld4(&vs[n * plane + at]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[r][i] += T[q][r][i] * comp(v, i);
+          }
+        }
+      }
+    }
+    if (live) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const long at = (long)(vbase + tile_row(r, tv)) * Bp + bbase + 4 * tb;
+        st4(&out[m * plane + at],
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]));
       }
     }
   }
 }
 
-// Stage W [Vp, Jp] rows vbase.. as s_w[j][v] (zero beyond Jp).
-__device__ __forceinline__ void stage_w_jv(const float* __restrict__ w,
-                                           float* s_w, int Jp, int vbase) {
-  for (int idx = threadIdx.x; idx < MAXJ * TV; idx += NT) {
-    const int j = idx % MAXJ, v = idx / MAXJ;
-    s_w[j * LDV + v] = j < Jp ? w[(long)(vbase + v) * Jp + j] : 0.f;
-  }
-}
-
-// T[k] micro-tile: stage A2 plane k (after a barrier), then sum over j.
-__device__ __forceinline__ void skin_plane(
-    const float* __restrict__ a2, const float* s_w, float* s_a, int k,
-    float T[4][4], int Jp, int Bp, int bbase, int tv, int tb) {
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < Jp * TB; idx += NT) {
-    const int b = idx % TB, j = idx / TB;
-    s_a[j * LDB + b] = a2[((long)k * Jp + j) * Bp + bbase + b];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) T[r][i] = 0.f;
-#pragma unroll 4
-  for (int j = 0; j < Jp; ++j) {
-    const float4 wv = ld4(&s_w[j * LDV + 4 * tv]);
-    const float4 av = ld4(&s_a[j * LDB + 4 * tb]);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) T[r][i] += comp(wv, r) * comp(av, i);
-  }
-}
-
-__global__ void __launch_bounds__(NT)
-    vertex_fwd_kernel(const float* __restrict__ cat,
-                      const float* __restrict__ a2,
-                      const float* __restrict__ dirs,
-                      const float* __restrict__ w, float* __restrict__ out,
-                      int D, int Jp, int Vp, int Bp) {
-  __shared__ __align__(16) float smem[SM_W + SM_A > STAGE_BLEND
-                                          ? SM_W + SM_A
-                                          : STAGE_BLEND];
-  const int tid = threadIdx.x, tb = tid % 8, tv = tid / 8;
-  const int bbase = blockIdx.x * TB, vbase = blockIdx.y * TV;
-
-  float vs[3][4][4];
-  blend_phase(cat, dirs, smem, vs, D, Vp, Bp, vbase, bbase, tv, tb);
-
-  float* s_w = smem;
-  float* s_a = smem + SM_W;
-  __syncthreads();
-  stage_w_jv(w, s_w, Jp, vbase);
-  for (int m = 0; m < 3; ++m) {
-    float acc[4][4], T[4][4];
-    skin_plane(a2, s_w, s_a, 9 + m, acc, Jp, Bp, bbase, tv, tb);
-#pragma unroll
-    for (int n = 0; n < 3; ++n) {
-      skin_plane(a2, s_w, s_a, 3 * m + n, T, Jp, Bp, bbase, tv, tb);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[r][i] += T[r][i] * vs[n][r][i];
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      st4(&out[((long)m * Vp + vbase + 4 * tv + r) * Bp + bbase + 4 * tb],
-          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]));
-  }
-}
-
-// K1b: dvs[n] = sum_m T[3m+n] * dout[m] on a 64-vertex x 64-frame tile;
-// for each n the three A2 planes 3m+n are staged at once. 128 threads, 8
-// vertices x 4 frames each; dvs goes to scratch [3, Vp, Bp].
-constexpr int DV = 64, DB = 64, LDD = DB + 4;
-
-int dvs_smem_bytes(int Jp) {
-  return (Jp * LDV + 3 * Jp * LDD) * (int)sizeof(float);
-}
-
+// K1b: dvs [3, Vp, Bp], the three planes 3m+n of one n a barrier pair.
 __global__ void __launch_bounds__(NT)
     vertex_bwd_dvs_kernel(const float* __restrict__ a2,
                           const float* __restrict__ w,
@@ -228,19 +234,11 @@ __global__ void __launch_bounds__(NT)
   const int tid = threadIdx.x, tb = tid % 16, tv = tid / 16;
   const int bbase = blockIdx.x * DB, vbase = blockIdx.y * DV;
   const bool live = bbase + 4 * tb < Bp;   // Bp % 64 == 32: a half tile
-  for (int idx = tid; idx < Jp * DV; idx += NT) {
-    const int j = idx % Jp, v = idx / Jp;
-    s_w[j * LDV + v] = w[(long)(vbase + v) * Jp + j];
-  }
+  stage_w(w, s_w, Jp, vbase);
   for (int n = 0; n < 3; ++n) {
     __syncthreads();
-    for (int idx = tid; idx < 3 * Jp * (DB / 4); idx += NT) {
-      const int b4 = idx % (DB / 4), j = (idx / (DB / 4)) % Jp;
-      const int m = idx / ((DB / 4) * Jp), b = bbase + 4 * b4;
-      st4(&s_a[(m * Jp + j) * LDD + 4 * b4],
-          b < Bp ? ld4(&a2[((long)(3 * m + n) * Jp + j) * Bp + b])
-                 : make_float4(0.f, 0.f, 0.f, 0.f));
-    }
+    stage_planes<3>(a2, s_a, [n](int q) { return 3 * q + n; }, Jp, Bp,
+                    bbase);
     __syncthreads();
     float acc[8][4];
 #pragma unroll
@@ -248,39 +246,23 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
     for (int m = 0; m < 3; ++m) {
-      float T[8][4];
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) T[r][i] = 0.f;
-#pragma unroll 4
-      for (int j = 0; j < Jp; ++j) {
-        const float4 w0 = ld4(&s_w[j * LDV + 4 * tv]);
-        const float4 w1 = ld4(&s_w[j * LDV + DV / 2 + 4 * tv]);
-        const float4 av = ld4(&s_a[(m * Jp + j) * LDD + 4 * tb]);
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            T[r][i] += comp(w0, r) * comp(av, i);
-            T[4 + r][i] += comp(w1, r) * comp(av, i);
-          }
-      }
+      float T[1][8][4];
+      skin_tiles<1>(s_w, s_a + m * Jp * LDD, T, Jp, tv, tb);
       if (live) {
 #pragma unroll
         for (int r = 0; r < 8; ++r) {
-          const int v = vbase + (r < 4 ? 4 * tv + r : DV / 2 + 4 * tv + r - 4);
+          const int v = vbase + tile_row(r, tv);
           const float4 d4 =
               ld4(&dout[((long)m * Vp + v) * Bp + bbase + 4 * tb]);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[r][i] += T[r][i] * comp(d4, i);
+          for (int i = 0; i < 4; ++i) acc[r][i] += T[0][r][i] * comp(d4, i);
         }
       }
     }
     if (live) {
 #pragma unroll
       for (int r = 0; r < 8; ++r) {
-        const int v = vbase + (r < 4 ? 4 * tv + r : DV / 2 + 4 * tv + r - 4);
+        const int v = vbase + tile_row(r, tv);
         st4(&dvs_out[((long)n * Vp + v) * Bp + bbase + 4 * tb],
             make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]));
       }
@@ -491,8 +473,8 @@ int split_k(int M, int N, int K, int BM, int BN, int KC, int* kslice) {
 }
 
 bool shapes_ok(int D, int Jp, int Vp, int Bp) {
-  return D > 0 && Jp > 0 && Jp <= MAXJ && Vp > 0 && Vp % TV == 0 &&
-         Bp > 0 && Bp % TB == 0;
+  return D > 0 && Jp > 0 && Jp <= MAXJ && Vp > 0 && Vp % DV == 0 &&
+         Bp > 0 && Bp % (DB / 2) == 0;
 }
 
 template <int BM, int BN, int KC, class P>
@@ -509,18 +491,59 @@ int launch_reduction(const P& p, float* part, float* out, long n_out,
   return (int)cudaGetLastError();
 }
 
+// K1a: vs [3 Vp, Bp] = dirs [3 Vp, D] cat [D, Bp], one K slice.
+int launch_blend(const float* cat, const float* dirs, float* vs, int D,
+                 int Vp, int Bp, cudaStream_t s) {
+  const VsProblem p{dirs, cat, vs, 3 * Vp, Bp, D};
+  const dim3 grid((p.M + VS_BM - 1) / VS_BM, (p.N + VS_BN - 1) / VS_BN);
+  splitk_gemm_kernel<VS_BM, VS_BN, VS_KC, VsProblem><<<grid, GT, 0, s>>>(p,
+                                                                        D);
+  return (int)cudaGetLastError();
+}
+
+// A skinning-tile kernel (F2 or K1b) over the whole [Vp, Bp] grid, with
+// the dynamic shared memory of nq staged planes.
+template <class... Params, class... Args>
+int launch_skin(void (*kernel)(Params...), int nq, int Jp, int Vp, int Bp,
+                cudaStream_t s, Args... args) {
+  const int smem = skin_smem_bytes(Jp, nq);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  kernel<<<dim3((Bp + DB - 1) / DB, Vp / DV), NT, smem, s>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
+// K1a alone: vs [3, Vp, Bp].
+int lemo_vertex_blend(const float* cat, const float* dirs, float* vs, int D,
+                      int Vp, int Bp, void* stream) {
+  if (!shapes_ok(D, 1, Vp, Bp)) return (int)cudaErrorInvalidValue;
+  return launch_blend(cat, dirs, vs, D, Vp, Bp, (cudaStream_t)stream);
+}
+
+// F2 alone: out [3, Vp, Bp] from vs [3, Vp, Bp].
+int lemo_vertex_fwd_apply(const float* vs, const float* a2, const float* w,
+                          float* out, int Jp, int Vp, int Bp, void* stream) {
+  if (!shapes_ok(1, Jp, Vp, Bp)) return (int)cudaErrorInvalidValue;
+  return launch_skin(vertex_fwd_apply_kernel, 4, Jp, Vp, Bp,
+                     (cudaStream_t)stream, vs, a2, w, out, Jp, Vp, Bp);
+}
+
+// The forward, K1a then F2 on one stream; vs [3, Vp, Bp] is the caller's
+// scratch and holds the blend afterwards.
 int lemo_vertex_fwd(const float* cat, const float* a2, const float* dirs,
-                    const float* w, float* out, int D, int Jp, int Vp,
-                    int Bp, void* stream) {
+                    const float* w, float* vs, float* out, int D, int Jp,
+                    int Vp, int Bp, void* stream) {
   if (!shapes_ok(D, Jp, Vp, Bp)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(Bp / TB, Vp / TV);
-  vertex_fwd_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      cat, a2, dirs, w, out, D, Jp, Vp, Bp);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int err = launch_blend(cat, dirs, vs, D, Vp, Bp, s);
+  if (err) return err;
+  return launch_skin(vertex_fwd_apply_kernel, 4, Jp, Vp, Bp, s, vs, a2, w,
+                     out, Jp, Vp, Bp);
 }
 
 // The backward's split-K slice counts, the leading extents of its partial
@@ -542,21 +565,11 @@ int lemo_vertex_bwd_pointwise(const float* cat, const float* a2,
                               const float* dout, float* vs, float* dvs,
                               int D, int Jp, int Vp, int Bp, void* stream) {
   if (!shapes_ok(D, Jp, Vp, Bp)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const VsProblem p{dirs, cat, vs, 3 * Vp, Bp, D};
-  const dim3 grid_vs((p.M + VS_BM - 1) / VS_BM, (p.N + VS_BN - 1) / VS_BN);
-  splitk_gemm_kernel<VS_BM, VS_BN, VS_KC, VsProblem>
-      <<<grid_vs, GT, 0, s>>>(p, D);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int smem = dvs_smem_bytes(Jp);
-  const cudaError_t attr = cudaFuncSetAttribute(
-      vertex_bwd_dvs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (attr != cudaSuccess) return (int)attr;
-  vertex_bwd_dvs_kernel<<<dim3((Bp + DB - 1) / DB, Vp / DV), NT, smem, s>>>(
-      a2, w, dout, dvs, Jp, Vp, Bp);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int err = launch_blend(cat, dirs, vs, D, Vp, Bp, s);
+  if (err) return err;
+  return launch_skin(vertex_bwd_dvs_kernel, 3, Jp, Vp, Bp, s, a2, w, dout,
+                     dvs, Jp, Vp, Bp);
 }
 
 // K2 and its sum: dcat [D, Bp] from dirs and dvs; part_dcat [S0, D, Bp].
@@ -580,20 +593,37 @@ int lemo_vertex_bwd_da2(const float* w, const float* vs, const float* dout,
       p, part_da2, da2, 12L * Jp * Bp, (cudaStream_t)stream);
 }
 
-// The whole backward, K1 then K2 and K3 with their sums, on one stream.
-// Scratch: vs, dvs [3, Vp, Bp]; part_dcat and part_da2 sized by
-// lemo_vertex_bwd_slices.
+// The backward from a blend vs [3, Vp, Bp] already formed (the forward's):
+// K1b, then K2 and K3 with their sums, on one stream. lemo_vertex_bwd's
+// arguments without cat, vs now an input. Scratch: dvs [3, Vp, Bp];
+// part_dcat and part_da2 sized by lemo_vertex_bwd_slices.
+int lemo_vertex_bwd_from_vs(const float* a2, const float* dirs,
+                            const float* w, const float* dout, float* dcat,
+                            float* da2, const float* vs, float* dvs,
+                            float* part_dcat, float* part_da2, int D, int Jp,
+                            int Vp, int Bp, void* stream) {
+  if (!shapes_ok(D, Jp, Vp, Bp)) return (int)cudaErrorInvalidValue;
+  int err = launch_skin(vertex_bwd_dvs_kernel, 3, Jp, Vp, Bp,
+                        (cudaStream_t)stream, a2, w, dout, dvs, Jp, Vp, Bp);
+  if (err) return err;
+  err = lemo_vertex_bwd_dcat(dirs, dvs, dcat, part_dcat, D, Vp, Bp, stream);
+  if (err) return err;
+  return lemo_vertex_bwd_da2(w, vs, dout, da2, part_da2, Jp, Vp, Bp, stream);
+}
+
+// The whole backward: K1a into the scratch vs [3, Vp, Bp], then
+// lemo_vertex_bwd_from_vs.
 int lemo_vertex_bwd(const float* cat, const float* a2, const float* dirs,
                     const float* w, const float* dout, float* dcat,
                     float* da2, float* vs, float* dvs, float* part_dcat,
                     float* part_da2, int D, int Jp, int Vp, int Bp,
                     void* stream) {
-  int err = lemo_vertex_bwd_pointwise(cat, a2, dirs, w, dout, vs, dvs, D, Jp,
-                                      Vp, Bp, stream);
+  if (!shapes_ok(D, Jp, Vp, Bp)) return (int)cudaErrorInvalidValue;
+  const int err =
+      launch_blend(cat, dirs, vs, D, Vp, Bp, (cudaStream_t)stream);
   if (err) return err;
-  err = lemo_vertex_bwd_dcat(dirs, dvs, dcat, part_dcat, D, Vp, Bp, stream);
-  if (err) return err;
-  return lemo_vertex_bwd_da2(w, vs, dout, da2, part_da2, Jp, Vp, Bp, stream);
+  return lemo_vertex_bwd_from_vs(a2, dirs, w, dout, dcat, da2, vs, dvs,
+                                 part_dcat, part_da2, D, Jp, Vp, Bp, stream);
 }
 
 }  // extern "C"

@@ -1,32 +1,41 @@
-"""The vertex backward (csrc/vertex.cu) against other builds of it, in one
+"""The vertex kernels (csrc/vertex.cu) against other builds of them, in one
 process on one CUDA card.
 
     python3 scripts/bench_torch_vertex.py \
-        [--baseline lemo_tpu_torch/_build/first_vertex.cu] \
+        [--baseline lemo_tpu_torch/_build/base_vertex.cu] \
         [--compare NAME=SOURCE.cu ...]
 
-`--baseline` is the first design's source, whose `lemo_vertex_bwd` takes
-per-64-vertex-tile partial slabs sized by `lemo_vertex_bwd_tiles`. Write
-it from git into the git-ignored build directory before the run:
+`--baseline` is the previous design's source (commit eff8b05): its forward
+is one kernel with no blend scratch, bound by its own argument list, and
+its backward has the current interface. Write it from git into the
+git-ignored build directory before the run:
 
-    git show 43d2516:lemo_tpu_torch/csrc/vertex.cu \
-        > lemo_tpu_torch/_build/first_vertex.cu
+    git show eff8b05:lemo_tpu_torch/csrc/vertex.cu \
+        > lemo_tpu_torch/_build/base_vertex.cu
 
-Each `--compare` source defines the current interface
-(`lemo_vertex_bwd` with `lemo_vertex_bwd_slices`), e.g. a variant of
-csrc/vertex.cu. The script compiles csrc/vertex.cu, the baseline and each
-compared source on its own with `nvcc -Xptxas -v` into lemo_tpu_torch/
-_build/ (all at once) and prints every kernel's registers, shared memory
-and spills. On phase 2's operands (`chip_smoke.body_operands`: the
-full-size synthetic SMPL-X at B=100) it holds the port's backward
-(`vertex_cuda.vertex_bwd_kernel`), each of its stages and every other
-build against the plain version (rel 5e-5) and against a second launch of
-itself (bit-identical; a compared build that fails is reported and not
-timed, the port's kernel failing stops the script), then times in turns: the plain version, then for
-each other build: it, the port's kernel, the port's kernel, it (CUDA
-events, median of chip_smoke.REPS), and takes each build's device time
-by kernel from a torch.profiler trace of 20 calls. Prints one line per
-measurement and, last, one JSON object.
+Each `--compare` source defines the current interface (`lemo_vertex_fwd`
+with its blend scratch, `lemo_vertex_bwd`, `lemo_vertex_bwd_from_vs` and
+`lemo_vertex_bwd_slices`), e.g. a variant of csrc/vertex.cu; `--f2
+NAME=PLANES,BLOCKS` compares csrc/vertex.cu with the forward's apply
+kernel at another F2_PLANES and F2_MIN_BLOCKS (written into
+lemo_tpu_torch/_build/). The script
+compiles csrc/vertex.cu, the baseline and each compared source on its own
+with `nvcc -Xptxas -v` into lemo_tpu_torch/_build/ (all at once) and
+prints every kernel's registers, shared memory and spills. On phase 2's
+operands (`chip_smoke.body_operands`: the full-size synthetic SMPL-X at
+B=100) it holds every build's forward (1e-5 m abs) and backward (rel
+5e-5) against the plain versions and against a second launch of itself
+(bit-identical; a compared build that fails is reported and not timed,
+the port failing stops the script), and each stage of the port's kernels
+against its own plain version. Then it times in turns, for the forward,
+the backward, and the forward then the backward (the port's backward
+from its forward's kept blend; `recompute` is the port with the backward
+forming the blend again, any other build as it comes): the plain version,
+then for each other build: it, the port, the port, it (CUDA events,
+median of chip_smoke.REPS); and takes each build's device time by kernel
+from a torch.profiler trace of 20 calls (and cuBLAS's, for the blend
+alone: the yardstick of the SGEMM tile). Prints one line per measurement
+and, last, one JSON object.
 """
 
 from __future__ import annotations
@@ -42,8 +51,9 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-BASELINE = os.path.join(ROOT, "lemo_tpu_torch", "_build", "first_vertex.cu")
-TOL = 5e-5
+BASELINE = os.path.join(ROOT, "lemo_tpu_torch", "_build", "base_vertex.cu")
+TOL = 5e-5        # backward, relative to each output's largest magnitude
+FWD_TOL = 1e-5    # forward, m
 
 
 def _kernel_name(mangled: str) -> str:
@@ -114,75 +124,100 @@ def build_all(sources: dict[str, str]) -> dict[str, tuple[str, list]]:
     return built
 
 
-def baseline_launcher(path: str, catT, A2, dirs, w, dout):
-    """The first design's entry point on the port's operands; scratch and
-    outputs are allocated at each launch, as the port's wrapper does."""
-    import torch
+def f2_variant(src: str, name: str, planes: int, blocks: int) -> str:
+    """`src` with the apply kernel's F2_PLANES and F2_MIN_BLOCKS replaced,
+    written into the build directory; returns its path."""
+    from lemo_tpu_torch import _build
 
-    lib = ctypes.CDLL(path)
-    lib.lemo_vertex_bwd.argtypes = [ctypes.c_void_p] * 9 + \
-        [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    lib.lemo_vertex_bwd.restype = ctypes.c_int
-    lib.lemo_vertex_bwd_tiles.argtypes = [ctypes.c_int]
-    lib.lemo_vertex_bwd_tiles.restype = ctypes.c_int
-    D, Bp = catT.shape
-    Jp, Vp = A2.shape[1], dirs.shape[1]
-    tiles = lib.lemo_vertex_bwd_tiles(Vp)
-    dev = catT.device
-
-    def call():
-        dcat = torch.empty((D, Bp), dtype=torch.float32, device=dev)
-        da2 = torch.empty((12, Jp, Bp), dtype=torch.float32, device=dev)
-        pd = torch.empty((tiles, D, Bp), dtype=torch.float32, device=dev)
-        pa = torch.empty((tiles, 12, Jp, Bp), dtype=torch.float32,
-                         device=dev)
-        rc = lib.lemo_vertex_bwd(
-            catT.data_ptr(), A2.data_ptr(), dirs.data_ptr(), w.data_ptr(),
-            dout.data_ptr(), dcat.data_ptr(), da2.data_ptr(), pd.data_ptr(),
-            pa.data_ptr(), D, Jp, Vp, Bp,
-            torch.cuda.current_stream(dev).cuda_stream)
-        if rc:
-            raise RuntimeError(f"baseline launch failed: CUDA error {rc}")
-        return dcat, da2
-
-    return call
+    with open(src) as fh:
+        text = fh.read()
+    for const, value in (("F2_PLANES", planes), ("F2_MIN_BLOCKS", blocks)):
+        text, n = re.subn(rf"constexpr int {const} = \d+;",
+                          f"constexpr int {const} = {value};", text)
+        if n != 1:
+            raise ValueError(f"{src} does not define {const} once")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    path = os.path.join(_build.BUILD_DIR, f"bench_vertex_{name}.cu")
+    with open(path, "w") as fh:
+        fh.write(text)
+    return path
 
 
-def current_launcher(path: str, catT, A2, dirs, w, dout):
-    """Another build of the current entry point on the port's operands."""
+def _bind(lib, fn: str, argtypes) -> None:
+    getattr(lib, fn).argtypes = argtypes
+    getattr(lib, fn).restype = ctypes.c_int
+
+
+def build_ops(path: str, baseline: bool, catT, A2, dirs, w, dout) -> dict:
+    """Another build's forward, backward, and forward then backward, on the
+    port's operands; outputs and scratch are allocated at each launch, as
+    the port's wrappers do. The baseline's forward takes no blend scratch
+    (`lemo_vertex_fwd(cat, a2, dirs, w, out, D, Jp, Vp, Bp, stream)`), so
+    its backward forms the blend again; any other build's backward takes
+    the forward's."""
     import torch
 
     from lemo_tpu_torch import _build
 
     lib = ctypes.CDLL(path)
-    for fn in ("lemo_vertex_bwd", "lemo_vertex_bwd_slices"):
-        getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
-        getattr(lib, fn).restype = ctypes.c_int
+    for fn in ("lemo_vertex_bwd", "lemo_vertex_bwd_slices") + (
+            () if baseline else ("lemo_vertex_fwd", "lemo_vertex_bwd_from_vs")):
+        _bind(lib, fn, _build.SIGNATURES[fn])
+    if baseline:
+        _bind(lib, "lemo_vertex_fwd", [ctypes.c_void_p] * 5
+              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     D, Bp = catT.shape
     Jp, Vp = A2.shape[1], dirs.shape[1]
     slices = (ctypes.c_int * 2)()
     if lib.lemo_vertex_bwd_slices(D, Jp, Vp, Bp, slices):
-        raise RuntimeError("compared build refuses the shapes")
+        raise RuntimeError(f"{path} refuses the shapes")
     dev = catT.device
 
-    def call():
-        vs, dvs = (torch.empty((3, Vp, Bp), dtype=torch.float32, device=dev)
-                   for _ in range(2))
-        pd = torch.empty((slices[0], D, Bp), dtype=torch.float32, device=dev)
-        pa = torch.empty((slices[1], 12, Jp, Bp), dtype=torch.float32,
-                         device=dev)
-        dcat = torch.empty((D, Bp), dtype=torch.float32, device=dev)
-        da2 = torch.empty((12, Jp, Bp), dtype=torch.float32, device=dev)
-        rc = lib.lemo_vertex_bwd(
-            catT.data_ptr(), A2.data_ptr(), dirs.data_ptr(), w.data_ptr(),
-            dout.data_ptr(), dcat.data_ptr(), da2.data_ptr(), vs.data_ptr(),
-            dvs.data_ptr(), pd.data_ptr(), pa.data_ptr(), D, Jp, Vp, Bp,
-            torch.cuda.current_stream(dev).cuda_stream)
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    def stream():
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    def done(rc, what):
         if rc:
-            raise RuntimeError(f"compared launch failed: CUDA error {rc}")
+            raise RuntimeError(f"{what} of {path} failed: CUDA error {rc}")
+
+    def fwd(vs=None):
+        out = empty(3, Vp, Bp)
+        scratch = empty(3, Vp, Bp) if vs is None else vs
+        ptrs = [catT.data_ptr(), A2.data_ptr(), dirs.data_ptr(), w.data_ptr()]
+        if not baseline:
+            ptrs.append(scratch.data_ptr())
+        done(lib.lemo_vertex_fwd(*ptrs, out.data_ptr(), D, Jp, Vp, Bp,
+                                 stream()), "forward")
+        return out
+
+    def bwd(vs=None):
+        dcat, da2, dvs = empty(D, Bp), empty(12, Jp, Bp), empty(3, Vp, Bp)
+        pd, pa = empty(slices[0], D, Bp), empty(slices[1], 12, Jp, Bp)
+        scratch = empty(3, Vp, Bp) if vs is None else vs
+        tail = (dcat.data_ptr(), da2.data_ptr(), scratch.data_ptr(),
+                dvs.data_ptr(), pd.data_ptr(), pa.data_ptr(), D, Jp, Vp, Bp,
+                stream())
+        if vs is None:
+            rc = lib.lemo_vertex_bwd(catT.data_ptr(), A2.data_ptr(),
+                                     dirs.data_ptr(), w.data_ptr(),
+                                     dout.data_ptr(), *tail)
+        else:
+            rc = lib.lemo_vertex_bwd_from_vs(A2.data_ptr(), dirs.data_ptr(),
+                                             w.data_ptr(), dout.data_ptr(),
+                                             *tail)
+        done(rc, "backward")
         return dcat, da2
 
-    return call
+    def fwd_bwd():
+        if baseline:
+            return fwd(), bwd()
+        vs = empty(3, Vp, Bp)
+        return fwd(vs), bwd(vs)
+
+    return {"fwd": fwd, "bwd": bwd, "fwd_bwd": fwd_bwd}
 
 
 def _short(key: str) -> str:
@@ -221,23 +256,32 @@ def profile_kernels(fn, calls: int = 20) -> dict[str, float]:
     return out
 
 
-def check(name: str, fn, ref) -> dict:
-    """Hold a backward's (dcat, dA2) against the plain version's, relative
-    to each output's largest magnitude, and against a second launch."""
+def check(name: str, ops: dict, ref_out, ref_grads) -> dict:
+    """Hold a build's forward (abs, m) and backward (rel to each output's
+    largest magnitude) against the plain versions, and each against a
+    second launch of itself."""
     import torch
 
     import chip_smoke as cs
 
-    got, again = fn(), fn()
+    out, again = ops["fwd"](), ops["fwd"]()
+    grads, grads_again = ops["bwd"](), ops["bwd"]()
     torch.cuda.synchronize()
-    rel = max(cs._max_rel(g, r) for g, r in zip(got, ref))
-    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
-    print(f"[check] {name}: max rel err {rel:.3e} (tol {TOL:g}), repeat "
-          f"launch bit-identical {repeat}", flush=True)
-    ok = rel <= TOL and repeat
-    if not ok and name == "port":
+    res = {"fwd_max_abs_err": float((out - ref_out).abs().max()),
+           "bwd_max_rel_err": max(cs._max_rel(g, r)
+                                  for g, r in zip(grads, ref_grads)),
+           "bit_identical_repeat": torch.equal(out, again) and all(
+               torch.equal(a, b) for a, b in zip(grads, grads_again))}
+    res["ok"] = (res["fwd_max_abs_err"] <= FWD_TOL
+                 and res["bwd_max_rel_err"] <= TOL
+                 and res["bit_identical_repeat"])
+    print(f"[check] {name}: forward max abs err {res['fwd_max_abs_err']:.3e}"
+          f" (tol {FWD_TOL:g}), backward max rel err "
+          f"{res['bwd_max_rel_err']:.3e} (tol {TOL:g}), repeat launches "
+          f"bit-identical {res['bit_identical_repeat']}", flush=True)
+    if not res["ok"] and name == "port":
         raise AssertionError(f"{name}: disagrees with plain or itself")
-    return {"max_rel_err": rel, "bit_identical_repeat": repeat, "ok": ok}
+    return res
 
 
 def main() -> int:
@@ -245,9 +289,13 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--baseline", default=BASELINE,
-                    help="the first design's source (lemo_vertex_bwd_tiles)")
+                    help="the previous design's source (a forward without "
+                         "blend scratch)")
     ap.add_argument("--compare", action="append", default=[],
                     help="NAME=SOURCE.cu, a build of the current interface")
+    ap.add_argument("--f2", action="append", default=[],
+                    help="NAME=PLANES,BLOCKS: csrc/vertex.cu with F2_PLANES "
+                         "and F2_MIN_BLOCKS set so")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("bench_torch_vertex: CUDA is not available", file=sys.stderr)
@@ -262,64 +310,96 @@ def main() -> int:
     print(card, flush=True)
     sources = {"port": os.path.join(ROOT, "lemo_tpu_torch", "csrc",
                                     "vertex.cu"),
-               "first": a.baseline}
+               "base": a.baseline}
     for spec in a.compare:
         name, src = spec.split("=", 1)
         sources[name] = src
+    for spec in a.f2:
+        name, values = spec.split("=", 1)
+        sources[name] = f2_variant(sources["port"], name,
+                                   *map(int, values.split(",")))
     built = build_all(sources)
-    sources = {n: s for n, s in sources.items() if n in built}
 
     model = load_model(cs.smoke_model_dict(), use_pca=True, num_pca_comps=12,
                        device="cuda")
     ops = cs.body_operands(model)
-    catT, A2, dirs, w = ops["vertex_fwd_kernel"]
+    catT, A2, dirs, w = ops["vertex_fwd_kernel"][:4]
     dout = ops["vertex_bwd_kernel"][4]
     print(f"[operands] catT {tuple(catT.shape)}, A2 {tuple(A2.shape)}, dirs "
           f"{tuple(dirs.shape)}, w {tuple(w.shape)}, dout "
           f"{tuple(dout.shape)}", flush=True)
 
-    def port():
-        return vc.vertex_bwd_kernel(catT, A2, dirs, w, dout)
+    def port_fwd_bwd(keep_vs=True):
+        vs = torch.empty_like(dout) if keep_vs else None
+        return (vc.vertex_fwd_kernel(catT, A2, dirs, w, vs),
+                vc.vertex_bwd_kernel(catT, A2, dirs, w, dout, vs))
 
-    def plain():
-        return vc.vertex_plain_bwd(catT, A2, dirs, w, dout)
-
-    ref = plain()
-    others = [("first", baseline_launcher(built["first"][0], catT, A2, dirs, w,
-                                        dout))]
-    others += [(name, current_launcher(built[name][0], catT, A2, dirs, w,
-                                       dout)) for name in sources
-               if name not in ("port", "first")]
+    builds = {"port": {
+        "fwd": lambda: vc.vertex_fwd_kernel(catT, A2, dirs, w),
+        "bwd": lambda: vc.vertex_bwd_kernel(catT, A2, dirs, w, dout),
+        "fwd_bwd": port_fwd_bwd}}
+    for name, (path, _) in built.items():
+        if name != "port":
+            builds[name] = build_ops(path, name == "base", catT, A2, dirs, w,
+                                     dout)
+    # the port with its backward forming the blend again (lever c off)
+    builds["recompute"] = {"fwd_bwd": lambda: port_fwd_bwd(False)}
+    plain = {"fwd": lambda: vc.vertex_plain_fwd(catT, A2, dirs, w),
+             "bwd": lambda: vc.vertex_plain_bwd(catT, A2, dirs, w, dout)}
+    ref_out, ref_grads = plain["fwd"](), plain["bwd"]()
     result = {"card": card, "slices": list(vc.bwd_slices(
         catT.shape[0], A2.shape[1], dirs.shape[1], catT.shape[1])),
         "ptxas": {n: s for n, (_, s) in built.items()},
-        "check": {"port": check("port", port, ref)},
-        "stages": cs.vertex_bwd_stages(catT, A2, dirs, w, dout, card, TOL),
-        "ms": {"plain": cs._time_ms(plain), "port": []}}
-    for name, fn in others:
-        result["check"][name] = check(name, fn, ref)
+        "check": {},
+        "stages": {"fwd": cs.vertex_fwd_stages(catT, A2, dirs, w, card,
+                                               FWD_TOL),
+                   "bwd": cs.vertex_bwd_stages(catT, A2, dirs, w, dout,
+                                               card, TOL)},
+        "ms": {kind: {"port": []} for kind in ("fwd", "bwd", "fwd_bwd")},
+        "profile": {}}
+    for name, b in builds.items():
+        if "fwd" in b:
+            result["check"][name] = check(name, b, ref_out, ref_grads)
     # a compared build that disagrees is reported, not timed
-    others = [(n, fn) for n, fn in others if result["check"][n]["ok"]]
-    print(f"[time] plain {result['ms']['plain']:.4f} ms on {card}",
-          flush=True)
-    for name, fn in others:
-        turns = [cs._time_ms(fn), cs._time_ms(port), cs._time_ms(port),
-                 cs._time_ms(fn)]
-        result["ms"][name] = [turns[0], turns[3]]
-        result["ms"]["port"].extend(turns[1:3])
-        print(f"[time] {name} {turns[0]:.4f}, port {turns[1]:.4f}, port "
-              f"{turns[2]:.4f}, {name} {turns[3]:.4f} ms (speed-up "
-              f"{(turns[0] + turns[3]) / (turns[1] + turns[2]):.2f}x) on "
+    others = [n for n in builds if n != "port"
+              and result["check"].get(n, {"ok": True})["ok"]]
+    for kind in ("fwd", "bwd"):
+        result["ms"][kind]["plain"] = cs._time_ms(plain[kind])
+        print(f"[time] {kind} plain {result['ms'][kind]['plain']:.4f} ms on "
               f"{card}", flush=True)
-    result["profile"] = {}
-    for name, fn in [("port", port)] + others:
-        prof = profile_kernels(fn)
-        result["profile"][name] = prof
-        print(f"[profile] {name}: " + ", ".join(
-            f"{k} {v:.4f}" for k, v in sorted(prof.items(),
-                                              key=lambda kv: -kv[1]))
-              + f" ms a call (sum {sum(prof.values()):.4f}) on {card}",
-              flush=True)
+    for kind in ("fwd", "bwd", "fwd_bwd"):
+        port = builds["port"][kind]
+        for name in others:
+            if kind not in builds[name]:
+                continue
+            fn = builds[name][kind]
+            turns = [cs._time_ms(fn), cs._time_ms(port), cs._time_ms(port),
+                     cs._time_ms(fn)]
+            result["ms"][kind][name] = [turns[0], turns[3]]
+            result["ms"][kind]["port"].extend(turns[1:3])
+            print(f"[time] {kind}: {name} {turns[0]:.4f}, port "
+                  f"{turns[1]:.4f}, port {turns[2]:.4f}, {name} "
+                  f"{turns[3]:.4f} ms (speed-up "
+                  f"{(turns[0] + turns[3]) / (turns[1] + turns[2]):.2f}x) on "
+                  f"{card}", flush=True)
+    result["profile"]["blend_cublas"] = profile_kernels(
+        lambda: vc.vertex_plain_blend(catT, dirs))
+    print(f"[profile] blend cuBLAS (torch.matmul, TF32 off): " + ", ".join(
+        f"{k[:60]} {v:.4f}" for k, v in
+        result["profile"]["blend_cublas"].items()) + f" ms a call on {card}",
+          flush=True)
+    for kind in ("fwd", "bwd", "fwd_bwd"):
+        result["profile"][kind] = {}
+        for name in ["port"] + others:
+            if kind not in builds[name]:
+                continue
+            prof = profile_kernels(builds[name][kind])
+            result["profile"][kind][name] = prof
+            print(f"[profile] {kind} {name}: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in sorted(prof.items(),
+                                                  key=lambda kv: -kv[1]))
+                  + f" ms a call (sum {sum(prof.values()):.4f}) on {card}",
+                  flush=True)
     print(json.dumps(result), flush=True)
     return 0
 

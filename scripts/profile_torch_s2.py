@@ -11,7 +11,9 @@ call) and reports, on the card named in the output:
    friction term switched off one at a time;
 2. one call under torch.profiler: device busy share (union of kernel
    intervals over the wall time of the call), kernel launches per step,
-   and the kernels that take the most device time.
+   the kernels that take the most device time, and the device time per
+   step of the vertex kernels (csrc/vertex.cu: forward and backward) by
+   kernel.
 
 Prints human-readable lines and, last, one JSON object.
 """
@@ -25,6 +27,9 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+# the kernels of csrc/vertex.cu, by a part of their names
+VERTEX_KERNELS = ("vertex_", "splitk_gemm_kernel", "sum_slices_kernel")
 
 
 def _wall_per_step(fit, args, steps, calls=3) -> float:
@@ -107,10 +112,15 @@ def main() -> int:
         rec[1] += e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:a.top]
     device_us = sum(v[1] for v in by_name.values())
+    vertex = {n: us / steps / 1e3 for n, (_, us) in by_name.items()
+              if any(k in n for k in VERTEX_KERNELS)}
     result.update({
         "profiled_wall_ms_per_step": wall_us / steps / 1e3,
         "device_busy_ms_per_step": busy_us / steps / 1e3,
         "device_busy_share": busy_us / wall_us,
+        "vertex_ms_per_step": sum(vertex.values()),
+        "vertex_kernels_ms_per_step": {n[:90]: ms
+                                       for n, ms in vertex.items()},
         "kernel_launches_per_step": len(kernels) / steps,
         "top_kernels": [{"name": n[:90], "launches_per_step": c / steps,
                          "ms_per_step": us / steps / 1e3,
@@ -126,6 +136,10 @@ def main() -> int:
               f"x{row['launches_per_step']:.0f} "
               f"{100 * row['share_of_device_time']:.1f}%  {row['name']}",
               flush=True)
+    print(f"[profile] vertex kernels {sum(vertex.values()):.4f} ms/step: "
+          + ", ".join(f"{ms:.4f} {n[:60]}" for n, ms in
+                      sorted(vertex.items(), key=lambda kv: -kv[1])),
+          flush=True)
     if a.trace:
         os.makedirs(os.path.dirname(a.trace) or ".", exist_ok=True)
         prof.export_chrome_trace(a.trace)

@@ -234,3 +234,149 @@ def test_backward_kernel_matches_plain_on_card(consts):
     for g, a, r in zip(got, again, ref):
         assert torch.equal(g, a)
         assert _rel(g.cpu().numpy(), r.cpu().numpy()) < 5e-5
+
+
+# ---- the forward's stages and the backward from the forward's blend ------
+
+def _plain_fwd_one_pass(catT, A2, dirs, w):
+    """The forward's plain twin as one function, as it stood before it was
+    split into the blend and the apply: the composition must keep its
+    bits."""
+    vs = torch.matmul(dirs, catT)
+    T = torch.einsum("vj,kjb->kvb", w, A2)
+    return torch.stack([
+        T[9 + m] + T[3 * m] * vs[0] + T[3 * m + 1] * vs[1]
+        + T[3 * m + 2] * vs[2] for m in range(3)])
+
+
+@pytest.mark.parametrize("B", [1, 5])
+def test_plain_forward_is_its_stages_bit_for_bit(consts, B):
+    catT, A2, dirs, w, _ = _torch_operands(consts, B, seed=90 + B)
+    vs = torch.empty(3, dirs.shape[1], catT.shape[1])
+    out = TV.vertex_plain_fwd(catT, A2, dirs, w, vs)
+    np.testing.assert_array_equal(
+        out.numpy(), _plain_fwd_one_pass(catT, A2, dirs, w).numpy())
+    np.testing.assert_array_equal(
+        vs.numpy(), TV.vertex_plain_blend(catT, dirs).numpy())
+    np.testing.assert_array_equal(
+        out.numpy(), TV.vertex_plain_fwd(catT, A2, dirs, w).numpy())
+
+
+@pytest.mark.parametrize("stage", ["blend", "apply"])
+@pytest.mark.parametrize("B", [1, 5])
+def test_plain_forward_stage_matches_pallas(consts, stage, B):
+    """Each stage of the plain forward against lemo_tpu's `_vertex_core`
+    forward (interpret mode) at the forward's 1e-5 m: the apply on the
+    plain blend's vs; the blend through the apply taken exactly (f64)."""
+    catT, A2, dirs, w, _ = _torch_operands(consts, B, seed=100 + B)
+    ref = np.asarray(JV._vertex_core(
+        jnp.asarray(catT.numpy()), jnp.asarray(A2.numpy()),
+        jnp.asarray(dirs.numpy()), jnp.asarray(w.numpy())))
+    vs = TV.vertex_plain_blend(catT, dirs)
+    if stage == "blend":
+        out = TV.vertex_plain_fwd_apply(vs.double(), A2.double(), w.double())
+    else:
+        out = TV.vertex_plain_fwd_apply(vs, A2, w)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("B", [1, 5])
+def test_plain_backward_from_kept_blend_bit_for_bit(consts, B):
+    """The backward from the forward's blend is the backward that forms it
+    again, to the bit."""
+    catT, A2, dirs, w, dout = _torch_operands(consts, B, seed=110 + B)
+    vs = torch.empty(3, dirs.shape[1], catT.shape[1])
+    TV.vertex_plain_fwd(catT, A2, dirs, w, vs)
+    for got, ref in zip(TV.vertex_plain_bwd(catT, A2, dirs, w, dout, vs),
+                        TV.vertex_plain_bwd(catT, A2, dirs, w, dout)):
+        np.testing.assert_array_equal(got.numpy(), ref.numpy())
+
+
+def test_function_backward_takes_the_forward_blend(consts, monkeypatch):
+    """`_VertexCore` hands its forward's blend to the backward, which then
+    need not form it again."""
+    catT, A2, dirs, w, dout = _torch_operands(consts, 3, seed=120)
+    seen = {}
+    real = TV.vertex_plain_bwd
+
+    def spy(c, a, d, ww, g, vs=None):
+        seen["vs"] = vs
+        return real(c, a, d, ww, g, vs)
+
+    monkeypatch.setattr(TV, "vertex_plain_bwd", spy)
+    c = catT.clone().requires_grad_(True)
+    out = TV.fused_lbs_vertices_planes(c, A2, dirs, w)
+    (out * dout).sum().backward()
+    assert seen["vs"] is not None
+    np.testing.assert_array_equal(seen["vs"].numpy(),
+                                  TV.vertex_plain_blend(catT, dirs).numpy())
+
+
+@pytest.mark.parametrize("B", [1, 5])
+def test_function_gradients_match_pallas_vjp(consts, B):
+    """Autograd through `_VertexCore` (the backward from the kept blend)
+    against `jax.vjp` of lemo_tpu's `_vertex_core` (interpret mode)."""
+    catT, A2, dirs, w, dout = _torch_operands(consts, B, seed=130 + B)
+    dirs_j, w_j = jnp.asarray(dirs.numpy()), jnp.asarray(w.numpy())
+    _, vjp = jax.vjp(lambda cc, aa: JV._vertex_core(cc, aa, dirs_j, w_j),
+                     jnp.asarray(catT.numpy()), jnp.asarray(A2.numpy()))
+    dcat_ref, da2_ref = (np.asarray(x) for x in vjp(jnp.asarray(
+        dout.numpy())))
+    c = catT.clone().requires_grad_(True)
+    a = A2.clone().requires_grad_(True)
+    (TV.fused_lbs_vertices_planes(c, a, dirs, w) * dout).sum().backward()
+    assert _rel(c.grad.numpy(), dcat_ref) < 5e-5
+    assert _rel(a.grad.numpy(), da2_ref) < 5e-5
+
+
+_FWD_WRAPPERS = {
+    "vertex_fwd_kernel": lambda c, a, d, w, g: TV.vertex_fwd_kernel(
+        c, a, d, w),
+    "vertex_fwd_kernel_keeping_blend": lambda c, a, d, w, g:
+        TV.vertex_fwd_kernel(c, a, d, w, torch.empty_like(g)),
+    "vertex_blend_kernel": lambda c, a, d, w, g: TV.vertex_blend_kernel(c, d),
+    "vertex_fwd_apply_kernel": lambda c, a, d, w, g:
+        TV.vertex_fwd_apply_kernel(g, a, w),
+    "vertex_bwd_kernel_from_blend": lambda c, a, d, w, g:
+        TV.vertex_bwd_kernel(c, a, d, w, g, torch.empty_like(g)),
+}
+
+
+@pytest.mark.parametrize("name", list(_FWD_WRAPPERS))
+def test_forward_wrappers_refuse_cpu_tensors(consts, name):
+    counts = dict(TV.launches), dict(TV.stage_launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        _FWD_WRAPPERS[name](*_torch_operands(consts, 2, seed=140))
+    assert (TV.launches, TV.stage_launches) == counts
+
+
+def test_backward_scratch_views_with_kept_blend(monkeypatch):
+    """Given the forward's blend, the backward's scratch holds no blend of
+    its own: the given tensor comes back first, then dvs and the two
+    partial slabs."""
+    monkeypatch.setattr(TV, "bwd_slices", lambda D, Jp, Vp, Bp: (5, 3))
+    D, Jp, Vp, Bp = 21, 56, 256, 32
+    vs = torch.empty(3, Vp, Bp)
+    views = TV._bwd_scratch(D, Jp, Vp, Bp, "cpu", vs)
+    assert views[0] is vs
+    assert [tuple(v.shape) for v in views[1:]] == [
+        (3, Vp, Bp), (5, D, Bp), (3, 12, Jp, Bp)]
+    assert sum(v.numel() for v in views[1:]) == \
+        views[1].untyped_storage().nbytes() // 4
+
+
+@pytest.mark.cuda
+def test_forward_kernel_matches_plain_on_card(consts):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    catT, A2, dirs, w, dout = (t.cuda() for t in
+                               _torch_operands(consts, 5, seed=150))
+    vs = torch.empty_like(dout)
+    got = TV.vertex_fwd_kernel(catT, A2, dirs, w, vs)
+    assert torch.equal(got, TV.vertex_fwd_kernel(catT, A2, dirs, w))
+    ref = TV.vertex_plain_fwd(catT, A2, dirs, w)
+    assert float((got - ref).abs().max()) < 1e-5
+    assert float((vs - TV.vertex_plain_blend(catT, dirs)).abs().max()) < 1e-5
+    for g, r in zip(TV.vertex_bwd_kernel(catT, A2, dirs, w, dout, vs),
+                    TV.vertex_bwd_kernel(catT, A2, dirs, w, dout)):
+        assert torch.equal(g, r)

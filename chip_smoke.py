@@ -17,7 +17,14 @@ Phases (any failure raises and the script exits non-zero):
    SGEMM yardstick), the backward's pointwise pass and its dcat and dA2
    reductions (rel 5e-5). Two launches of each vertex kernel must give
    the same bits, and so must the backward from the forward's kept blend
-   and the one that forms the blend again.
+   and the one that forms the blend again. The chain kernels are held in
+   both forms: the affine entry points the body model launches (the
+   rel-joint translations, the chain walk and the bone affines in one
+   launch each way; 1e-5 m abs forward, rel 5e-5 backward), whose
+   forward must also give the same bits as the chain pair with eager
+   ops around it (the body model before the fold), and the chain pair's
+   own entry points on the operands that composition gives them. Two
+   launches of each must give the same bits.
 3. Body model: full-size forward and backward through `make_forward_fn`
    (kernels) against the same with the plain twins, on the card.
 4. The Stage-2 slice: the AMASS temporal fit (`make_temporal_fitter`,
@@ -164,10 +171,13 @@ def plain_twins():
     from lemo_tpu_torch.ops import intersection_cuda as ic
 
     saved = (cc.chain_fwd_kernel, cc.chain_bwd_kernel,
+             cc.chain_affine_fwd_kernel, cc.chain_affine_bwd_kernel,
              vc.vertex_fwd_kernel, vc.vertex_bwd_kernel,
              chc.nn_select_kernel, ic.cone_energy_kernel)
     cc.chain_fwd_kernel = cc.chain_planes_plain_fwd
     cc.chain_bwd_kernel = cc.chain_planes_plain_bwd
+    cc.chain_affine_fwd_kernel = cc.chain_affine_plain_fwd
+    cc.chain_affine_bwd_kernel = cc.chain_affine_plain_bwd
     vc.vertex_fwd_kernel = vc.vertex_plain_fwd
     vc.vertex_bwd_kernel = vc.vertex_plain_bwd
     chc.nn_select_kernel = ch.nn_select_plain
@@ -176,6 +186,7 @@ def plain_twins():
         yield
     finally:
         (cc.chain_fwd_kernel, cc.chain_bwd_kernel,
+         cc.chain_affine_fwd_kernel, cc.chain_affine_bwd_kernel,
          vc.vertex_fwd_kernel, vc.vertex_bwd_kernel,
          chc.nn_select_kernel, ic.cone_energy_kernel) = saved
 
@@ -187,6 +198,7 @@ def capture_operands(store: dict):
     from lemo_tpu_torch.body_model import vertex_cuda as vc
 
     names = [(cc, "chain_fwd_kernel"), (cc, "chain_bwd_kernel"),
+             (cc, "chain_affine_fwd_kernel"), (cc, "chain_affine_bwd_kernel"),
              (vc, "vertex_fwd_kernel"), (vc, "vertex_bwd_kernel")]
     saved = [getattr(mod, n) for mod, n in names]
 
@@ -222,9 +234,26 @@ def _max_rel(a, b) -> float:
     return float((a - b).abs().max()) / scale
 
 
-def body_operands(model) -> dict:
+@contextlib.contextmanager
+def unfused_chain():
+    """Run the body model's chain as before the affine kernels: the chain
+    kernel pair with eager ops around it
+    (`chain_cuda.chain_affine_planes_unfused`)."""
+    from lemo_tpu_torch.body_model import chain_cuda as cc
+    from lemo_tpu_torch.body_model import lbs
+
+    real = lbs.chain_affine_planes
+    lbs.chain_affine_planes = cc.chain_affine_planes_unfused
+    try:
+        yield
+    finally:
+        lbs.chain_affine_planes = real
+
+
+def body_operands(model, unfused: bool = False) -> dict:
     """The operands each body-model kernel wrapper gets in one forward and
-    backward of `model` at B=T_FRAMES on random seeded parameters."""
+    backward of `model` at B=T_FRAMES on random seeded parameters (with
+    `unfused`, through `unfused_chain`: the chain pair's own operands)."""
     import torch
 
     from lemo_tpu_torch.body_model import make_forward_fn
@@ -235,7 +264,8 @@ def body_operands(model) -> dict:
         v.requires_grad_(True)
     fwd = make_forward_fn(model)
     ops: dict = {}
-    with capture_operands(ops):
+    with capture_operands(ops), \
+            (unfused_chain() if unfused else contextlib.nullcontext()):
         out = fwd(params, model.consts)
         gv = torch.as_tensor(rng.randn(*out["vertices"].shape)
                              .astype(np.float32), device=model.device)
@@ -326,8 +356,13 @@ def phase_kernels(model, card) -> list[dict]:
     from lemo_tpu_torch.body_model import vertex_cuda as vc
 
     ops = body_operands(model)
-    rl, tl, parents = ops["chain_fwd_kernel"]
-    _, _, rg, drg, dtg, _ = ops["chain_bwd_kernel"]
+    # the chain pair's operands: the same forward and backward with the
+    # chain composed as before the affine kernels
+    chain_ops = body_operands(model, unfused=True)
+    rl, tl, pp = chain_ops["chain_fwd_kernel"]
+    _, _, rg, drg, dtg, _ = chain_ops["chain_bwd_kernel"]
+    arl, jr, parents = ops["chain_affine_fwd_kernel"]
+    _, _, A, dA, adtg, _ = ops["chain_affine_bwd_kernel"]
     catT, A2, dirs, w = ops["vertex_fwd_kernel"][:4]
     dout = ops["vertex_bwd_kernel"][4]
     # bounds count the work this run's data needs: B real frames, V real
@@ -338,7 +373,7 @@ def phase_kernels(model, card) -> list[dict]:
 
     rows = []
 
-    def add(name, src, replaces, kern, plain, tol, relative, nbytes, flops):
+    def hold(name, kern, plain, tol, relative, nbytes, flops):
         got = kern()
         ref = plain()
         torch.cuda.synchronize()
@@ -357,29 +392,69 @@ def phase_kernels(model, card) -> list[dict]:
              f"{rel_err:.3e} (tol {tol:g} {'rel' if relative else 'abs'}); "
              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
              f"{bound:.4f} ms ({by}) on {card}")
+        return {"name": name, "max_abs_err": abs_err, "max_rel_err": rel_err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": by}
+
+    def add(name, src, replaces, *args, **kw):
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": 0,
-                     "max_abs_err": abs_err, "max_rel_err": rel_err,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": by, "library_ms": None})
+                     **hold(name, *args, **kw), "library_ms": None})
         return rows[-1]
 
     chain_src = "lemo_tpu_torch/csrc/chain.cu"
     vert_src = "lemo_tpu_torch/csrc/vertex.cu"
-    add("chain_fwd", chain_src,
-        "lemo_tpu/body_model/chain_pallas.py:48",
-        lambda: cc.chain_fwd_kernel(rl, tl, parents),
-        lambda: cc.chain_planes_plain_fwd(rl, tl, parents),
-        1e-5, False,
-        nbytes=f4 * 24 * J * B + 4 * J,
-        flops=63.0 * (J - 1) * B)
-    add("chain_bwd", chain_src,
-        "lemo_tpu/body_model/chain_pallas.py:82",
-        lambda: cc.chain_bwd_kernel(rl, tl, rg, drg, dtg, parents),
-        lambda: cc.chain_planes_plain_bwd(rl, tl, rg, drg, dtg, parents),
+    # the chain kernels as the main path launches them (the affine entry
+    # points: the rel-joint translations, the chain and the bone affines),
+    # each row with the chain pair's own entry points under "planes".
+    # Operations a joint: the walk 63 forward, 135 backward; t_l 3; the
+    # rel translations 18 forward, 21 back through them and 21 for djr.
+    cfwd = add("chain_fwd", chain_src,
+               "lemo_tpu/body_model/chain_pallas.py:48",
+               lambda: cc.chain_affine_fwd_kernel(arl, jr, parents),
+               lambda: cc.chain_affine_plain_fwd(arl, jr, parents),
+               1e-5, False,
+               nbytes=f4 * 27 * J * B + 4 * J,
+               flops=(66.0 * (J - 1) + 18.0 * J) * B)
+    cbwd = add("chain_bwd", chain_src,
+               "lemo_tpu/body_model/chain_pallas.py:82",
+               lambda: cc.chain_affine_bwd_kernel(arl, jr, A, dA, adtg,
+                                                  parents),
+               lambda: cc.chain_affine_plain_bwd(arl, jr, A, dA, adtg,
+                                                 parents),
+               5e-5, True,
+               nbytes=f4 * 48 * J * B + 4 * J,
+               flops=(138.0 * (J - 1) + 42.0 * J) * B)
+    cfwd["entry"] = "lemo_chain_affine_fwd"
+    cbwd["entry"] = "lemo_chain_affine_bwd"
+    cfwd["planes"] = hold(
+        "chain_fwd planes", lambda: cc.chain_fwd_kernel(rl, tl, pp),
+        lambda: cc.chain_planes_plain_fwd(rl, tl, pp), 1e-5, False,
+        nbytes=f4 * 24 * J * B + 4 * J, flops=63.0 * (J - 1) * B)
+    cbwd["planes"] = hold(
+        "chain_bwd planes",
+        lambda: cc.chain_bwd_kernel(rl, tl, rg, drg, dtg, pp),
+        lambda: cc.chain_planes_plain_bwd(rl, tl, rg, drg, dtg, pp),
         5e-5, True,
-        nbytes=f4 * 45 * J * B + 4 * J,
-        flops=135.0 * (J - 1) * B)
+        nbytes=f4 * 45 * J * B + 4 * J, flops=135.0 * (J - 1) * B)
+    _repeat_check(cfwd, "bit_identical_repeat", "two launches",
+                  cc.chain_affine_fwd_kernel(arl, jr, parents),
+                  cc.chain_affine_fwd_kernel(arl, jr, parents))
+    with torch.no_grad():
+        unfused = cc.chain_affine_planes_unfused(arl, jr, parents)
+    _repeat_check(cfwd, "bit_identical_to_unfused",
+                  "A and t_g against the chain pair with eager ops around it",
+                  cc.chain_affine_fwd_kernel(arl, jr, parents), unfused)
+    _repeat_check(cbwd, "bit_identical_repeat", "two launches",
+                  cc.chain_affine_bwd_kernel(arl, jr, A, dA, adtg, parents),
+                  cc.chain_affine_bwd_kernel(arl, jr, A, dA, adtg, parents))
+    for row, first, again in (
+            (cfwd["planes"], cc.chain_fwd_kernel(rl, tl, pp),
+             cc.chain_fwd_kernel(rl, tl, pp)),
+            (cbwd["planes"], cc.chain_bwd_kernel(rl, tl, rg, drg, dtg, pp),
+             cc.chain_bwd_kernel(rl, tl, rg, drg, dtg, pp))):
+        _repeat_check(row, "bit_identical_repeat", "two launches", first,
+                      again)
     fwd = add("vertex_fwd", vert_src,
               "lemo_tpu/body_model/vertex_pallas.py:89",
               lambda: vc.vertex_fwd_kernel(catT, A2, dirs, w),

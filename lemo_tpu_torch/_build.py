@@ -34,8 +34,11 @@ _I = ctypes.c_int
 # once it has written the backward's scratch extents (the split-K slice
 # counts its own tiling gives) into its int[2]
 SIGNATURES = {
-    "lemo_chain_fwd": [_P, _P, _P, _P, _P, _I, _I, _P],
-    "lemo_chain_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "lemo_chain_fwd": [_P, _I, _P, _P, _P, _P, _I, _I, _P],
+    "lemo_chain_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "lemo_chain_affine_fwd": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    "lemo_chain_affine_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _P],
     "lemo_vertex_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "lemo_vertex_blend": [_P, _P, _P, _I, _I, _I, _P],
     "lemo_vertex_fwd_apply": [_P, _P, _P, _P, _I, _I, _I, _P],

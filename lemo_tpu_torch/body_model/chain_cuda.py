@@ -2,12 +2,27 @@
 
 Port of `lemo_tpu/body_model/chain_pallas.py`. Planes keep the TPU
 layout — rotations [9, Jp, B] (row k = 3m+n holds R[m, n]) and
-translations [3, Jp, B] — which on the GPU is the coalesced one: the
-kernel (`csrc/chain.cu`) runs one thread per frame.
+translations [3, Jp, B] — which on the GPU is the coalesced one:
 
     forward:   G[j] = G[p] @ L[j],  t_g[j] = R_g[p] t_l[j] + t_g[p]
     backward:  dL[j] = G[p]^T dG[j],  dt_l[j] = R_g[p]^T dt_g[j]
                dG[p] += dG[j] L[j]^T + dt_g[j] (x) t_l[j],  dt_g[p] += dt_g[j]
+
+The kernels (`csrc/chain.cu`) give a block a few frames, stage their
+planes in shared memory and walk the tree one level at a time, one
+thread per (joint of the level, frame, output entry). The wrapper builds
+the level schedule from the parents (`chain_schedule`) and keeps it on
+the device.
+
+Two entry points:
+
+- `chain_planes(rl, tl, parents)`: (R_l, t_l) -> (R_g, t_g);
+- `chain_affine_planes(rl, jr, parents)`: the body model's form, from
+  the rest-pose joints jr. It forms t_l[j] = jr[j] - jr[p] before the walk
+  and the bone affines A = [R_g; t_g - R_g jr] [12, Jp, B] after it, and
+  returns (A, t_g), in one launch each way. The outputs are bit-identical
+  to the eager composition around `chain_planes`
+  (`chain_affine_planes_unfused`).
 
 Dispatch: a CPU tensor goes to the plain twin; any other tensor goes to
 the kernel, which checks that it is on CUDA and raises otherwise.
@@ -15,28 +30,74 @@ the kernel, which checks that it is on CUDA and raises otherwise.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from lemo_tpu_torch import _build
+
+# the kernels' static limits (kMaxJoints, kMaxLevels in csrc/chain.cu):
+# SMPL-X has 56 padded joints on 11 levels, SMPL-H 56 on 11, SMPL 24 on 9,
+# MANO 16 on 4
+MAX_JOINTS = 64
+MAX_LEVELS = 16
 
 
 def _pad_to(x: int, mult: int) -> int:
     return (-x) % mult
 
 
-# launches of each kernel, counted where the wrapper launches it
+# launches of each kernel, counted where the wrapper launches it (the
+# affine entry points count as the chain forward and backward they are)
 launches = {"chain_fwd": 0, "chain_bwd": 0}
 
-_parents_cache: dict = {}
+
+class ChainSchedule(NamedTuple):
+    """The order the kernels walk a tree in: `levels[d]` the joints at
+    depth d (ascending), `children[p]` the children of joint p in
+    decreasing index (the order the backward adds their shares in)."""
+    levels: tuple
+    children: tuple
 
 
-def _parents_on(parents: tuple, device) -> torch.Tensor:
+def chain_schedule(parents: tuple) -> ChainSchedule:
+    """The level schedule of a tree with parents[j] < j (joint 0 the
+    root)."""
+    depth = [0] * len(parents)
+    for j in range(1, len(parents)):
+        depth[j] = depth[parents[j]] + 1
+    levels = tuple(tuple(j for j in range(len(parents)) if depth[j] == d)
+                   for d in range(max(depth) + 1))
+    children = tuple(tuple(c for c in range(len(parents) - 1, 0, -1)
+                           if parents[c] == p) for p in range(len(parents)))
+    return ChainSchedule(levels, children)
+
+
+_schedule_cache: dict = {}
+
+
+def _schedule_on(parents: tuple, device) -> tuple[torch.Tensor, int]:
+    """The schedule packed as `csrc/chain.cu` stages it — parent[Jp],
+    order[Jp], child_start[Jp+1], child[Jp-1], level_start[nlev+1], int32
+    — on `device`, and its number of levels. Raises past the kernels'
+    static limits."""
     key = (parents, str(device))
-    if key not in _parents_cache:
-        _parents_cache[key] = torch.tensor(parents, dtype=torch.int32,
-                                           device=device)
-    return _parents_cache[key]
+    if key not in _schedule_cache:
+        sched = chain_schedule(parents)
+        Jp, nlev = len(parents), len(sched.levels)
+        if Jp > MAX_JOINTS or nlev > MAX_LEVELS:
+            raise ValueError(f"the chain kernels take at most {MAX_JOINTS} "
+                             f"joints on {MAX_LEVELS} levels; this tree has "
+                             f"{Jp} on {nlev}")
+        child_start = np.cumsum([0] + [len(c) for c in sched.children])
+        level_start = np.cumsum([0] + [len(lv) for lv in sched.levels])
+        packed = np.concatenate([
+            parents, [j for lv in sched.levels for j in lv], child_start,
+            [c for cs in sched.children for c in cs], level_start])
+        _schedule_cache[key] = (torch.tensor(packed.astype(np.int32),
+                                             device=device), nlev)
+    return _schedule_cache[key]
 
 
 def _check_planes(name, t, comps, Jp, B):
@@ -49,6 +110,10 @@ def _check_planes(name, t, comps, Jp, B):
                          f"{(comps, Jp, B)}")
 
 
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def chain_fwd_kernel(rl: torch.Tensor, tl: torch.Tensor, parents: tuple):
     """Kernel 1: (R_l [9, Jp, B], t_l [3, Jp, B]) -> (R_g, t_g)."""
     Jp, B = rl.shape[1], rl.shape[2]
@@ -56,13 +121,13 @@ def chain_fwd_kernel(rl: torch.Tensor, tl: torch.Tensor, parents: tuple):
     _check_planes("tl", tl, 3, Jp, B)
     if len(parents) != Jp:
         raise ValueError(f"parents has {len(parents)} entries, planes {Jp}")
+    sched, nlev = _schedule_on(parents, rl.device)
     lib = _build.load_library()
-    par = _parents_on(parents, rl.device)
     rg = torch.empty_like(rl)
     tg = torch.empty_like(tl)
-    rc = lib.lemo_chain_fwd(par.data_ptr(), rl.data_ptr(), tl.data_ptr(),
-                            rg.data_ptr(), tg.data_ptr(), Jp, B,
-                            torch.cuda.current_stream(rl.device).cuda_stream)
+    rc = lib.lemo_chain_fwd(sched.data_ptr(), nlev, rl.data_ptr(),
+                            tl.data_ptr(), rg.data_ptr(), tg.data_ptr(), Jp,
+                            B, _stream(rl))
     _build.check(lib, rc, "lemo_chain_fwd")
     launches["chain_fwd"] += 1
     return rg, tg
@@ -76,20 +141,68 @@ def chain_bwd_kernel(rl, tl, rg, drg, dtg, parents: tuple):
         _check_planes(name, t, c, Jp, B)
     if len(parents) != Jp:
         raise ValueError(f"parents has {len(parents)} entries, planes {Jp}")
+    sched, nlev = _schedule_on(parents, rl.device)
     lib = _build.load_library()
-    par = _parents_on(parents, rl.device)
     drl = torch.empty_like(rl)
     dtl = torch.empty_like(tl)
-    sg = torch.empty_like(rl)      # running dG scratch
-    st = torch.empty_like(tl)      # running dt_g scratch
-    rc = lib.lemo_chain_bwd(par.data_ptr(), rl.data_ptr(), tl.data_ptr(),
-                            rg.data_ptr(), drg.data_ptr(), dtg.data_ptr(),
-                            drl.data_ptr(), dtl.data_ptr(), sg.data_ptr(),
-                            st.data_ptr(), Jp, B,
-                            torch.cuda.current_stream(rl.device).cuda_stream)
+    rc = lib.lemo_chain_bwd(sched.data_ptr(), nlev, rl.data_ptr(),
+                            tl.data_ptr(), rg.data_ptr(), drg.data_ptr(),
+                            dtg.data_ptr(), drl.data_ptr(), dtl.data_ptr(),
+                            Jp, B, _stream(rl))
     _build.check(lib, rc, "lemo_chain_bwd")
     launches["chain_bwd"] += 1
     return drl, dtl
+
+
+def _padded(parents: tuple, Jp: int) -> tuple:
+    """The chain's parents of Jp planes: joints past the model's hang
+    under the root."""
+    return tuple(parents) + (0,) * (Jp - len(parents))
+
+
+def _check_affine(rl, jr, parents):
+    Jp, B = rl.shape[1], rl.shape[2]
+    if not 1 <= len(parents) <= Jp:
+        raise ValueError(f"parents has {len(parents)} entries, planes {Jp}")
+    _check_planes("rl", rl, 9, Jp, B)
+    _check_planes("jr", jr, 3, Jp, B)
+    return len(parents), Jp, B
+
+
+def chain_affine_fwd_kernel(rl: torch.Tensor, jr: torch.Tensor,
+                            parents: tuple):
+    """The affine forward: (R_l [9, Jp, B], jr [3, Jp, B]) -> (A [12, Jp,
+    B], t_g [3, Jp, B]); `parents` has the model's J <= Jp entries."""
+    J, Jp, B = _check_affine(rl, jr, parents)
+    sched, nlev = _schedule_on(_padded(parents, Jp), rl.device)
+    lib = _build.load_library()
+    A = torch.empty((12, Jp, B), dtype=rl.dtype, device=rl.device)
+    tg = torch.empty_like(jr)
+    rc = lib.lemo_chain_affine_fwd(sched.data_ptr(), nlev, rl.data_ptr(),
+                                   jr.data_ptr(), A.data_ptr(), tg.data_ptr(),
+                                   J, Jp, B, _stream(rl))
+    _build.check(lib, rc, "lemo_chain_affine_fwd")
+    launches["chain_fwd"] += 1
+    return A, tg
+
+
+def chain_affine_bwd_kernel(rl, jr, A, dA, dtg, parents: tuple):
+    """The affine backward: cotangents (dA, dt_g) -> (dR_l, djr); A is
+    the forward's output, whose first 9 rows are R_g."""
+    J, Jp, B = _check_affine(rl, jr, parents)
+    for name, t, c in (("A", A, 12), ("dA", dA, 12), ("dtg", dtg, 3)):
+        _check_planes(name, t, c, Jp, B)
+    sched, nlev = _schedule_on(_padded(parents, Jp), rl.device)
+    lib = _build.load_library()
+    drl = torch.empty_like(rl)
+    djr = torch.empty_like(jr)
+    rc = lib.lemo_chain_affine_bwd(sched.data_ptr(), nlev, rl.data_ptr(),
+                                   jr.data_ptr(), A.data_ptr(), dA.data_ptr(),
+                                   dtg.data_ptr(), drl.data_ptr(),
+                                   djr.data_ptr(), J, Jp, B, _stream(rl))
+    _build.check(lib, rc, "lemo_chain_affine_bwd")
+    launches["chain_bwd"] += 1
+    return drl, djr
 
 
 def chain_planes_plain_fwd(rl: torch.Tensor, tl: torch.Tensor,
@@ -167,6 +280,92 @@ def chain_planes(rl: torch.Tensor, tl: torch.Tensor, parents: tuple):
                          "rigid_transform_chain_cuda renumbers the joints "
                          "of any other tree")
     return _ChainPlanes.apply(rl.contiguous(), tl.contiguous(), parents)
+
+
+_msub_cache: dict = {}
+
+
+def _msub(parents: tuple, Jp: int, device) -> torch.Tensor:
+    """[Jp, Jp] static matrix with t_l = Msub @ jr (t_l[j] = jr[j] -
+    jr[parent(j)] for the model's joints but the root; the root and the
+    padding joints keep their jr)."""
+    key = (parents, Jp, str(device))
+    if key not in _msub_cache:
+        m = np.eye(Jp, dtype=np.float32)
+        for j in range(1, len(parents)):
+            m[j, parents[j]] -= 1.0
+        _msub_cache[key] = torch.as_tensor(m, device=device)
+    return _msub_cache[key]
+
+
+def _compose_affine(rl, jr, parents: tuple, chain):
+    """(A, t_g) through `chain` (an (rl, tl, parents) -> (rg, tg) form)
+    and eager ops around it: t_l as one ±1 matrix product, the bone
+    affines rel_t[m] = t_g[m] - sum_n R_g[m, n] jr[n] after it."""
+    Jp = rl.shape[1]
+    tl = torch.einsum("jp,npb->njb", _msub(parents, Jp, rl.device), jr)
+    rg, tg = chain(rl, tl, _padded(parents, Jp))
+    rel_t = torch.stack([
+        tg[m] - (rg[3 * m] * jr[0] + rg[3 * m + 1] * jr[1]
+                 + rg[3 * m + 2] * jr[2])
+        for m in range(3)])
+    return torch.cat([rg, rel_t], dim=0), tg
+
+
+def chain_affine_plain_fwd(rl, jr, parents: tuple):
+    """Plain twin of the affine forward: the serial plain chain with the
+    eager ops around it (differentiable by autograd)."""
+    return _compose_affine(rl, jr, parents, chain_planes_plain_fwd)
+
+
+def chain_affine_plain_bwd(rl, jr, A, dA, dtg, parents: tuple):
+    """Plain twin of the affine backward: autograd through the plain
+    forward, recomputed (so `A`, which the kernel reads R_g from, is not
+    needed)."""
+    with torch.enable_grad():
+        rl_ = rl.detach().requires_grad_(True)
+        jr_ = jr.detach().requires_grad_(True)
+        out = chain_affine_plain_fwd(rl_, jr_, parents)
+        return torch.autograd.grad(out, (rl_, jr_), (dA, dtg))
+
+
+def chain_affine_planes_unfused(rl, jr, parents: tuple):
+    """The affine form as eager ops around `chain_planes` (the chain
+    kernel pair on the card): what the body model ran before the affine
+    kernels, whose outputs it matches to the bit."""
+    return _compose_affine(rl, jr, tuple(int(p) for p in parents),
+                           chain_planes)
+
+
+class _ChainAffine(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rl, jr, parents):
+        cpu = rl.device.type == "cpu"
+        A, tg = (chain_affine_plain_fwd if cpu else chain_affine_fwd_kernel)(
+            rl, jr, parents)
+        ctx.save_for_backward(rl, jr, A)
+        ctx.parents = parents
+        return A, tg
+
+    @staticmethod
+    def backward(ctx, dA, dtg):
+        rl, jr, A = ctx.saved_tensors
+        cpu = rl.device.type == "cpu"
+        drl, djr = (chain_affine_plain_bwd if cpu else chain_affine_bwd_kernel)(
+            rl, jr, A, dA.contiguous(), dtg.contiguous(), ctx.parents)
+        return drl, djr, None
+
+
+def chain_affine_planes(rl: torch.Tensor, jr: torch.Tensor, parents):
+    """(R_l [9, Jp, B], rest-pose joints jr [3, Jp, B]) -> (bone affines
+    A [12, Jp, B] = [R_g; t_g - R_g jr], t_g [3, Jp, B]), differentiable,
+    with t_l[j] = jr[j] - jr[parents[j]] (the root's jr[0]). `parents` has
+    the model's J <= Jp entries, parents[j] < j; the joints past J are
+    padding under the root with t_l = jr."""
+    parents = tuple(int(p) for p in parents)
+    if not _topological(parents):
+        raise ValueError("chain_affine_planes needs parents[j] < j")
+    return _ChainAffine.apply(rl.contiguous(), jr.contiguous(), parents)
 
 
 def _topological_order(parents: tuple) -> list:

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from lemo_tpu_torch.body_model.chain_cuda import _pad_to, chain_planes
+from lemo_tpu_torch.body_model.chain_cuda import _pad_to, chain_affine_planes
 from lemo_tpu_torch.body_model.vertex_cuda import (
     LANE, fused_lbs_vertices_planes)
 from lemo_tpu_torch.ops.rotations import aa_to_matrot, aa_to_matrot_planes
@@ -152,28 +152,14 @@ def lbs(
     return verts_vb.transpose(0, 1), posed_joints
 
 
-_msub_cache: dict = {}
-
-
-def _msub(parents_np, J, Jp, device):
-    """[Jp, Jp] static matrix with tl = Msub @ jr (tl[j] = jr[j] -
-    jr[parent(j)], root keeps jr[0])."""
-    key = (tuple(int(p) for p in parents_np), Jp, str(device))
-    if key not in _msub_cache:
-        m = np.eye(Jp, dtype=np.float32)
-        for j in range(1, J):
-            m[j, int(parents_np[j])] -= 1.0
-        _msub_cache[key] = torch.as_tensor(m, device=device)
-    return _msub_cache[key]
-
-
 def _lbs_fused(shape_components, pose, parents, fc, num_verts):
     """Fused, plane-major vertex path ([comp, J|V, B] planes, the frame
     batch padded to LANE): rest-pose joints from the shape components via
-    `j_ext`, Rodrigues on pose planes, the chain kernel, the bone affines
-    as planes, and the fused vertex kernel. The pose-feature rows of the
-    blend input are a reshape of the rotation planes (the posedirs
-    columns were permuted to match at load)."""
+    `j_ext`, Rodrigues on pose planes, the chain kernel (which also forms
+    the rel-joint translations and the bone affines as planes), and the
+    fused vertex kernel. The pose-feature rows of the blend input are a
+    reshape of the rotation planes (the posedirs columns were permuted to
+    match at load)."""
     B = shape_components.shape[0]
     Jp = fc["lbs_w_pad"].shape[1]
     J = fc["j_ext"].shape[0] // 3
@@ -191,19 +177,9 @@ def _lbs_fused(shape_components, pose, parents, fc, num_verts):
     p_pl = pose.reshape(B, J, 3).permute(2, 1, 0)                    # [3, J, B]
     rl = aa_to_matrot_planes(F.pad(p_pl, (0, Bp - B, 0, Jp - J)))
 
-    # rel-joint translation planes: tl[j] = jr[j] - jr[parent(j)]
-    parents_np = np.asarray(parents, np.int64)
-    tl = torch.einsum("jp,npb->njb", _msub(parents_np, J, Jp, dev), jr)
-
-    parents_padded = tuple([int(p) for p in parents_np] + [0] * (Jp - J))
-    rg, tg = chain_planes(rl, tl, parents_padded)    # [9|3, Jp, Bp]
-
-    # bone affines: rel_t[m] = tg[m] - sum_n rg[3m+n] * jr[n]
-    rel_t = torch.stack([
-        tg[m] - (rg[3 * m] * jr[0] + rg[3 * m + 1] * jr[1]
-                 + rg[3 * m + 2] * jr[2])
-        for m in range(3)])
-    A_pl = torch.cat([rg, rel_t], dim=0)             # [12, Jp, Bp]
+    # the chain with the rel-joint translations tl[j] = jr[j] - jr[parent(j)]
+    # before it and the bone affines A_pl = [rg; tg - rg jr] after it
+    A_pl, tg = chain_affine_planes(rl, jr, parents)    # [12|3, Jp, Bp]
 
     # pose-feature rows r = k*(J-1) + (j-1)
     ident_k = torch.eye(3, dtype=rl.dtype, device=dev).reshape(9, 1, 1)

@@ -92,15 +92,18 @@ def ptxas_summary(text: str) -> list[dict]:
     return rows
 
 
-def build_all(sources: dict[str, str]) -> dict[str, tuple[str, list]]:
-    """Compile every source into its own shared library, all at once;
-    returns {name: (library path, ptxas summary)}."""
+def build_all(sources: dict[str, str], prefix: str = "vertex",
+              required: tuple = ("port",)) -> dict[str, tuple[str, list]]:
+    """Compile every source into its own shared library
+    (`libbench_<prefix>_<name>.so`), all at once; returns {name: (library
+    path, ptxas summary)}. A build in `required` that fails raises; any
+    other is left out."""
     from lemo_tpu_torch import _build
 
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     procs = {}
     for name, src in sources.items():
-        out = os.path.join(_build.BUILD_DIR, f"libbench_vertex_{name}.so")
+        out = os.path.join(_build.BUILD_DIR, f"libbench_{prefix}_{name}.so")
         procs[name] = (out, src, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas=-v", "-shared",
              src, "-o", out], stdout=subprocess.PIPE,
@@ -110,7 +113,7 @@ def build_all(sources: dict[str, str]) -> dict[str, tuple[str, list]]:
         log, _ = proc.communicate()
         if proc.returncode:
             print(log, flush=True)
-            if name == "port":
+            if name in required:
                 raise RuntimeError(f"nvcc failed on {src}")
             continue    # a compared build that does not build is left out
         summary = ptxas_summary(log)

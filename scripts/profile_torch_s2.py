@@ -1,6 +1,7 @@
 """Where the time of the port's Stage-2 step goes, on one CUDA card.
 
-    python3 scripts/profile_torch_s2.py [--trace s2_trace.json]
+    python3 scripts/profile_torch_s2.py [--trace s2_trace.json] \
+        [--unfused-chain]
 
 Runs the workload `chip_smoke.py` drives (the AMASS Stage-2 fit of
 `bench.py:main`: T=100, full-size synthetic SMPL-X, 20 Adam steps per
@@ -12,8 +13,15 @@ call) and reports, on the card named in the output:
 2. one call under torch.profiler: device busy share (union of kernel
    intervals over the wall time of the call), kernel launches per step,
    the kernels that take the most device time, and the device time per
-   step of the vertex kernels (csrc/vertex.cu: forward and backward) by
-   kernel.
+   step of the vertex kernels (csrc/vertex.cu: forward and backward) and
+   of the chain kernels (csrc/chain.cu) by kernel.
+
+`--unfused-chain` runs the body model's chain as before the affine
+kernels (the chain kernel pair with eager ops around it,
+`chip_smoke.unfused_chain`), for a profile before and after that fold in
+one call. `--chain-turns` adds the full fit's wall time per step with
+the chain unfused and folded in turns (unfused, folded, folded, unfused,
+four times) in one process.
 
 Prints human-readable lines and, last, one JSON object.
 """
@@ -21,8 +29,10 @@ Prints human-readable lines and, last, one JSON object.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import statistics
 import sys
 import time
 
@@ -30,6 +40,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # the kernels of csrc/vertex.cu, by a part of their names
 VERTEX_KERNELS = ("vertex_", "splitk_gemm_kernel", "sum_slices_kernel")
+# the kernels of csrc/chain.cu
+CHAIN_KERNELS = ("chain_",)
 
 
 def _wall_per_step(fit, args, steps, calls=3) -> float:
@@ -56,17 +68,38 @@ def _union_us(intervals) -> float:
 
 def main() -> int:
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--trace", default=None,
                     help="write a chrome trace of the profiled call here")
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--unfused-chain", action="store_true",
+                    help="the chain pair with eager ops around it, as "
+                         "before the affine kernels")
+    ap.add_argument("--chain-turns", action="store_true",
+                    help="wall time per step, the chain unfused and folded "
+                         "in turns")
     a = ap.parse_args()
+    if a.unfused_chain and a.chain_turns:
+        ap.error("--chain-turns compares both forms itself")
     if not torch.cuda.is_available():
         print("profile_torch_s2: CUDA is not available", file=sys.stderr)
         return 1
+
+    import chip_smoke as cs
+
+    if not a.unfused_chain:
+        return profile_s2(a)
+    print("[chain] unfused: the chain pair with eager ops around it",
+          flush=True)
+    with cs.unfused_chain():
+        return profile_s2(a)
+
+
+def profile_s2(a) -> int:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
     from lemo_tpu_torch import exact_f32_matmuls
@@ -80,7 +113,8 @@ def main() -> int:
     model = load_model(synthetic_smplx_npz(full_size=True), use_pca=True,
                        num_pca_comps=12, device="cuda")
     steps = cs.STEPS
-    result = {"card": card, "steps_per_call": steps,
+    result = {"card": card, "unfused_chain": a.unfused_chain,
+              "steps_per_call": steps,
               "frames": cs.T_FRAMES, "ms_per_step": {}}
     for name, w in (("full", Stage2Weights()),
                     ("no_smooth", Stage2Weights(smooth=0.0)),
@@ -93,6 +127,19 @@ def main() -> int:
         print(f"[wall] {name}: {ms:.3f} ms/step on {card}", flush=True)
 
     fit, args = cs.s2_workload(model, steps)
+    if a.chain_turns:
+        turns: dict[str, list] = {"unfused": [], "folded": []}
+        for form in ("unfused", "folded", "folded", "unfused") * 4:
+            with (cs.unfused_chain() if form == "unfused"
+                  else contextlib.nullcontext()):
+                turns[form].append(_wall_per_step(fit, args, steps))
+        result["chain_turns_ms_per_step"] = turns
+        print("[wall] in turns, chain unfused " + ", ".join(
+            f"{ms:.3f}" for ms in turns["unfused"]) + "; folded " + ", ".join(
+            f"{ms:.3f}" for ms in turns["folded"]) + f" ms/step (medians "
+            f"{statistics.median(turns['unfused']):.3f} / "
+            f"{statistics.median(turns['folded']):.3f}) on {card}",
+            flush=True)
     fit(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -114,6 +161,8 @@ def main() -> int:
     device_us = sum(v[1] for v in by_name.values())
     vertex = {n: us / steps / 1e3 for n, (_, us) in by_name.items()
               if any(k in n for k in VERTEX_KERNELS)}
+    chain = {n: us / steps / 1e3 for n, (_, us) in by_name.items()
+             if any(k in n for k in CHAIN_KERNELS)}
     result.update({
         "profiled_wall_ms_per_step": wall_us / steps / 1e3,
         "device_busy_ms_per_step": busy_us / steps / 1e3,
@@ -121,6 +170,8 @@ def main() -> int:
         "vertex_ms_per_step": sum(vertex.values()),
         "vertex_kernels_ms_per_step": {n[:90]: ms
                                        for n, ms in vertex.items()},
+        "chain_ms_per_step": sum(chain.values()),
+        "chain_kernels_ms_per_step": {n[:90]: ms for n, ms in chain.items()},
         "kernel_launches_per_step": len(kernels) / steps,
         "top_kernels": [{"name": n[:90], "launches_per_step": c / steps,
                          "ms_per_step": us / steps / 1e3,
@@ -139,6 +190,10 @@ def main() -> int:
     print(f"[profile] vertex kernels {sum(vertex.values()):.4f} ms/step: "
           + ", ".join(f"{ms:.4f} {n[:60]}" for n, ms in
                       sorted(vertex.items(), key=lambda kv: -kv[1])),
+          flush=True)
+    print(f"[profile] chain kernels {sum(chain.values()):.4f} ms/step: "
+          + ", ".join(f"{ms:.4f} {n[:60]}" for n, ms in
+                      sorted(chain.items(), key=lambda kv: -kv[1])),
           flush=True)
     if a.trace:
         os.makedirs(os.path.dirname(a.trace) or ".", exist_ok=True)

@@ -1,124 +1,28 @@
 """csrc/vertex.cu on the CPU: the CUDA source compiled by the host C++
-compiler under a small emulation of the CUDA it uses, driven through its
-C entry points (the `_build.SIGNATURES` argument lists) against the plain
-twins of lemo_tpu_torch.body_model.vertex_cuda.
+compiler under the emulation of `lemo_tpu_torch.testing.cuda_emulation`,
+driven through its C entry points (the `_build.SIGNATURES` argument
+lists) against the plain twins of lemo_tpu_torch.body_model.vertex_cuda.
 
-The emulation runs a launch's blocks one after another and each block's
-threads as `std::thread`s; `__syncthreads` is a `std::barrier`, a
-`__shared__` array a `static` one (one block at a time), dynamic shared
-memory a buffer sized at the launch. It checks the kernels' indexing
-(tiles, half tiles, split-K slices, scratch layouts) and their C
-interface, not their speed or the card's rounding: the plain twins are
-held at the kernels' own tolerances. Tiny shapes only: every thread is
-an OS thread."""
+It checks the kernels' indexing (tiles, half tiles, split-K slices,
+scratch layouts) and their C interface, not their speed or the card's
+rounding: the plain twins are held at the kernels' own tolerances."""
 
 import ctypes
-import re
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
 
-from lemo_tpu_torch import _build
 from lemo_tpu_torch.body_model import vertex_cuda as TV
-
-CUDA_EMULATION = r"""
-#pragma once
-#include <algorithm>
-#include <barrier>
-#include <cmath>
-#include <cstddef>
-#include <functional>
-#include <thread>
-#include <vector>
-using std::max;
-using std::min;
-struct float4 { float x, y, z, w; };
-inline float4 make_float4(float a, float b, float c, float d) {
-  return {a, b, c, d};
-}
-struct dim3 {
-  unsigned x, y, z;
-  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
-};
-inline thread_local dim3 threadIdx, blockIdx;
-inline dim3 blockDim, gridDim;
-inline std::barrier<>* emu_barrier = nullptr;
-inline float* emu_dynamic_smem = nullptr;
-inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
-typedef int cudaError_t;
-typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
-template <class T> cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int) {
-  return cudaSuccess;
-}
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __restrict__
-#define __launch_bounds__(...)
-#define __align__(n) __attribute__((aligned(n)))
-#define __shared__ static
-inline void emu_launch(std::function<void()> body, dim3 grid, dim3 block,
-                       size_t smem = 0, void* = nullptr) {
-  gridDim = grid;
-  blockDim = block;
-  const int nt = block.x * block.y * block.z;
-  std::vector<float> dynamic(smem / sizeof(float) + 4);
-  emu_dynamic_smem = dynamic.data();
-  for (unsigned z = 0; z < grid.z; ++z)
-    for (unsigned y = 0; y < grid.y; ++y)
-      for (unsigned x = 0; x < grid.x; ++x) {
-        std::barrier<> bar(nt);
-        emu_barrier = &bar;
-        std::vector<std::thread> threads;
-        for (int t = 0; t < nt; ++t)
-          threads.emplace_back([&, t] {
-            threadIdx = dim3(t);
-            blockIdx = dim3(x, y, z);
-            body();
-          });
-        for (auto& th : threads) th.join();
-      }
-}
-"""
-
-
-def _emulated_source(cuda: str) -> str:
-    """The CUDA source rewritten for the emulation header."""
-    src = cuda.replace("#include <cuda_runtime.h>",
-                       '#include "cuda_emulation.h"')
-    src = re.sub(r"extern __shared__ __align__\(16\) float (\w+)\[\];",
-                 r"float* \1 = emu_dynamic_smem;", src)
-    # kernel<<<config>>>(args); -> emu_launch([&] { kernel(args); }, config);
-    return re.sub(r"([\w:]+(?:<[^<>;()]*>)?)\s*<<<(.*?)>>>\((.*?)\);",
-                  lambda m: f"emu_launch([&] {{ {m.group(1)}({m.group(3)}); "
-                            f"}}, {m.group(2)});", src, flags=re.S)
+from lemo_tpu_torch.testing import cuda_emulation
 
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    cxx = shutil.which("g++")
-    if cxx is None:
+    if not cuda_emulation.have_compiler():
         pytest.skip("needs g++ (C++20) to compile the emulated kernels")
-    tmp = tmp_path_factory.mktemp("vertex_emulated")
-    with open(f"{_build.CSRC}/vertex.cu") as fh:
-        (tmp / "vertex.cpp").write_text(_emulated_source(fh.read()))
-    (tmp / "cuda_emulation.h").write_text(CUDA_EMULATION)
-    so = tmp / "libvertex_emulated.so"
-    subprocess.run([cxx, "-std=c++20", "-O1", "-fPIC", "-shared",
-                    "-Wno-unknown-pragmas", str(tmp / "vertex.cpp"), "-o",
-                    str(so), "-lpthread"], check=True, capture_output=True)
-    handle = ctypes.CDLL(str(so))
-    for fn, argtypes in _build.SIGNATURES.items():
-        if fn.startswith("lemo_vertex"):
-            getattr(handle, fn).argtypes = argtypes
-            getattr(handle, fn).restype = ctypes.c_int
-    return handle
+    return cuda_emulation.build_emulated(
+        "vertex.cu", str(tmp_path_factory.mktemp("vertex_emulated")))
 
 
 def _operands(D, Jp, Vp, Bp, B, seed):

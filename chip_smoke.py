@@ -32,10 +32,15 @@ Phases (any failure raises and the script exits non-zero):
    with random seeded VPoser/encoder weights. The fit must descend, each
    kernel must launch exactly once per step, and the final loss must
    match the same fit run through the plain twins (rel 1e-3).
-5. The Chamfer kernel against its plain version at every shape the
-   phase-6 run gave it (operands captured from that run: real warm-start
-   bodies and scans): d within 1e-6 m^2, idx equal on >= 99.99% of the
-   queries and tied within 1e-6 m^2 where not; time, bound and error.
+5. The Chamfer kernel against its plain version at every (call site,
+   shape) the phase-6 run gave it (operands captured from that run: real
+   warm-start bodies and scans; a call site is the caller of
+   `nn_distance`): idx equal and dmin equal bit for bit, and a second
+   launch bit-identical. One row per site (`_CHAMFER_SITES`: the two
+   candidate passes, the depth terms' K x K s2m and m2s, contact) with
+   its launches, time, bound, and valid query rows and valid points per
+   frame. The operands are kept in CHAMFER_OPERANDS for
+   scripts/bench_torch_chamfer.py.
 6. The PROX slice: a full-size synthetic PROX recording (170 frames, two
    windows of 100 at stride 70, the smooth-surface tube body at pose
    scale 0.35, a 27-part segmentation pkl) written by the port's writer,
@@ -81,6 +86,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import linecache
 import os
 import pickle
 import shutil
@@ -103,6 +109,8 @@ PROX_CFG = os.path.join(ROOT, "cfg_files", "PROXD_temp_S3_all_terms.yaml")
 PROX_DIR = os.path.join(ROOT, "lemo_tpu_torch", "_build", "prox_smoke")
 # phase 7's operands, for scripts/bench_torch_intersection.py
 ISECT_OPERANDS = os.path.join(PROX_DIR, "isect_operands.pt")
+# phase 5's operands, for scripts/bench_torch_chamfer.py
+CHAMFER_OPERANDS = os.path.join(PROX_DIR, "chamfer_operands.pt")
 CHAMFER_OPS_PER_PAIR = 9.0     # csrc/chamfer.cu: 3 mul + 2 add, add, mul, sub, cmp
 # csrc/intersection.cu, f32 operations of one unordered face pair by the
 # gate it reaches. The gates are symmetric in the pair, so each is paid
@@ -617,18 +625,36 @@ def phase_slice(model, card) -> tuple[dict, float]:
     return counts, fis
 
 
+def _chamfer_caller() -> tuple[str, str, str]:
+    """(path relative to the repo:line, function, source text) of the
+    call of `nn_distance` that led to the Chamfer wrapper: the first
+    frame outside ops/chamfer.py and this file."""
+    f = sys._getframe(1)
+    skip = (os.path.abspath(__file__),
+            os.path.join(ROOT, "lemo_tpu_torch", "ops", "chamfer.py"))
+    while f is not None and os.path.abspath(f.f_code.co_filename) in skip:
+        f = f.f_back
+    if f is None:
+        return "?", "", ""
+    path = os.path.abspath(f.f_code.co_filename)
+    return (f"{os.path.relpath(path, ROOT)}:{f.f_lineno}", f.f_code.co_name,
+            linecache.getline(path, f.f_lineno).strip())
+
+
 @contextlib.contextmanager
 def chamfer_spy(store: dict, tally: dict):
-    """Wrap the Chamfer wrapper: keep the first operands of each distinct
-    operand shape (clones) and tally the calls per shape. The wrapper
-    itself still counts every launch."""
+    """Wrap the Chamfer wrapper: keep the first operands of each (call
+    site, operand shapes) pair (clones) and tally the calls per pair; a
+    call site is the caller of `nn_distance`, as `_chamfer_site` names it.
+    The wrapper itself still counts every launch."""
     from lemo_tpu_torch.ops import chamfer_cuda as chc
 
     real = chc.nn_select_kernel
 
     def spy(q, p, m):
-        key = (tuple(q.shape), tuple(p.shape),
-               None if m is None else tuple(m.shape))
+        caller, func, text = _chamfer_caller()
+        key = (_chamfer_site(caller, func, text), caller, tuple(q.shape),
+               tuple(p.shape), None if m is None else tuple(m.shape))
         tally[key] = tally.get(key, 0) + 1
         if key not in store:
             store[key] = tuple(None if a is None else a.detach().clone()
@@ -784,8 +810,9 @@ def phase_prox(model, model_dict, card):
     """Phase 6a: the main-path PROX run with every launch counter at 0
     before it; writes each window's broad-phase inputs and counts to
     PROX_DIR/broad_phase_w<window>.npz. Returns (info, results, launch
-    counts, each window's fit_window inputs, chamfer operands and
-    per-shape tally, self-intersection arguments and per-shape tally)."""
+    counts, each window's fit_window inputs, chamfer operands and tally
+    per (call site, shape), self-intersection arguments and per-shape
+    tally)."""
     import torch
 
     from lemo_tpu_torch.body_model import chain_cuda as cc
@@ -962,81 +989,132 @@ def phase_prox_check(info, results, counts, fits, card):
     return ms, fis
 
 
-_CHAMFER_SITES = [
-    # (row name, what picks it out of the captured shapes)
-    ("chamfer/s2m_pass", lambda q, p: q[1] > p[1] and p[0] > 1),
-    ("chamfer/m2s_pass", lambda q, p: q[1] < p[1] and p[1] > 4096),
-    ("chamfer/KxK", lambda q, p: q[1] == p[1]),
-    ("chamfer/contact", lambda q, p: p[0] == 1),
-]
+# Phase 5's rows: each names the calls of `nn_distance` it takes, by the
+# calling function and the call's text (their lines may move): the depth
+# pre-pass's candidate passes and K x K subset passes, the depth terms'
+# K x K calls and the contact term (all in lemo_tpu_torch/fitting/prox/)
+_CHAMFER_SITES = {
+    "chamfer/s2m_pass": [("_depth_candidate_data",
+                          "nn_distance(scan, verts, vis)")],
+    "chamfer/m2s_pass": [("_depth_candidate_data",
+                          "nn_distance(verts, scan, scan_m)")],
+    "chamfer/KxK_s2m": [("_depth_candidate_data",
+                         "nn_distance(sc_c, v_c, vis_c)"),
+                        ("depth_terms", "nn_distance(scan_c, v_c, vis_c)")],
+    "chamfer/KxK_m2s": [("_depth_candidate_data",
+                         "nn_distance(v_c, sc_c, sm_c)"),
+                        ("depth_terms",
+                         "nn_distance(v_c, scan_c, scan_m_c)")],
+    "chamfer/contact": [("contact_term", "nn_distance(cv, st.scene_verts)")],
+}
 
 
-def phase_chamfer(ops, tally, card) -> list[dict]:
-    """Phase 5: the kernel against its plain version on every operand
-    shape the phase-6 run produced."""
+def _chamfer_site(caller: str, func: str, text: str) -> str:
+    """The phase-5 row of a call of `nn_distance` at `caller`
+    (file:line) in function `func` whose source line is `text`."""
+    for name, calls in _CHAMFER_SITES.items():
+        if any(func == f and c in text for f, c in calls):
+            return name
+    return f"chamfer/{caller}"
+
+
+def phase_chamfer(ops, tally, launches, card) -> list[dict]:
+    """Phase 5: the kernel against its plain version on every (call site,
+    shape) the phase-6 run gave it: indices equal and distances equal bit
+    for bit, and a second launch bit-identical. One row per site of
+    `_CHAMFER_SITES`, with the launches of all its calls (which must add
+    up to the wrapper's count, `launches`), timed on the operands of its
+    most-launched call; those operands are saved in CHAMFER_OPERANDS for
+    scripts/bench_torch_chamfer.py."""
     import torch
 
     from lemo_tpu_torch.ops import chamfer as ch
     from lemo_tpu_torch.ops import chamfer_cuda as chc
 
-    rows = []
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    if sum(tally.values()) != launches:
+        raise AssertionError(f"chamfer launches {launches} but the calls "
+                             f"seen were {tally}")
+    sites: dict = {}
+    for key in ops:
+        sites.setdefault(key[0], []).append(key)
+    faults, d_errs = [], {}
     for key, (q, p, m) in ops.items():
-        qs, ps, _ = key
-        names = [n for n, pick in _CHAMFER_SITES if pick(qs, ps)]
-        name = names[0] if names else f"chamfer/{qs}x{ps}"
         ki, kd = chc.nn_select_kernel(q, p, m)
+        ri, rd = chc.nn_select_kernel(q, p, m)
         pi, pd = ch.nn_select_plain(q, p, m)
         torch.cuda.synchronize()
+        same = torch.equal(ki, pi) and torch.equal(bits(kd), bits(pd))
+        repeat = torch.equal(ki, ri) and torch.equal(bits(kd), bits(rd))
         agree = float((ki == pi).float().mean())
         both_inf = torch.isinf(kd) & torch.isinf(pd)
         d_err = float(torch.where(both_inf, torch.zeros_like(kd),
                                   (kd - pd).abs()).max())
-        # where the indices differ, the exact distances must tie
-        pts = p.expand(q.shape[0], -1, -1)
+        d_errs[key] = d_err
+        _log(f"[chamfer] {key[0]} at {key[1]} q{list(key[2])} "
+             f"p{list(key[3])}: idx equal {agree:.6f}, dmin bit-equal to "
+             f"plain {same}, max |d| err {d_err:.3e} m^2, repeat launch "
+             f"bit-identical {repeat}; called {tally[key]}x in phase 6")
+        if not (same and repeat):
+            faults.append(f"{key[0]} at {key[1]}: bits differ from plain "
+                          f"({same}) or between launches ({repeat})")
+    if faults:
+        raise AssertionError("; ".join(faults))
 
-        def exact(idx):
-            w = torch.gather(pts, 1, idx[..., None].expand(-1, -1, 3))
-            return ((q - w) ** 2).sum(-1)
+    def spread(x):
+        return {"min": int(x.min()), "mean": float(x.mean()),
+                "max": int(x.max())}
 
-        tie = float((exact(ki) - exact(pi)).abs().max())
-        reps = 5 if qs[1] * ps[1] > 1e8 else REPS
+    rows, saved = [], {}
+    for name, keys in sites.items():
+        key = max(keys, key=lambda k: tally[k])
+        q, p, m = ops[key]
+        T, N = q.shape[0], q.shape[1]
+        M = p.shape[1]
+        n_launch = sum(tally[k] for k in keys)
+        reps = 5 if N * M > 1e8 else REPS
         ms = _time_ms(lambda: chc.nn_select_kernel(q, p, m), reps)
         plain_ms = _time_ms(lambda: ch.nn_select_plain(q, p, m), reps)
-        T, N = qs[0], qs[1]
         # the work this run's data needs: each frame's valid query rows
         # times its valid points. A query row of exact zeros is scan
         # padding (data/prox.py pads with zeros, a real point has depth
         # > 0), whose result every caller masks out.
         nq = (q != 0).any(-1).sum(-1).double()                  # [T]
         npv = (m.expand(T, -1).sum(-1).double() if m is not None
-               else torch.full((T,), float(ps[1]), dtype=torch.float64,
+               else torch.full((T,), float(M), dtype=torch.float64,
                                device=q.device))                # [T]
         pairs = float((nq * npv).sum())
-        nbytes = (12.0 * T * N + 12.0 * ps[0] * ps[1]
+        nbytes = (12.0 * T * N + 12.0 * p.shape[0] * M
                   + (m.numel() if m is not None else 0) + 12.0 * T * N)
         bound, by = _bound_ms(nbytes, CHAMFER_OPS_PER_PAIR * pairs)
-
-        def spread(x):
-            return f"{int(x.min())}/{float(x.mean()):.0f}/{int(x.max())}"
-
-        _log(f"[chamfer] {name} q{list(qs)} p{list(ps)}: idx agree "
-             f"{agree:.6f}, max |d| err {d_err:.3e} m^2, max tie gap "
-             f"{tie:.3e} m^2; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-             f"bound {bound:.4f} ms ({by}, {pairs:.3e} valid pairs; valid "
-             f"query rows per frame min/mean/max {spread(nq)}, valid points "
-             f"{spread(npv)}); launched {tally[key]}x in phase 6; on {card}")
-        if agree < 0.9999 or d_err > 1e-6 or tie > 1e-6:
-            raise AssertionError(f"{name}: kernel disagrees with plain "
-                                 f"(agree {agree}, d {d_err}, tie {tie})")
+        callers = {k[1]: tally[k] for k in keys}
+        _log(f"[chamfer] {name} q{list(q.shape)} p{list(p.shape)} (timed on "
+             f"{key[1]}'s operands): kernel {ms:.4f} ms, plain "
+             f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}, {pairs:.4e} "
+             f"valid pairs of {float(T) * N * M:.4e}); valid query rows per "
+             f"frame {spread(nq)}, valid points {spread(npv)}; launched "
+             f"{n_launch}x in phase 6 ({callers}); on {card}")
         rows.append({"name": name, "route": "cuda",
                      "source": "lemo_tpu_torch/csrc/chamfer.cu",
                      "replaces": "lemo_tpu/ops/chamfer_pallas.py:41",
-                     "launches": tally[key], "max_abs_err": d_err,
-                     "idx_agree": agree, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound, "bound_by": by, "library_ms": None,
-                     "shape": [list(qs), list(ps)]})
-    if {r["name"] for r in rows} != {n for n, _ in _CHAMFER_SITES}:
-        raise AssertionError(f"chamfer call sites seen: {list(ops)}")
+                     "launches": n_launch,
+                     "max_abs_err": max(d_errs[k] for k in keys),
+                     "bit_identical_to_plain": True,
+                     "bit_identical_repeat": True, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "library_ms": None,
+                     "shape": [list(q.shape), list(p.shape)],
+                     "valid_pairs": pairs, "valid_query_rows": spread(nq),
+                     "valid_points": spread(npv), "callers": callers})
+        saved[name] = {"query": q.cpu(), "points": p.cpu(),
+                       "mask": None if m is None else m.cpu(),
+                       "launches": n_launch, "caller": key[1]}
+    torch.save(saved, CHAMFER_OPERANDS)
+    if set(sites) != set(_CHAMFER_SITES):
+        raise AssertionError(f"chamfer call sites seen: {sorted(sites)}, "
+                             f"expected {sorted(_CHAMFER_SITES)}")
     return rows
 
 
@@ -1215,7 +1293,7 @@ def main() -> int:
         row["launches"] = counts[row["name"]]
     info, results, p_counts, fits, ops, tally, isect, isect_tally = \
         phase_prox(model, model_dict, card)
-    rows += phase_chamfer(ops, tally, card)
+    rows += phase_chamfer(ops, tally, p_counts["chamfer"], card)
     rows += phase_intersection(isect, isect_tally, p_counts["intersection"],
                                card)
     phase_prox_check(info, results, p_counts, fits, card)

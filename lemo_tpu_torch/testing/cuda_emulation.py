@@ -8,7 +8,10 @@ The emulation runs a launch's blocks one after another and each block's
 threads as `std::thread`s; `__syncthreads` is a `std::barrier`, a
 `__shared__` variable a `static` one (one block at a time), dynamic shared
 memory a buffer sized at the launch, and the rounding intrinsics
-(`__fmaf_rn`, `__fmul_rn`, ...) their IEEE single operations. It checks
+(`__fmaf_rn`, `__fmul_rn`, ...) their IEEE single operations. The warp
+intrinsics (`__ballot_sync`, `__shfl_up_sync`) meet the 32 threads of a
+warp at a per-warp barrier around a per-warp exchange buffer, so every
+thread of the warp must call them, as on the card. It checks
 the kernels' indexing (tiles, schedules, scratch layouts) and their C
 interface, not their speed. Tiny shapes only: every thread is an OS
 thread.
@@ -30,7 +33,10 @@ CUDA_EMULATION = r"""
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstring>
 #include <functional>
+#include <limits>
+#include <memory>
 #include <thread>
 #include <vector>
 using std::max;
@@ -48,6 +54,34 @@ inline dim3 blockDim, gridDim;
 inline std::barrier<>* emu_barrier = nullptr;
 inline float* emu_dynamic_smem = nullptr;
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+#define CUDART_INF_F std::numeric_limits<float>::infinity()
+struct EmuWarp {
+  std::barrier<> bar;
+  unsigned slot[32] = {};
+  explicit EmuWarp(int n) : bar(n) {}
+};
+inline thread_local EmuWarp* emu_warp = nullptr;
+inline unsigned emu_lane() { return threadIdx.x % 32; }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline unsigned __ballot_sync(unsigned mask, int pred) {
+  emu_warp->slot[emu_lane()] = pred ? 1u : 0u;
+  emu_warp->bar.arrive_and_wait();
+  unsigned b = 0;
+  for (unsigned l = 0; l < 32; ++l)
+    if ((mask >> l) & 1u) b |= emu_warp->slot[l] << l;
+  emu_warp->bar.arrive_and_wait();
+  return b;
+}
+template <class T> T __shfl_up_sync(unsigned, T v, unsigned delta) {
+  static_assert(sizeof(T) == sizeof(unsigned), "32-bit shuffles only");
+  const unsigned lane = emu_lane();
+  std::memcpy(&emu_warp->slot[lane], &v, sizeof(T));
+  emu_warp->bar.arrive_and_wait();
+  T out = v;
+  if (lane >= delta) std::memcpy(&out, &emu_warp->slot[lane - delta], sizeof(T));
+  emu_warp->bar.arrive_and_wait();
+  return out;
+}
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
@@ -80,11 +114,15 @@ inline void emu_launch(std::function<void()> body, dim3 grid, dim3 block,
       for (unsigned x = 0; x < grid.x; ++x) {
         std::barrier<> bar(nt);
         emu_barrier = &bar;
+        std::vector<std::unique_ptr<EmuWarp>> warps;
+        for (int w = 0; w * 32 < nt; ++w)
+          warps.push_back(std::make_unique<EmuWarp>(std::min(32, nt - 32 * w)));
         std::vector<std::thread> threads;
         for (int t = 0; t < nt; ++t)
           threads.emplace_back([&, t] {
             threadIdx = dim3(t);
             blockIdx = dim3(x, y, z);
+            emu_warp = warps[t / 32].get();
             body();
           });
         for (auto& th : threads) th.join();
@@ -97,6 +135,7 @@ def emulated_source(cuda: str) -> str:
     """The CUDA source rewritten for the emulation header."""
     src = cuda.replace("#include <cuda_runtime.h>",
                        '#include "cuda_emulation.h"')
+    src = src.replace("#include <math_constants.h>\n", "")
     src = re.sub(r"extern __shared__ __align__\(16\) float (\w+)\[\];",
                  r"float* \1 = emu_dynamic_smem;", src)
     # kernel<<<config>>>(args); -> emu_launch([&] { kernel(args); }, config);
@@ -109,12 +148,26 @@ def have_compiler() -> bool:
     return shutil.which("g++") is not None
 
 
-def build_emulated(source: str, out_dir: str) -> ctypes.CDLL:
+def with_constants(text: str, constants: dict[str, int]) -> str:
+    """`text` with each `constexpr int NAME = <value>;` of `constants` set
+    to the given value (a source variant); raises unless each is defined
+    once."""
+    for name, value in constants.items():
+        text, n = re.subn(rf"constexpr int {name} = \d+;",
+                          f"constexpr int {name} = {value};", text)
+        if n != 1:
+            raise ValueError(f"the source does not define {name} once")
+    return text
+
+
+def build_emulated(source: str, out_dir: str,
+                   constants: dict[str, int] | None = None) -> ctypes.CDLL:
     """Compile `csrc/<source>` under the emulation into `out_dir` and bind
-    the `_build.SIGNATURES` entry points it defines."""
+    the `_build.SIGNATURES` entry points it defines; `constants` builds a
+    variant (`with_constants`)."""
     stem = os.path.splitext(source)[0]
     with open(os.path.join(_build.CSRC, source)) as fh:
-        text = fh.read()
+        text = with_constants(fh.read(), constants or {})
     cpp = os.path.join(out_dir, f"{stem}.cpp")
     with open(cpp, "w") as fh:
         fh.write(emulated_source(text))

@@ -32,6 +32,33 @@ Phases (any failure raises and the script exits non-zero):
    with random seeded VPoser/encoder weights. The fit must descend, each
    kernel must launch exactly once per step, and the final loss must
    match the same fit run through the plain twins (rel 1e-3).
+4b. The AMASS corpus slice: a synthetic AMASS dataset (4 sequences of
+   480 frames at 60 fps, two genders: 8 clips of 4 s, T=119 frames a
+   fitted clip) and a full-size synthetic model directory, both written
+   by the port's writers into lemo_tpu_torch/_build/amass_smoke/. The
+   launch counts are zeroed, then both AMASS CLIs run through their
+   `main`: Stage 1 (`opt_amass_perframe`, the shipped infill AE and
+   statistics) on all 8 clips, and Stage 2 (`opt_amass_temp
+   --clip_batch 4`, a random seeded smoothness encoder with unit
+   statistics) on its results, folding each gender's 4 clips into one
+   forward of 476 frames (Bp 512); then the counts are read. Checks the
+   output files, that every fit descends, one launch a step of each chain
+   and vertex entry point in every fit and one forward a clip in each
+   CLI's representation builder. Then the sweep: the folded fitter at
+   C = 1, 4 and 8 clips (119 / 476 / 952 frames a launch) on the Stage-2
+   CLI's inputs, 20 steps a call, 3 calls after a warm-up: ms/step,
+   frame-iters/s, launches a step, and the device-busy share of one
+   profiled 5-step call. Then, on the first Stage-2 batch: the fold
+   against four single-clip fits (5 steps under
+   `torch.use_deterministic_algorithms`, lemo_tpu's tolerances: x72
+   rtol 6e-2 / atol 2e-3, losses rtol 2e-3 / atol 2e-5); the fold
+   through the kernels against the plain versions (20 steps, final
+   per-clip loss within rel 1e-3); the per-clip NaN freeze (one clip's
+   targets NaN: the others bit-equal to the healthy batch's under
+   `torch.use_deterministic_algorithms`). Last, each body-model kernel
+   entry point against its plain version at B = 119, 476 and 952 (phase
+   2's tolerances), with times and bounds. Cut to size: 30 Adam steps a
+   fit in each CLI instead of the shipped 100, and 8 clips.
 5. The Chamfer kernel against its plain version at every (call site,
    shape) the phase-6 run gave it (operands captured from that run: real
    warm-start bodies and scans; a call site is the caller of
@@ -77,7 +104,9 @@ Phases (any failure raises and the script exits non-zero):
    scripts/bench_torch_intersection.py.
    Phase 6 runs before phases 5 and 7, whose operands it captures.
 
-Prints the kernels' JSON line, then as the last line
+Prints the kernels' JSON line (rows 1-4 also carry their launches on
+the AMASS path, `launches_amass`, and their check at its frame counts,
+`amass_frames`), then as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Exits non-zero without printing a result when CUDA is absent.
 """
@@ -104,9 +133,21 @@ REPS = 25
 PROX_FRAMES = 170
 PROX_STEPS = 100               # Adam steps per window (the config's 900, cut)
 REFIT_STEPS = 10               # steps of each refit in phase 6 (cut from 100)
+AMASS_SEQ_FRAMES = 480         # 8 s at 60 fps: two 4-s clips a sequence
+AMASS_CLIPS = 8                # 4 sequences, two of each gender
+AMASS_CLIP_SECONDS = 4
+AMASS_STEPS = 30               # Adam steps of each CLI's fits (100, cut)
+AMASS_CLIP_BATCH = 4           # the Stage-2 CLI's --clip_batch
+AMASS_SWEEP_C = (1, 4, 8)      # clips a folded batch in the sweep
+AMASS_CHECK_STEPS = 5          # steps of the fold-vs-single check
+AMASS_PROFILE_STEPS = 5        # steps of the sweep's profiled call
+# body-kernel frame counts of the AMASS path: Stage 1's T, folded C*T
+AMASS_KERNEL_FRAMES = tuple(C * (AMASS_CLIP_SECONDS * 30 - 1)
+                            for C in AMASS_SWEEP_C)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PROX_CFG = os.path.join(ROOT, "cfg_files", "PROXD_temp_S3_all_terms.yaml")
 PROX_DIR = os.path.join(ROOT, "lemo_tpu_torch", "_build", "prox_smoke")
+AMASS_DIR = os.path.join(ROOT, "lemo_tpu_torch", "_build", "amass_smoke")
 # phase 7's operands, for scripts/bench_torch_intersection.py
 ISECT_OPERANDS = os.path.join(PROX_DIR, "isect_operands.pt")
 # phase 5's operands, for scripts/bench_torch_chamfer.py
@@ -199,6 +240,33 @@ def plain_twins():
          chc.nn_select_kernel, ic.cone_energy_kernel) = saved
 
 
+def body_kernel_work(B: int, V: int, J: int, D: int) -> dict:
+    """(bytes, f32 operations) each body-model kernel entry point needs at
+    B real frames, V real vertices, J real joints and D blend columns:
+    each input read once and each output written once.
+
+    The chain's affine entry points, a joint: the walk 63 operations
+    forward, 135 backward; t_l 3; the rel translations 18 forward, 21
+    back through them and 21 for djr. The vertex backward recomputes vs
+    (3 blends) and T[0..8] from its inputs, then forms dcat (3 blends)
+    and dA2 (12 skinning products)."""
+    f4 = 4.0
+    return {
+        "chain_fwd": (f4 * 27 * J * B + 4 * J,
+                      (66.0 * (J - 1) + 18.0 * J) * B),
+        "chain_bwd": (f4 * 48 * J * B + 4 * J,
+                      (138.0 * (J - 1) + 42.0 * J) * B),
+        "vertex_fwd": (f4 * (D * B + 12 * J * B + 3 * V * D + V * J
+                             + 3 * V * B),
+                       2.0 * 3 * V * D * B + 2.0 * 12 * V * J * B
+                       + 18.0 * V * B),
+        "vertex_bwd": (f4 * (2 * D * B + 24 * J * B + 3 * V * D + V * J
+                             + 3 * V * B),
+                       2.0 * 6 * V * D * B + 2.0 * 21 * V * J * B
+                       + 27.0 * V * B),
+    }
+
+
 @contextlib.contextmanager
 def capture_operands(store: dict):
     """Record the operands each kernel wrapper is called with."""
@@ -258,16 +326,17 @@ def unfused_chain():
         lbs.chain_affine_planes = real
 
 
-def body_operands(model, unfused: bool = False) -> dict:
+def body_operands(model, unfused: bool = False,
+                  frames: int = T_FRAMES) -> dict:
     """The operands each body-model kernel wrapper gets in one forward and
-    backward of `model` at B=T_FRAMES on random seeded parameters (with
+    backward of `model` at B=`frames` on random seeded parameters (with
     `unfused`, through `unfused_chain`: the chain pair's own operands)."""
     import torch
 
     from lemo_tpu_torch.body_model import make_forward_fn
 
     rng = np.random.RandomState(1)
-    params = _random_params(model, T_FRAMES, rng)
+    params = _random_params(model, frames, rng)
     for v in params.values():
         v.requires_grad_(True)
     fwd = make_forward_fn(model)
@@ -356,6 +425,37 @@ def _repeat_check(row: dict, key: str, what: str, first, again) -> None:
         raise AssertionError(f"{row['name']}: {what} differ")
 
 
+def hold_kernel(name, kern, plain, tol, relative, nbytes, flops, card,
+                tag="kernels") -> dict:
+    """A kernel's result against its plain version's on the same inputs
+    (max abs error, or relative to each output's largest magnitude, within
+    `tol`), then both timed and the bound computed from the work. Raises
+    on a disagreement; returns the row's numbers."""
+    import torch
+
+    got = kern()
+    ref = plain()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    rel_err = max(_max_rel(g, r) for g, r in zip(got, ref))
+    err = rel_err if relative else abs_err
+    if not all(torch.isfinite(g).all() for g in got) or err > tol:
+        raise AssertionError(f"{name}: error {err:.3e} > {tol:g} "
+                             f"(abs {abs_err:.3e}, rel {rel_err:.3e})")
+    ms = _time_ms(kern)
+    plain_ms = _time_ms(plain)
+    bound, by = _bound_ms(nbytes, flops)
+    _log(f"[{tag}] {name}: max abs err {abs_err:.3e}, rel "
+         f"{rel_err:.3e} (tol {tol:g} {'rel' if relative else 'abs'}); "
+         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+         f"{bound:.4f} ms ({by}) on {card}")
+    return {"name": name, "max_abs_err": abs_err, "max_rel_err": rel_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by}
+
+
 def phase_kernels(model, card) -> list[dict]:
     """Phase 2: every kernel vs its plain twin at the main-path shapes."""
     import torch
@@ -382,27 +482,8 @@ def phase_kernels(model, card) -> list[dict]:
     rows = []
 
     def hold(name, kern, plain, tol, relative, nbytes, flops):
-        got = kern()
-        ref = plain()
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        ref = ref if isinstance(ref, tuple) else (ref,)
-        abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-        rel_err = max(_max_rel(g, r) for g, r in zip(got, ref))
-        err = rel_err if relative else abs_err
-        if not all(torch.isfinite(g).all() for g in got) or err > tol:
-            raise AssertionError(f"{name}: error {err:.3e} > {tol:g} "
-                                 f"(abs {abs_err:.3e}, rel {rel_err:.3e})")
-        ms = _time_ms(kern)
-        plain_ms = _time_ms(plain)
-        bound, by = _bound_ms(nbytes, flops)
-        _log(f"[kernels] {name}: max abs err {abs_err:.3e}, rel "
-             f"{rel_err:.3e} (tol {tol:g} {'rel' if relative else 'abs'}); "
-             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-             f"{bound:.4f} ms ({by}) on {card}")
-        return {"name": name, "max_abs_err": abs_err, "max_rel_err": rel_err,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                "bound_by": by}
+        return hold_kernel(name, kern, plain, tol, relative, nbytes, flops,
+                           card)
 
     def add(name, src, replaces, *args, **kw):
         rows.append({"name": name, "route": "cuda", "source": src,
@@ -414,25 +495,20 @@ def phase_kernels(model, card) -> list[dict]:
     vert_src = "lemo_tpu_torch/csrc/vertex.cu"
     # the chain kernels as the main path launches them (the affine entry
     # points: the rel-joint translations, the chain and the bone affines),
-    # each row with the chain pair's own entry points under "planes".
-    # Operations a joint: the walk 63 forward, 135 backward; t_l 3; the
-    # rel translations 18 forward, 21 back through them and 21 for djr.
+    # each row with the chain pair's own entry points under "planes"
+    work = body_kernel_work(B, V, J, D)
     cfwd = add("chain_fwd", chain_src,
                "lemo_tpu/body_model/chain_pallas.py:48",
                lambda: cc.chain_affine_fwd_kernel(arl, jr, parents),
                lambda: cc.chain_affine_plain_fwd(arl, jr, parents),
-               1e-5, False,
-               nbytes=f4 * 27 * J * B + 4 * J,
-               flops=(66.0 * (J - 1) + 18.0 * J) * B)
+               1e-5, False, *work["chain_fwd"])
     cbwd = add("chain_bwd", chain_src,
                "lemo_tpu/body_model/chain_pallas.py:82",
                lambda: cc.chain_affine_bwd_kernel(arl, jr, A, dA, adtg,
                                                   parents),
                lambda: cc.chain_affine_plain_bwd(arl, jr, A, dA, adtg,
                                                  parents),
-               5e-5, True,
-               nbytes=f4 * 48 * J * B + 4 * J,
-               flops=(138.0 * (J - 1) + 42.0 * J) * B)
+               5e-5, True, *work["chain_bwd"])
     cfwd["entry"] = "lemo_chain_affine_fwd"
     cbwd["entry"] = "lemo_chain_affine_bwd"
     cfwd["planes"] = hold(
@@ -467,22 +543,12 @@ def phase_kernels(model, card) -> list[dict]:
               "lemo_tpu/body_model/vertex_pallas.py:89",
               lambda: vc.vertex_fwd_kernel(catT, A2, dirs, w),
               lambda: vc.vertex_plain_fwd(catT, A2, dirs, w),
-              1e-5, False,
-              nbytes=f4 * (D * B + 12 * J * B + 3 * V * D + V * J
-                           + 3 * V * B),
-              flops=2.0 * 3 * V * D * B + 2.0 * 12 * V * J * B
-              + 18.0 * V * B)
-    # the backward recomputes vs (3 blends) and T[0..8] from its inputs,
-    # then forms dcat (3 blends) and dA2 (12 skinning products)
+              1e-5, False, *work["vertex_fwd"])
     bwd = add("vertex_bwd", vert_src,
               "lemo_tpu/body_model/vertex_pallas.py:103",
               lambda: vc.vertex_bwd_kernel(catT, A2, dirs, w, dout),
               lambda: vc.vertex_plain_bwd(catT, A2, dirs, w, dout),
-              5e-5, True,
-              nbytes=f4 * (2 * D * B + 24 * J * B + 3 * V * D + V * J
-                           + 3 * V * B),
-              flops=2.0 * 6 * V * D * B + 2.0 * 21 * V * J * B
-              + 27.0 * V * B)
+              5e-5, True, *work["vertex_bwd"])
     fwd["stages"] = vertex_fwd_stages(catT, A2, dirs, w, card)
     blend = fwd["stages"]["blend"]
     gflop = 2.0 * 3 * dirs.shape[1] * D * catT.shape[1] / 1e9   # padded
@@ -582,22 +648,17 @@ def phase_slice(model, card) -> tuple[dict, float]:
     timed calls, frame-iters/s)."""
     import torch
 
-    from lemo_tpu_torch.body_model import chain_cuda as cc
-    from lemo_tpu_torch.body_model import vertex_cuda as vc
-
     fit, (target, contact, init72) = s2_workload(model)
     fit(target, contact, init72)          # warm-up (caching allocator)
     torch.cuda.synchronize()
 
-    for counts in (cc.launches, vc.launches):
-        for name in counts:
-            counts[name] = 0
+    _zero_body_counts()
     t0 = time.perf_counter()
     for _ in range(N_CALLS):
         x72, losses = fit(target, contact, init72)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = {**cc.launches, **vc.launches}
+    counts = _body_counts()
     losses = losses.cpu().numpy()
     _log(f"[slice] losses first {losses[0]:.6f} last {losses[-1]:.6f}; "
          f"launches {counts}")
@@ -623,6 +684,422 @@ def phase_slice(model, card) -> tuple[dict, float]:
     if not rel < 1e-3:
         raise AssertionError(f"final loss differs from the twins' by {rel}")
     return counts, fis
+
+
+def _body_counts() -> dict:
+    """The body-model kernels' launch counts, by name."""
+    from lemo_tpu_torch.body_model import chain_cuda as cc
+    from lemo_tpu_torch.body_model import vertex_cuda as vc
+
+    return {**cc.launches, **vc.launches}
+
+
+def _zero_body_counts() -> None:
+    from lemo_tpu_torch.body_model import chain_cuda as cc
+    from lemo_tpu_torch.body_model import vertex_cuda as vc
+
+    for counts in (cc.launches, vc.launches):
+        for name in counts:
+            counts[name] = 0
+
+
+@contextlib.contextmanager
+def fitter_spy(module, factory: str, calls: list):
+    """Wrap `module.factory` so that every fit it builds records its
+    factory's arguments, its inputs (clones), its outputs and the body
+    kernels launched during the call."""
+    real = getattr(module, factory)
+
+    def build(*fargs, **fkw):
+        fit = real(*fargs, **fkw)
+
+        def spied(*args):
+            before = _body_counts()
+            out = fit(*args)
+            after = _body_counts()
+            calls.append({
+                "factory": (fargs, fkw),
+                "inputs": tuple(a.detach().clone() if hasattr(a, "detach")
+                                else np.array(a) for a in args),
+                "outputs": out,
+                "launches": {k: after[k] - before[k] for k in after}})
+            return out
+        return spied
+
+    setattr(module, factory, build)
+    try:
+        yield
+    finally:
+        setattr(module, factory, real)
+
+
+def amass_corpus() -> dict:
+    """The phase-4b inputs, written into AMASS_DIR (git-ignored): the
+    synthetic AMASS dataset (4 sequences of AMASS_SEQ_FRAMES frames at 60
+    fps, two genders: 8 clips of 4 s), a full-size synthetic model
+    directory, and the smoothness prior's random seeded encoder with unit
+    statistics (not shipped)."""
+    import torch
+
+    from lemo_tpu_torch.data.stats import GlobalStats
+    from lemo_tpu_torch.priors.conv_ae import init_smooth_enc
+    from lemo_tpu_torch.testing.synthetic import write_amass_dataset, \
+        write_smplx_model_dir
+
+    shutil.rmtree(AMASS_DIR, ignore_errors=True)
+    paths = {"amass": os.path.join(AMASS_DIR, "amass"),
+             "models": os.path.join(AMASS_DIR, "body_models"),
+             "enc": os.path.join(AMASS_DIR, "smooth_enc.npz"),
+             "smooth_stats": os.path.join(AMASS_DIR, "smooth_stats.npz")}
+    write_amass_dataset(paths["amass"], "TotalCapture", num_subjects=2,
+                        seqs_per_subject=2, num_frames=AMASS_SEQ_FRAMES,
+                        fps=60)
+    write_smplx_model_dir(paths["models"], full_size=True)
+    enc = init_smooth_enc(torch.Generator().manual_seed(1))
+    np.savez(paths["enc"], **{k: v.numpy() for k, v in enc.items()})
+    GlobalStats.from_numpy(np.zeros((1, 1, 243)), np.ones(243),
+                           "cpu").save(paths["smooth_stats"])
+    return paths
+
+
+def _check_cli_outputs(out_dir: str, n_clips: int, T: int) -> None:
+    d = os.path.join(out_dir, "TotalCapture")
+    genders = np.load(os.path.join(d, "gender_list.npy"))
+    if genders.shape != (n_clips,):
+        raise AssertionError(f"{d}: gender_list {genders.shape}")
+    for i in range(n_clips):
+        x = np.load(os.path.join(d, f"body_params_opt_clip_{i}.npy"))
+        c = np.load(os.path.join(d, f"contact_lbl_rec_clip_{i}.npy"))
+        if x.shape != (T, 72) or not np.isfinite(x).all():
+            raise AssertionError(f"{d} clip {i}: body params {x.shape}")
+        if c.shape != (T, 4) or not np.isin(c, (0.0, 1.0)).all():
+            raise AssertionError(f"{d} clip {i}: contact labels {c.shape}")
+
+
+def phase_amass(card) -> dict:
+    """Phase 4b, the AMASS corpus path: both CLIs on the synthetic corpus,
+    with the launch counts zeroed just before and read just after.
+    Returns the path's launch counts, the Stage-2 fits' calls and the
+    clip length."""
+    import torch
+
+    from lemo_tpu_torch.cli import opt_amass_perframe as cli1
+    from lemo_tpu_torch.cli import opt_amass_temp as cli2
+    from lemo_tpu_torch.fitting import amass_perframe as s1
+    from lemo_tpu_torch.fitting import amass_temp as s2
+
+    t0 = time.perf_counter()
+    paths = amass_corpus()
+    _log(f"[amass] corpus and full-size model directory written in "
+         f"{time.perf_counter() - t0:.1f} s")
+    common = ["--amass_dir", paths["amass"], "--body_model_path",
+              paths["models"], "--clip_seconds", str(AMASS_CLIP_SECONDS),
+              "--start", "0", "--end", str(AMASS_CLIPS),
+              "--step", "1", "--num_fit_steps", str(AMASS_STEPS)]
+    s1_dir = os.path.join(AMASS_DIR, "res_perframe")
+    s2_dir = os.path.join(AMASS_DIR, "res_temp")
+    s1_calls, s2_calls = [], []
+    _zero_body_counts()
+    t0 = time.perf_counter()
+    with fitter_spy(s1, "make_stage1_fitter", s1_calls):
+        cli1.main(common + ["--save_dir", s1_dir], device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with fitter_spy(s2, "make_temporal_fitter_batched", s2_calls):
+        cli2.main(common + ["--perframe_res_dir", s1_dir,
+                            "--smooth_model_path", paths["enc"],
+                            "--smooth_stats_path", paths["smooth_stats"],
+                            "--clip_batch", str(AMASS_CLIP_BATCH),
+                            "--save_dir", s2_dir], device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = _body_counts()
+    T = AMASS_CLIP_SECONDS * 30 - 1
+    _log(f"[amass] Stage-1 CLI {t1 - t0:.1f} s, Stage-2 CLI "
+         f"{t2 - t1:.1f} s ({AMASS_CLIPS} clips of {T} frames, "
+         f"{AMASS_STEPS} steps a fit, --clip_batch {AMASS_CLIP_BATCH}); "
+         f"launches {counts} on {card}")
+    _check_cli_outputs(s1_dir, AMASS_CLIPS, T)
+    _check_cli_outputs(s2_dir, AMASS_CLIPS, T)
+
+    if len(s1_calls) != AMASS_CLIPS:
+        raise AssertionError(f"{len(s1_calls)} Stage-1 fits, expected "
+                             f"{AMASS_CLIPS}")
+    for k, call in enumerate(s1_calls):
+        x72, losses = call["outputs"]
+        losses = losses.cpu().numpy()
+        if x72.shape != (T, 72) or not np.isfinite(losses).all() or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"Stage-1 fit {k} did not descend: "
+                                 f"{losses}")
+    groups = -(-AMASS_CLIPS // 2 // AMASS_CLIP_BATCH) * 2   # two genders
+    if len(s2_calls) != groups:
+        raise AssertionError(f"{len(s2_calls)} Stage-2 batches, expected "
+                             f"{groups}")
+    for k, call in enumerate(s2_calls):
+        x72, losses = call["outputs"]
+        losses = losses.cpu().numpy()
+        if x72.shape != (AMASS_CLIP_BATCH, T, 72) or \
+                losses.shape != (AMASS_CLIP_BATCH, AMASS_STEPS) or \
+                not np.isfinite(losses).all() or \
+                not (losses[:, -1] < losses[:, 0]).all():
+            raise AssertionError(f"Stage-2 batch {k} did not descend: "
+                                 f"{losses[:, [0, -1]]}")
+    for k, call in enumerate(s1_calls + s2_calls):
+        for name, n in call["launches"].items():
+            if n != AMASS_STEPS:
+                raise AssertionError(f"fit {k}: {name} launched {n} times, "
+                                     f"expected {AMASS_STEPS} (one a step)")
+    # each CLI's builder runs one forward a clip (no backward)
+    fits = len(s1_calls) + len(s2_calls)
+    want = {"chain_fwd": fits * AMASS_STEPS + 2 * AMASS_CLIPS,
+            "vertex_fwd": fits * AMASS_STEPS + 2 * AMASS_CLIPS,
+            "chain_bwd": fits * AMASS_STEPS,
+            "vertex_bwd": fits * AMASS_STEPS}
+    if counts != want:
+        raise AssertionError(f"AMASS path launches {counts}, expected {want}")
+    s1_last = [float(c["outputs"][1][-1]) for c in s1_calls]
+    s2_last = [float(v) for c in s2_calls for v in c["outputs"][1][:, -1]]
+    _log(f"[amass] every fit descends; final losses Stage 1 "
+         f"{min(s1_last):.5f}-{max(s1_last):.5f}, Stage 2 "
+         f"{min(s2_last):.5f}-{max(s2_last):.5f}; one launch a step of "
+         f"each body kernel in every fit, one forward a clip in each "
+         f"builder")
+    return {"launches": counts, "s2_calls": s2_calls, "T": T}
+
+
+def _profile_call(fit, args) -> dict:
+    """One call under torch.profiler: its wall time, the device's busy
+    time (the union of kernel intervals) and the kernels launched."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fit(*args)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0) + 1
+    busy, end = 0.0, -1.0
+    for s, e in sorted((e.time_range.start, e.time_range.end)
+                       for e in kernels):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return {"wall_us": wall_us, "busy_us": busy, "kernels": len(kernels),
+            "by_name": by_name}
+
+
+def phase_amass_sweep(amass, card) -> list[dict]:
+    """Phase 4b's sweep: the folded Stage-2 fitter at C clips a batch
+    (AMASS_SWEEP_C), T frames a clip, STEPS steps a call, on the Stage-2
+    CLI's inputs (the C=8 batch joins both genders' clips on the male
+    model): ms/step and frame-iters/s over N_CALLS calls after a
+    warm-up, launches a step, and the device-busy share of one profiled
+    call of AMASS_PROFILE_STEPS steps."""
+    import torch
+
+    from lemo_tpu_torch.fitting import amass_temp as s2
+
+    calls = amass["s2_calls"]
+    fargs, fkw = calls[0]["factory"]
+    inputs = [torch.cat([c["inputs"][k] for c in calls])
+              for k in range(3)]
+    T = amass["T"]
+    rows = []
+    for C in AMASS_SWEEP_C:
+        fit = s2.make_temporal_fitter_batched(
+            *fargs[:7], num_steps=STEPS, weights=fargs[8],
+            device=fkw["device"])
+        args = [x[:C] for x in inputs]
+        fit(*args)
+        torch.cuda.synchronize()
+        _zero_body_counts()
+        t0 = time.perf_counter()
+        for _ in range(N_CALLS):
+            fit(*args)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        per_step = {k: n / (N_CALLS * STEPS)
+                    for k, n in _body_counts().items()}
+        # the profiler's own cost grows with the events: a shorter call
+        prof = _profile_call(s2.make_temporal_fitter_batched(
+            *fargs[:7], num_steps=AMASS_PROFILE_STEPS, weights=fargs[8],
+            device=fkw["device"]), args)
+        ms = dt / (N_CALLS * STEPS) * 1e3
+        busy_ms = prof["busy_us"] / AMASS_PROFILE_STEPS / 1e3
+        row = {"C": C, "frames": C * T, "ms_per_step": ms,
+               "frame_iters_per_s": C * T * N_CALLS * STEPS / dt,
+               "launches_per_step": per_step,
+               "profiled_ms_per_step":
+                   prof["wall_us"] / AMASS_PROFILE_STEPS / 1e3,
+               "device_busy_ms_per_step": busy_ms,
+               "device_busy_share": prof["busy_us"] / prof["wall_us"],
+               "device_busy_share_of_unprofiled_wall": busy_ms / ms,
+               "kernel_launches_per_step":
+                   prof["kernels"] / AMASS_PROFILE_STEPS}
+        if rows:   # launches by kernel name that differ from C=1's
+            first = rows[0]["by_name"]
+            row["launches_per_step_vs_first_C"] = {
+                n[:80]: (first.get(n, 0) / AMASS_PROFILE_STEPS,
+                         k / AMASS_PROFILE_STEPS)
+                for n, k in prof["by_name"].items() if first.get(n) != k}
+        row["by_name"] = prof["by_name"]
+        rows.append(row)
+        _log(f"[amass sweep] C={C} ({C * T} frames a launch): "
+             f"{ms:.3f} ms/step, {row['frame_iters_per_s']:.1f} "
+             f"frame-iters/s ({STEPS} steps x {N_CALLS} calls); body "
+             f"kernel launches a step {per_step}; profiled "
+             f"{row['profiled_ms_per_step']:.3f} ms/step, device busy "
+             f"{row['device_busy_ms_per_step']:.3f} ms/step "
+             f"({100 * row['device_busy_share']:.1f}% of the profiled "
+             f"wall, {100 * row['device_busy_share_of_unprofiled_wall']:.1f}%"
+             f" of the unprofiled), "
+             f"{row['kernel_launches_per_step']:.0f} kernel launches a "
+             f"step, on {card}")
+        if "launches_per_step_vs_first_C" in row:
+            _log(f"[amass sweep] C={C}: launches a step by kernel that "
+                 f"differ from C={rows[0]['C']}'s (theirs, these): "
+                 f"{row['launches_per_step_vs_first_C']}")
+        if any(n != 1 for n in per_step.values()):
+            raise AssertionError(f"C={C}: launches a step {per_step}")
+    for row in rows:
+        del row["by_name"]
+    return rows
+
+
+def phase_amass_checks(amass, card) -> None:
+    """Phase 4b's checks on the card, on the Stage-2 CLI's first batch
+    (C=AMASS_CLIP_BATCH clips of one gender, with their infill targets,
+    contact labels and Stage-1 solutions):
+
+    - the folded fit against C single-clip fits (AMASS_CHECK_STEPS steps,
+      as lemo_tpu's own fold test): x72 within rtol 6e-2 / atol 2e-3 and
+      the per-step losses within rtol 2e-3 / atol 2e-5
+      (tests/test_fitting_stage2.py:165-170), both under
+      torch.use_deterministic_algorithms: without it two runs of the
+      same single-clip fit differed by as much as the two forms do (a
+      few weakly determined hand-PCA and VPoser-latent entries by ~1e-2
+      in 5 steps; PERF.md section 6, PR 10);
+    - the folded fit through the kernels against the same through the
+      plain versions (STEPS steps): final per-clip loss within rel 1e-3,
+      as phase 4;
+    - the per-clip NaN freeze: clip 0's targets made NaN, the healthy
+      clips' parameters and losses equal, bit for bit, those of the same
+      batch fitted healthy, both under torch.use_deterministic_algorithms,
+      and clip 0 frozen at its start."""
+    import torch
+
+    from lemo_tpu_torch.fitting import amass_temp as s2
+
+    call = amass["s2_calls"][0]
+    fargs, fkw = call["factory"]
+    target, contact, init72 = call["inputs"]
+    C = target.shape[0]
+
+    def fitter(make, steps, **kw):
+        return make(*fargs[:7], num_steps=steps, weights=fargs[8],
+                    device=fkw["device"], **kw)
+
+    def excess(x, ref, rtol):
+        return float(((x - ref).abs() - rtol * ref.abs()).max())
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        xf, lf = fitter(s2.make_temporal_fitter_batched, AMASS_CHECK_STEPS)(
+            target, contact, init72)
+        single = fitter(s2.make_temporal_fitter, AMASS_CHECK_STEPS)
+        outs = [single(target[c], contact[c], init72[c]) for c in range(C)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    xs = torch.stack([o[0] for o in outs])
+    ls = torch.stack([o[1] for o in outs])
+    x_err, l_err = excess(xf, xs, 6e-2), excess(lf, ls, 2e-3)
+    _log(f"[amass] folded C={C} vs {C} single-clip fits "
+         f"({AMASS_CHECK_STEPS} steps, deterministic algorithms): x72 max "
+         f"|d| - 6e-2|x| = {x_err:.3e} (tol 2e-3), losses max |d| - "
+         f"2e-3|l| = {l_err:.3e} (tol 2e-5)")
+    if not (x_err <= 2e-3 and l_err <= 2e-5):
+        raise AssertionError("folded fit differs from the single-clip fits")
+
+    fold = fitter(s2.make_temporal_fitter_batched, STEPS)
+    _, lk = fold(target, contact, init72)
+    with plain_twins():
+        _, lp = fold(target, contact, init72)
+    rel = float(((lk[:, -1] - lp[:, -1]).abs() / lp[:, -1].abs()).max())
+    _log(f"[amass] folded C={C}, final per-clip loss kernels vs plain "
+         f"twins: max rel {rel:.3e} (tol 1e-3)")
+    if not rel < 1e-3:
+        raise AssertionError(f"folded fit differs from the twins' by {rel}")
+
+    bad = target.clone()
+    bad[0] = float("nan")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        xb, lb = fold(bad, contact, init72)
+        xg, lg = fold(target, contact, init72)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    # clip 0 keeps its start: the Stage-1 rows through the fitter's own
+    # aa -> 6-D -> aa round trip
+    start = s2._x72(s2._init_vars(init72), init72[..., 6:16])[0]
+    frozen = float((xb[0] - start).abs().max())
+    same = bool(torch.equal(xb[1:], xg[1:]) and torch.equal(lb[1:], lg[1:]))
+    _log(f"[amass] NaN freeze: clip 0 moved {frozen:.2e} from its start, "
+         f"its losses NaN {bool(torch.isnan(lb[0]).all())}; healthy "
+         f"clips bit-equal to the healthy batch's {same}")
+    if not (same and frozen == 0.0 and bool(torch.isnan(lb[0]).all())
+            and bool(torch.isfinite(lb[1:]).all())):
+        raise AssertionError("the per-clip NaN freeze leaked")
+
+
+def phase_amass_kernels(model, card) -> dict:
+    """Phase 4b's kernel check: each body-model kernel entry point against
+    its plain version at the frame counts the AMASS path gives it
+    (AMASS_KERNEL_FRAMES: Stage 1's T and the folded batches' C*T), on one
+    forward and backward of `model` at random seeded parameters, with
+    phase 2's tolerances, times and bounds. Returns {kernel: [row a B]}."""
+    from lemo_tpu_torch.body_model import chain_cuda as cc
+    from lemo_tpu_torch.body_model import vertex_cuda as vc
+
+    V, J = model.num_verts, len(model.parents)
+    out: dict = {}
+    for B in AMASS_KERNEL_FRAMES:
+        ops = body_operands(model, frames=B)
+        arl, jr, parents = ops["chain_affine_fwd_kernel"]
+        _, _, A, dA, adtg, _ = ops["chain_affine_bwd_kernel"]
+        catT, A2, dirs, w = ops["vertex_fwd_kernel"][:4]
+        dout = ops["vertex_bwd_kernel"][4]
+        work = body_kernel_work(B, V, J, catT.shape[0])
+        pairs = {
+            "chain_fwd": (
+                lambda: cc.chain_affine_fwd_kernel(arl, jr, parents),
+                lambda: cc.chain_affine_plain_fwd(arl, jr, parents),
+                1e-5, False),
+            "chain_bwd": (
+                lambda: cc.chain_affine_bwd_kernel(arl, jr, A, dA, adtg,
+                                                   parents),
+                lambda: cc.chain_affine_plain_bwd(arl, jr, A, dA, adtg,
+                                                  parents), 5e-5, True),
+            "vertex_fwd": (
+                lambda: vc.vertex_fwd_kernel(catT, A2, dirs, w),
+                lambda: vc.vertex_plain_fwd(catT, A2, dirs, w), 1e-5, False),
+            "vertex_bwd": (
+                lambda: vc.vertex_bwd_kernel(catT, A2, dirs, w, dout),
+                lambda: vc.vertex_plain_bwd(catT, A2, dirs, w, dout),
+                5e-5, True)}
+        for name, (kern, plain, tol, relative) in pairs.items():
+            row = hold_kernel(f"{name} at B={B} (Bp {catT.shape[1]})",
+                              kern, plain, tol, relative, *work[name], card,
+                              tag="amass kernels")
+            out.setdefault(name, []).append(
+                {**row, "name": name, "B": B, "Bp": int(catT.shape[1])})
+    return out
 
 
 def _chamfer_caller() -> tuple[str, str, str]:
@@ -1291,6 +1768,15 @@ def main() -> int:
     counts, _ = phase_slice(model, card)
     for row in rows:
         row["launches"] = counts[row["name"]]
+    amass = phase_amass(card)
+    sweep = phase_amass_sweep(amass, card)
+    phase_amass_checks(amass, card)
+    at_frames = phase_amass_kernels(model, card)
+    for row in rows:
+        row["launches_amass"] = amass["launches"][row["name"]]
+        row["amass_frames"] = at_frames[row["name"]]
+    del amass
+    _log(f"[amass sweep] {json.dumps(sweep)}")
     info, results, p_counts, fits, ops, tally, isect, isect_tally = \
         phase_prox(model, model_dict, card)
     rows += phase_chamfer(ops, tally, p_counts["chamfer"], card)

@@ -1,7 +1,10 @@
 """SSM2 surface-marker vertex ids on the SMPL-X mesh (copy of the tables
-in `lemo_tpu/data/markers.py`; dict order is marker slot order)."""
+in `lemo_tpu/data/markers.py`; dict order is marker slot order). A custom
+markerset json in the SSM2 schema can be read instead."""
 
 from __future__ import annotations
+
+import json
 
 import numpy as np
 
@@ -36,16 +39,31 @@ SSM2_WITHHAND.update({
 
 # foot-marker slots within SSM2 order (lheel, rheel, ltoe, rtoe) and the
 # shoulder/hip slots of the forward-direction estimate
-FOOT_MARKER_SLOTS = np.array([16, 47, 30, 60])
+LEFT_HEEL, RIGHT_HEEL, LEFT_TOE, RIGHT_TOE = 16, 47, 30, 60
+FOOT_MARKER_SLOTS = np.array([LEFT_HEEL, RIGHT_HEEL, LEFT_TOE, RIGHT_TOE])
 SDR_L, SDR_R, HIP_L, HIP_R = 26, 56, 27, 57
 
+# leg-marker slots zeroed during masked infill inference
+# (opt_amass_perframe.py:136-138; the reference's comments say "upper
+# body", the ids are the leg and foot markers)
+LEG_MASK_MARKER_SLOTS = np.array(
+    [14, 15, 18, 19, 29, 2, 20, 21, 30, 25, 16,
+     45, 46, 48, 49, 59, 32, 50, 51, 55, 60, 47]
+)
 
-def marker_indices(with_hand: bool = False,
+
+def marker_indices(with_hand: bool = False, markerset_json: str | None = None,
                    num_verts: int | None = None) -> np.ndarray:
     """Vertex ids of the 67 (or, `with_hand`, 81) marker slots in slot
-    order. `num_verts` folds ids into range for reduced synthetic meshes
+    order, from the embedded tables or, given `markerset_json`, from a
+    file in the SSM2 schema ({"markersets": [{"indices": {...}}]}).
+    `num_verts` folds ids into range for reduced synthetic meshes
     (modulo, so distinct slots stay on distinct vertices)."""
-    table = SSM2_WITHHAND if with_hand else SSM2
+    if markerset_json is not None:
+        with open(markerset_json) as fh:
+            table = json.load(fh)["markersets"][0]["indices"]
+    else:
+        table = SSM2_WITHHAND if with_hand else SSM2
     ids = np.asarray(list(table.values()), dtype=np.int64)
     if num_verts is not None and ids.max() >= num_verts:
         ids = ids % num_verts

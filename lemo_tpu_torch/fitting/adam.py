@@ -5,7 +5,9 @@
 loop of eager steps with no host synchronisation inside it: the
 learning rate and bias corrections are host floats, the NaN/Inf freeze
 is a device-side `torch.where`, and the per-step losses are written into
-a device tensor.
+a device tensor. With `per_clip`, C independent problems share the loop
+(the clip-folded Stage 2, `lemo_tpu/fitting/amass_temp.py:271-305`):
+each has its own freeze, all share the step count.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ def run_adam(loss_fn: Callable[[dict], torch.Tensor],
              b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
              grad_mask: Callable[[str, torch.Tensor], torch.Tensor]
              | None = None,
-             has_aux: bool = False):
+             has_aux: bool = False, per_clip: bool = False):
     """`num_steps` of Adam (optax's update: bias-corrected moments,
     `m_hat / (sqrt(v_hat) + eps)`) on a dict of tensors.
 
@@ -46,19 +48,32 @@ def run_adam(loss_fn: Callable[[dict], torch.Tensor],
     `loss_fn` returns (loss, {name: scalar tensor}) and a third value is
     returned: {name: [num_steps] tensor}, the per-step history, kept on
     the device until the caller reads it.
+
+    With `per_clip`, `loss_fn` returns (loss, per-clip losses [C]), every
+    parameter has the clip axis C first, and the losses returned are
+    [C, num_steps]. A clip whose loss is NaN/Inf freezes its own
+    parameters and moments (a [C] mask); the others go on, and all share
+    the step count, hence the bias corrections.
     """
+    if per_clip and has_aux:
+        raise ValueError("run_adam: per_clip and has_aux exclude each other")
     params = {k: v.detach().clone() for k, v in init_params.items()}
     mu = {k: torch.zeros_like(v) for k, v in params.items()}
     nu = {k: torch.zeros_like(v) for k, v in params.items()}
     dev = next(iter(params.values())).device
-    dead = torch.zeros((), dtype=torch.bool, device=dev)
-    losses = torch.empty(num_steps, dtype=torch.float32, device=dev)
+    n_clips = next(iter(params.values())).shape[0] if per_clip else None
+    shape = () if n_clips is None else (n_clips,)
+    dead = torch.zeros(shape, dtype=torch.bool, device=dev)
+    losses = torch.empty((num_steps,) + shape, dtype=torch.float32,
+                         device=dev)
     keys = list(params)
     aux_keys, aux_rows = None, []
     for i in range(num_steps):
         leaves = [params[k].requires_grad_(True) for k in keys]
         loss = loss_fn(params)
-        if has_aux:
+        if per_clip:
+            loss, watched = loss
+        elif has_aux:
             loss, aux = loss
             if aux_keys is None:
                 aux_keys = list(aux)
@@ -66,11 +81,13 @@ def run_adam(loss_fn: Callable[[dict], torch.Tensor],
                 torch.as_tensor(aux[k], dtype=torch.float32,
                                 device=dev).detach().reshape(())
                 for k in aux_keys]))
+        if not per_clip:
+            watched = loss
         grads = torch.autograd.grad(loss, leaves)
         if grad_mask is not None:
             grads = [grad_mask(k, g) for k, g in zip(keys, grads)]
-        losses[i] = loss.detach()
-        dead = dead | ~torch.isfinite(loss.detach())
+        losses[i] = watched.detach()
+        dead = dead | ~torch.isfinite(watched.detach())
         # bias corrections in f32, as optax computes them (1 - 0.999**t
         # differs from its f64 value by ~1e-5 relative at t=1)
         t = np.float32(i + 1)
@@ -82,10 +99,13 @@ def run_adam(loss_fn: Callable[[dict], torch.Tensor],
                 m = (1.0 - b1) * g + b1 * mu[k]
                 v = (1.0 - b2) * (g * g) + b2 * nu[k]
                 upd = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-                params[k] = torch.where(dead, p, p + (-lr_table[i]) * upd)
-                mu[k] = torch.where(dead, mu[k], m)
-                nu[k] = torch.where(dead, nu[k], v)
+                frozen = dead.reshape(shape + (1,) * (p.dim() - len(shape)))
+                params[k] = torch.where(frozen, p, p + (-lr_table[i]) * upd)
+                mu[k] = torch.where(frozen, mu[k], m)
+                nu[k] = torch.where(frozen, nu[k], v)
     final = {k: v.detach() for k, v in params.items()}
+    if per_clip:
+        return final, losses.T
     if not has_aux:
         return final, losses
     hist = torch.stack(aux_rows) if aux_rows else None

@@ -1,6 +1,7 @@
 """AMASS Stage 2: temporal whole-clip fitting with the learned smoothness
-prior and foot-contact friction (port of `lemo_tpu/fitting/amass_temp.py`,
-single-clip fitter).
+prior and foot-contact friction (port of `lemo_tpu/fitting/amass_temp.py`:
+the single-clip fitter and the clip-batched one, whose default folds C
+clips into one forward of C*T frames).
 
 From the Stage-1 per-frame solution, all T frames are optimized jointly
 for 100 Adam steps (lr 0.01 -> 0.005 from step 61, betas frozen) under
@@ -61,6 +62,26 @@ def smoothness_prior_loss(enc_params, markers_with_hand, joints_frame0,
     return (dz ** 2).mean()
 
 
+def smoothness_prior_loss_batched(enc_params, markers, joints_frame0,
+                                  stats: GlobalStats,
+                                  reduce_clips: bool = True):
+    """Clip-batched :func:`smoothness_prior_loss`: markers
+    [C, T, 81, 3], joints_frame0 [C, 25, 3] -> the per-clip losses [C]
+    (or their sum). The C clip images run through the frozen encoder as
+    one N=C convolution batch."""
+    C, T = markers.shape[0], markers.shape[1]
+    R, _ = frame0_normalizer(joints_frame0.detach())      # [C, 3, 3]
+    origin = markers[:, 0, 0].detach()                     # [C, 3]
+    m = torch.matmul(markers - origin[:, None, None], R[:, None])
+    clip = stats.normalize(m.reshape(C, T, -1))
+    img = clip.transpose(1, 2)[:, None]                    # [C, 1, d, T]
+    vel = reflect_pad_dt(img[..., 1:] - img[..., :-1])
+    z, _ = smooth_enc_forward(enc_params, vel, downsample=False)
+    dz = z[..., 1:] - z[..., :-1]
+    per_clip = (dz ** 2).mean(dim=(1, 2, 3))
+    return per_clip.sum() if reduce_clips else per_clip
+
+
 def foot_selection(foot_ids: dict, device):
     """(all foot vertex ids [Nf] on `device`, {part: slice}) — the feet
     are selected once and differenced after selection."""
@@ -96,6 +117,54 @@ def contact_friction_loss(verts, contact_lbl, foot_sel, fps: float = 30.0,
     return total
 
 
+def contact_friction_loss_batched(feet, contact_lbl, part_slices,
+                                  fps: float = 30.0,
+                                  vel_thresh: float = 0.1,
+                                  reduce_clips: bool = True):
+    """Clip-batched friction: selected foot vertices [C, T, Nf, 3] and
+    labels [C, T, 4] -> per-clip hinge losses [C] (or their sum); the
+    velocities are differenced within each clip."""
+    vel = (feet[:, 1:] - feet[:, :-1]) * fps           # [C, T-1, Nf, 3]
+    per_clip = 0.0
+    for i, part in enumerate(FOOT_PARTS):
+        speeds = torch.sqrt((vel[:, :, part_slices[part], :] ** 2).sum(-1)
+                            + 1e-12)                   # [C, T-1, n]
+        w = contact_lbl[:, :-1, i][..., None]
+        over = (speeds > vel_thresh).to(speeds.dtype) * w
+        num = (speeds * over).sum(dim=(1, 2))
+        den = torch.clamp(over.sum(dim=(1, 2)), min=1.0)
+        per_clip = per_clip + num / den
+    return per_clip.sum() if reduce_clips else per_clip
+
+
+def _fitter_setup(model, vposer_params, smooth_enc_params, smooth_stats,
+                  marker_ids_67, marker_ids_81, foot_ids, device):
+    """The fitters' constants on the device, checked against the model."""
+    dev = resolve_device(device)
+    if model.device != dev:
+        raise ValueError(f"model is on {model.device}, fitter on {dev}")
+    exact_f32_matmuls()
+    return (dev, {k: v.to(dev) for k, v in vposer_params.items()},
+            {k: v.to(dev) for k, v in smooth_enc_params.items()},
+            smooth_stats.to(dev),
+            torch.as_tensor(np.asarray(marker_ids_67, np.int64), device=dev),
+            torch.as_tensor(np.asarray(marker_ids_81, np.int64), device=dev),
+            foot_selection(foot_ids, dev))
+
+
+def _init_vars(init72: torch.Tensor) -> dict:
+    """[..., 72] Stage-1 rows -> the optimized variables (betas frozen,
+    opt_amass_temp.py:335)."""
+    return {"transl": init72[..., 0:3],
+            "rot6d": aa_to_rot6d(init72[..., 3:6]),
+            "other": init72[..., 16:]}
+
+
+def _x72(v: dict, shape10: torch.Tensor) -> torch.Tensor:
+    return torch.cat([v["transl"], rot6d_to_aa(v["rot6d"]), shape10,
+                      v["other"]], dim=-1)
+
+
 def make_temporal_fitter(model: SmplxModel, vposer_params: dict,
                          smooth_enc_params: dict, smooth_stats: GlobalStats,
                          marker_ids_67, marker_ids_81, foot_ids: dict,
@@ -110,24 +179,15 @@ def make_temporal_fitter(model: SmplxModel, vposer_params: dict,
     statistics are moved there once. TF32 is turned off for cuBLAS and
     cuDNN (the forward and the conv prior are exact f32 in `lemo_tpu`).
     """
-    dev = resolve_device(device)
-    if model.device != dev:
-        raise ValueError(f"model is on {model.device}, fitter on {dev}")
-    exact_f32_matmuls()
+    dev, vpp, enc, stats, ids67, ids81, foot_sel = _fitter_setup(
+        model, vposer_params, smooth_enc_params, smooth_stats,
+        marker_ids_67, marker_ids_81, foot_ids, device)
     fwd = make_forward_fn(model)
-    vpp = {k: v.to(dev) for k, v in vposer_params.items()}
-    enc = {k: v.to(dev) for k, v in smooth_enc_params.items()}
-    stats = smooth_stats.to(dev)
-    ids67 = torch.as_tensor(np.asarray(marker_ids_67, np.int64), device=dev)
-    ids81 = torch.as_tensor(np.asarray(marker_ids_81, np.int64), device=dev)
-    foot_sel = foot_selection(foot_ids, dev)
     lr_table = piecewise_lr([(0, 0.01), (61, 0.005)], num_steps)
     num_expr = model.config.num_expressions
 
     def loss_fn(v, shape10, markers_target, contact_lbl):
-        x72 = torch.cat(
-            [v["transl"], rot6d_to_aa(v["rot6d"]), shape10, v["other"]],
-            dim=-1)
+        x72 = _x72(v, shape10)
         out = fwd(P.smplx_params_from_72(x72, vpp, num_expr), model.consts)
         verts = out["vertices"]
         total = (weights.rec_markers
@@ -144,22 +204,124 @@ def make_temporal_fitter(model: SmplxModel, vposer_params: dict,
         return total
 
     def fit(markers_target, contact_lbl, init72):
-        markers_target = torch.as_tensor(markers_target, dtype=torch.float32,
-                                         device=dev)
-        contact_lbl = torch.as_tensor(contact_lbl, dtype=torch.float32,
-                                      device=dev)
-        init72 = torch.as_tensor(init72, dtype=torch.float32, device=dev)
-        shape10 = init72[:, 6:16]  # betas frozen (opt_amass_temp.py:335)
-        init_vars = {
-            "transl": init72[:, 0:3],
-            "rot6d": aa_to_rot6d(init72[:, 3:6]),
-            "other": init72[:, 16:],
-        }
+        markers_target, contact_lbl, init72 = (
+            torch.as_tensor(x, dtype=torch.float32, device=dev)
+            for x in (markers_target, contact_lbl, init72))
+        shape10 = init72[:, 6:16]
         final, losses = run_adam(
             lambda v: loss_fn(v, shape10, markers_target, contact_lbl),
-            init_vars, num_steps, lr_table)
-        x72 = torch.cat([final["transl"], rot6d_to_aa(final["rot6d"]),
-                         shape10, final["other"]], dim=-1)
-        return x72, losses
+            _init_vars(init72), num_steps, lr_table)
+        return _x72(final, shape10), losses
 
     return fit
+
+
+def make_temporal_fitter_batched(model: SmplxModel, vposer_params: dict,
+                                 smooth_enc_params: dict,
+                                 smooth_stats: GlobalStats,
+                                 marker_ids_67, marker_ids_81,
+                                 foot_ids: dict, num_steps: int = 100,
+                                 weights: Stage2Weights = Stage2Weights(),
+                                 impl: str = "fold", fused: bool = True,
+                                 device=None):
+    """Clip-batched Stage-2 fitter: every input and output gains a leading
+    clip axis C: fit(markers [C, T, 67, 3], contact [C, T, 4],
+    init72 [C, T, 72]) -> (x72 [C, T, 72], per-clip losses [C, S]).
+
+    impl='fold' (the default): the C clips are folded into one forward of
+    C*T frames, so each chain and vertex kernel launch carries C*T frames,
+    and the conv prior runs as one N=C batch. The loss is the sum of the
+    per-clip losses; clip parameters are disjoint and Adam is
+    elementwise, so each clip follows its single-clip trajectory up to
+    f32 reassociation. The NaN/Inf freeze is per clip: a diverging clip
+    freezes only its own parameters and moments (`run_adam`'s
+    `per_clip`), so the others keep fitting.
+
+    impl='vmap': C independent single-clip fits, one after another. That
+    is the same math as `lemo_tpu`'s vmapped core (each clip its own
+    Adam, its own freeze); torch needs no vmap for it.
+
+    `fused=False` exists in `lemo_tpu` only for a clip axis sharded over a
+    device mesh, which this port does not have yet; it raises.
+    """
+    if not fused:
+        raise NotImplementedError(
+            "fused=False serves only the clip-sharded mesh fit, which the "
+            "port does not have yet (scale-out is not ported)")
+    if impl == "vmap":
+        single = make_temporal_fitter(
+            model, vposer_params, smooth_enc_params, smooth_stats,
+            marker_ids_67, marker_ids_81, foot_ids, num_steps, weights,
+            device)
+
+        def fit_each(markers_target, contact_lbl, init72):
+            outs = [single(m, c, x) for m, c, x in
+                    zip(markers_target, contact_lbl, init72)]
+            return (torch.stack([o[0] for o in outs]),
+                    torch.stack([o[1] for o in outs]))
+
+        return fit_each
+    if impl != "fold":
+        raise ValueError(impl)
+    dev, vpp, enc, stats, ids67, ids81, (foot_ids_t, slices) = \
+        _fitter_setup(model, vposer_params, smooth_enc_params, smooth_stats,
+                      marker_ids_67, marker_ids_81, foot_ids, device)
+    fwd = make_forward_fn(model)
+    lr_table = piecewise_lr([(0, 0.01), (61, 0.005)], num_steps)
+    num_expr = model.config.num_expressions
+
+    def loss_fn(v, shape10, markers_target, contact_lbl):
+        C, T = markers_target.shape[0], markers_target.shape[1]
+        x72 = _x72(v, shape10)                               # [C, T, 72]
+        out = fwd(P.smplx_params_from_72(x72.reshape(C * T, 72), vpp,
+                                         num_expr), model.consts)
+        verts = out["vertices"]                              # [C*T, V, 3]
+        mk = take_rows(verts, ids67).reshape(C, T, -1, 3)
+        per_clip = weights.rec_markers * \
+            (mk - markers_target).abs().mean(dim=(1, 2, 3))
+        per_clip = per_clip + weights.vposer * \
+            (x72[..., 16:48] ** 2).mean(dim=(1, 2))
+        per_clip = per_clip + weights.shape * \
+            (x72[..., 6:16] ** 2).mean(dim=(1, 2))
+        per_clip = per_clip + weights.hand * \
+            (x72[..., 48:] ** 2).mean(dim=(1, 2))
+        if weights.smooth:
+            m81 = take_rows(verts, ids81).reshape(C, T, -1, 3)
+            j0 = out["joints"].reshape(C, T, -1, 3)[:, 0, :25]
+            per_clip = per_clip + weights.smooth * \
+                smoothness_prior_loss_batched(enc, m81, j0, stats,
+                                              reduce_clips=False)
+        if weights.contact_vel:
+            feet = take_rows(verts, foot_ids_t).reshape(C, T, -1, 3)
+            per_clip = per_clip + weights.contact_vel * \
+                contact_friction_loss_batched(feet, contact_lbl, slices,
+                                              reduce_clips=False)
+        return per_clip.sum(), per_clip
+
+    def fit(markers_target, contact_lbl, init72):
+        markers_target, contact_lbl, init72 = (
+            torch.as_tensor(x, dtype=torch.float32, device=dev)
+            for x in (markers_target, contact_lbl, init72))
+        shape10 = init72[..., 6:16]
+        final, losses = run_adam(
+            lambda v: loss_fn(v, shape10, markers_target, contact_lbl),
+            _init_vars(init72), num_steps, lr_table, per_clip=True)
+        return _x72(final, shape10), losses
+
+    return fit
+
+
+def fit_clip_temporal(model: SmplxModel, vposer_params: dict,
+                      smooth_enc_params: dict, smooth_stats: GlobalStats,
+                      marker_ids_67, marker_ids_81, foot_ids: dict,
+                      markers_target, contact_lbl, init72,
+                      num_steps: int = 100,
+                      weights: Stage2Weights = Stage2Weights(),
+                      device=None):
+    """One clip's Stage-2 fit, [T, 67, 3] targets, [T, 4] contact and the
+    [T, 72] Stage-1 solution -> (x72, losses). Loops over clips should
+    build the fitter once with :func:`make_temporal_fitter`."""
+    return make_temporal_fitter(
+        model, vposer_params, smooth_enc_params, smooth_stats,
+        marker_ids_67, marker_ids_81, foot_ids, num_steps, weights,
+        device)(markers_target, contact_lbl, init72)

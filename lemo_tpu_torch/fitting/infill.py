@@ -6,11 +6,33 @@ channel-0 residual of the visible entries, then decodes once."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from lemo_tpu_torch.data import markers as mk
 from lemo_tpu_torch.fitting.adam import run_adam
 from lemo_tpu_torch.ops.signal import reflect_pad_dt, unpad_dt
 from lemo_tpu_torch.priors.conv_ae import infill_ae_forward
+
+
+def leg_mask_rows(d: int, mode: str = "local_markers_4chan") -> np.ndarray:
+    """Row indices of the leg markers zeroed during AMASS infill inference
+    (opt_amass_perframe.py:136-147); `d` is the image height."""
+    base = mk.LEG_MASK_MARKER_SLOTS * 3
+    offset = 3 if mode == "local_markers_4chan" else 6  # pelvis (+traj)
+    rows = np.concatenate([base + offset, base + offset + 1,
+                           base + offset + 2])
+    return np.sort(rows)
+
+
+def amass_input_mask(d: int, T: int,
+                     mode: str = "local_markers_4chan") -> np.ndarray:
+    """[d, T] keep-mask (1 = keep) of channel 0: the leg-marker rows and
+    the 4 contact rows zeroed."""
+    m = np.ones((d, T), np.float32)
+    m[leg_mask_rows(d, mode)] = 0.0
+    m[-4:] = 0.0
+    return m
 
 
 def finetune_weight_from_mask(mask_dT: torch.Tensor) -> torch.Tensor:

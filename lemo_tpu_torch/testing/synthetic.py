@@ -1,12 +1,15 @@
-"""Synthetic SMPL-X model npz, scene SDF and part segmentation (copies of
-`lemo_tpu/testing/synthetic.py`'s `synthetic_smplx_npz` with both
-topologies, `synthetic_sdf_grid`, `compact_part_table` and
-`write_part_segm_pkl`): the same keys, dtypes, shapes and kinematic
-topology as an official file, bit-identical to the JAX package's output
-for the same arguments (the random numbers are drawn in the same
-order)."""
+"""Synthetic stand-ins for licensed assets (copies of
+`lemo_tpu/testing/synthetic.py`): the SMPL-X model npz with both
+topologies and its model-directory writer, AMASS mocap sequences and
+their dataset writer, SSM2-schema marker sets, the scene SDF and the part
+segmentation. The same keys, dtypes, shapes and kinematic topology as the
+official files, bit-identical to the JAX package's output for the same
+arguments (the random numbers are drawn in the same order)."""
 
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 
@@ -223,6 +226,68 @@ def synthetic_smplx_npz(num_verts: int = 536, num_joints: int = 55,
     return out
 
 
+def write_smplx_model_dir(root: str, full_size: bool = False,
+                          seed: int = 0) -> str:
+    """Write male/female/neutral synthetic SMPL-X npzs in the layout
+    `smplx.create` expects, <root>/smplx/SMPLX_{GENDER}.npz (an existing
+    file is kept). Returns the smplx directory."""
+    d = os.path.join(root, "smplx")
+    os.makedirs(d, exist_ok=True)
+    for gender in ("male", "female", "neutral"):
+        path = os.path.join(d, f"SMPLX_{gender.upper()}.npz")
+        if not os.path.exists(path):
+            np.savez(path, **synthetic_smplx_npz(
+                gender=gender, full_size=full_size, seed=seed))
+    return d
+
+
+def synthetic_amass_npz(num_frames: int = 600, fps: int = 60,
+                        gender: str = "male", seed: int = 0) -> dict:
+    """One AMASS-format mocap sequence: poses [N, 156] (3 root + 63 body +
+    45 + 45 hands), trans [N, 3], betas [16], dmpls [N, 8],
+    mocap_framerate; smooth sinusoidal joint angles and a drifting root."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(num_frames) / fps
+    n_pose = 156
+    freqs = rng.uniform(0.3, 1.5, n_pose)
+    phases = rng.uniform(0, 2 * np.pi, n_pose)
+    amps = np.abs(rng.randn(n_pose)) * 0.12
+    poses = amps[None, :] * np.sin(2 * np.pi * freqs[None, :] * t[:, None]
+                                   + phases)
+    poses[:, 0:3] *= 0.3  # gentle root orientation wobble
+    trans = np.stack(
+        [0.5 * t * rng.uniform(0.5, 1.0), 0.3 * np.sin(0.7 * t),
+         0.02 * np.sin(3 * t)], axis=1)
+    return {
+        "poses": poses.astype(np.float64),
+        "trans": trans.astype(np.float64),
+        "betas": (rng.randn(16) * 0.5).astype(np.float64),
+        "dmpls": np.zeros((num_frames, 8)),
+        "gender": np.array(gender),
+        "mocap_framerate": np.array(float(fps)),
+    }
+
+
+def write_amass_dataset(root: str, dataset_name: str = "TotalCapture",
+                        num_subjects: int = 1, seqs_per_subject: int = 2,
+                        num_frames: int = 600, fps: int = 60,
+                        seed: int = 0) -> str:
+    """Write synthetic AMASS npzs in the on-disk layout the loaders scan,
+    <root>/<dataset>/<subject>/<name>_poses.npz (genders alternate; an
+    existing file is kept). Returns `root`."""
+    for s in range(num_subjects):
+        subj_dir = os.path.join(root, dataset_name, f"s{s:03d}")
+        os.makedirs(subj_dir, exist_ok=True)
+        for q in range(seqs_per_subject):
+            path = os.path.join(subj_dir, f"seq{q:02d}_poses.npz")
+            if not os.path.exists(path):
+                np.savez(path, **synthetic_amass_npz(
+                    num_frames=num_frames, fps=fps,
+                    gender="male" if (s + q) % 2 == 0 else "female",
+                    seed=seed + 31 * s + q))
+    return root
+
+
 def synthetic_sdf_grid(dim: int = 64, floor_z: float = 0.0) -> dict:
     """A scene SDF whose only geometry is a floor plane at z=floor_z,
     matching the PROX scenes_sdf format (json + flat npy grid + normals)."""
@@ -239,6 +304,26 @@ def synthetic_sdf_grid(dim: int = 64, floor_z: float = 0.0) -> dict:
         "sdf": sdf.astype(np.float32),
         "normals": normals.astype(np.float32),
     }
+
+
+def synthetic_marker_set(num_verts: int, n_markers: int = 67,
+                         seed: int = 3) -> dict:
+    """SSM2-format marker json dict: {'markersets': [{'indices': {...}}]}."""
+    rng = np.random.RandomState(seed)
+    ids = rng.choice(num_verts, size=n_markers, replace=num_verts < n_markers)
+    indices = {f"m{i:02d}": int(v) for i, v in enumerate(ids)}
+    return {"markersets": [{"type": "synthetic", "indices": indices}]}
+
+
+def write_marker_jsons(directory: str, num_verts: int) -> None:
+    """SSM2.json (67 markers) and SSM2_withhand.json (81) of
+    :func:`synthetic_marker_set` (an existing file is kept)."""
+    os.makedirs(directory, exist_ok=True)
+    for name, n in (("SSM2.json", 67), ("SSM2_withhand.json", 81)):
+        path = os.path.join(directory, name)
+        if not os.path.exists(path):
+            with open(path, "w") as fh:
+                json.dump(synthetic_marker_set(num_verts, n), fh)
 
 
 def compact_part_table(num_joints: int = 55):

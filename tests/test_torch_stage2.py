@@ -261,7 +261,8 @@ def test_synthetic_model_is_bit_identical(seed):
 
 
 def test_port_imports_no_jax():
-    """Importing the port and every submodule pulls in neither jax nor
+    """Importing the port and every submodule (the AMASS data layer,
+    both stages and both AMASS CLIs among them) pulls in neither jax nor
     any lemo_tpu module, and needs neither cv2 nor yaml (both are made
     unimportable first)."""
     code = (
@@ -273,6 +274,12 @@ def test_port_imports_no_jax():
         "'lemo_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "need = ['lemo_tpu_torch.data.amass',"
+        " 'lemo_tpu_torch.fitting.amass_perframe',"
+        " 'lemo_tpu_torch.fitting.amass_temp',"
+        " 'lemo_tpu_torch.cli.opt_amass_perframe',"
+        " 'lemo_tpu_torch.cli.opt_amass_temp']\n"
+        "assert all(m in sys.modules for m in need), need\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'optax' or m == 'lemo_tpu' or m.startswith('lemo_tpu.')]\n"
         "print(len(list(pkgutil.walk_packages(lemo_tpu_torch.__path__))))\n"

@@ -103,10 +103,35 @@ Phases (any failure raises and the script exits non-zero):
    ISECT_BOUND_RUN). The operands are kept in ISECT_OPERANDS for
    scripts/bench_torch_intersection.py.
    Phase 6 runs before phases 5 and 7, whose operands it captures.
+6b. Window-parallel PROX, after phase 6 on its recording and assets:
+   (1) `run_prox_fitting` with the all-terms config and `window_parallel:
+   true` (100 steps, the default Jacobi polish), counters zeroed before
+   and read after: the 170 pkls, the histories' lengths, one launch of
+   each kernel a fold step for both windows (plus the two pre-pass
+   forwards, the depth pre-pass's selections and one final-terms
+   evaluation a fit, counted), one coll K for both windows equal to the
+   larger window's auto-K, window 2's frozen head equal to window 1's
+   tail bit for bit, and the stage fit refitted through the kernels and
+   through the plain versions (10 steps under deterministic algorithms,
+   phase 6's tolerances); (2) on cfg_files/PROXD_temp_S3.yaml, window 1
+   of the two-window fold against the sequential fitter on the same
+   inputs, 10 steps under deterministic algorithms, within lemo_tpu's
+   tolerances (transl 2e-5, losses rtol 2e-4), and a fold of window 1
+   alone bit-equal to it; (3) the
+   W = 2 / 4 / 8 sweep on one 590-frame recording (its first W windows):
+   the once-per-recording seconds, peak memory, then the fold on each
+   run's inputs, 20 steps x 3 calls after a warm-up and a profiled 5-step
+   call (ms/step, frame-iters/s, launches, busy share), and the
+   sequential step at T=100 beside it; (4) each kernel against its plain
+   version at the fold's shapes: the body pairs at B = 200 and 800, the
+   Chamfer kernel at each call site of the all-terms fold, the
+   intersection kernel at [200, K].
 
-Prints the kernels' JSON line (rows 1-4 also carry their launches on
-the AMASS path, `launches_amass`, and their check at its frame counts,
-`amass_frames`), then as the last line
+Prints the W sweep's JSON rows, then the kernels' JSON line (rows 1-4
+also carry their launches on the AMASS path, `launches_amass`, and their
+check at its frame counts, `amass_frames`; phase 6b adds a row for each
+kernel at each of the fold's shapes, named "... fold ..."), then as the
+last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Exits non-zero without printing a result when CUDA is absent.
 """
@@ -144,8 +169,15 @@ AMASS_PROFILE_STEPS = 5        # steps of the sweep's profiled call
 # body-kernel frame counts of the AMASS path: Stage 1's T, folded C*T
 AMASS_KERNEL_FRAMES = tuple(C * (AMASS_CLIP_SECONDS * 30 - 1)
                             for C in AMASS_SWEEP_C)
+# phase 6b: the window-parallel fold
+WP_SWEEP_W = (2, 4, 8)         # windows a fold in the sweep
+WP_CHECK_STEPS = 10            # steps of the fold-vs-sequential check
+WP_PROFILE_STEPS = 5           # steps of the sweep's profiled calls
+# windows of 100 frames at stride 70: W windows need 100 + 70 (W - 1)
+WP_SWEEP_FRAMES = 100 + 70 * (max(WP_SWEEP_W) - 1)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PROX_CFG = os.path.join(ROOT, "cfg_files", "PROXD_temp_S3_all_terms.yaml")
+PROX_S3_CFG = os.path.join(ROOT, "cfg_files", "PROXD_temp_S3.yaml")
 PROX_DIR = os.path.join(ROOT, "lemo_tpu_torch", "_build", "prox_smoke")
 AMASS_DIR = os.path.join(ROOT, "lemo_tpu_torch", "_build", "amass_smoke")
 # phase 7's operands, for scripts/bench_torch_intersection.py
@@ -1061,15 +1093,22 @@ def phase_amass_checks(amass, card) -> None:
 def phase_amass_kernels(model, card) -> dict:
     """Phase 4b's kernel check: each body-model kernel entry point against
     its plain version at the frame counts the AMASS path gives it
-    (AMASS_KERNEL_FRAMES: Stage 1's T and the folded batches' C*T), on one
-    forward and backward of `model` at random seeded parameters, with
-    phase 2's tolerances, times and bounds. Returns {kernel: [row a B]}."""
+    (AMASS_KERNEL_FRAMES: Stage 1's T and the folded batches' C*T).
+    Returns {kernel: [row a B]}."""
+    return body_kernels_at(model, card, AMASS_KERNEL_FRAMES, "amass kernels")
+
+
+def body_kernels_at(model, card, frames, tag: str) -> dict:
+    """Each body-model kernel entry point against its plain version at B
+    frames for each B of `frames`, on one forward and backward of `model`
+    at random seeded parameters, with phase 2's tolerances, times and
+    bounds. Returns {kernel: [row a B]}."""
     from lemo_tpu_torch.body_model import chain_cuda as cc
     from lemo_tpu_torch.body_model import vertex_cuda as vc
 
     V, J = model.num_verts, len(model.parents)
     out: dict = {}
-    for B in AMASS_KERNEL_FRAMES:
+    for B in frames:
         ops = body_operands(model, frames=B)
         arl, jr, parents = ops["chain_affine_fwd_kernel"]
         _, _, A, dA, adtg, _ = ops["chain_affine_bwd_kernel"]
@@ -1096,7 +1135,7 @@ def phase_amass_kernels(model, card) -> dict:
         for name, (kern, plain, tol, relative) in pairs.items():
             row = hold_kernel(f"{name} at B={B} (Bp {catT.shape[1]})",
                               kern, plain, tol, relative, *work[name], card,
-                              tag="amass kernels")
+                              tag=tag)
             out.setdefault(name, []).append(
                 {**row, "name": name, "B": B, "Bp": int(catT.shape[1])})
     return out
@@ -1172,24 +1211,26 @@ def prox_recording(model_dict, device):
     return info
 
 
-def prox_config(info, out_dir: str, steps: int | None = None):
-    """The all-terms Stage-3 config as shipped, read by the port's own
-    parser, with the recording's part segmentation, `steps` Adam steps
-    per window, and no flip (the synthetic depth is rendered
-    unmirrored)."""
+def prox_config(info, out_dir: str, steps: int | None = None,
+                config: str = PROX_CFG, extra: tuple = ()):
+    """A shipped Stage-3 config (by default the all-terms one), read by
+    the port's own parser, with the recording's part segmentation,
+    `steps` Adam steps per window, no flip (the synthetic depth is
+    rendered unmirrored) and the `extra` flags."""
     from lemo_tpu_torch.config import parse_config
 
-    return parse_config(["--config", PROX_CFG,
+    return parse_config(["--config", config,
                          "--recording_dir", info["recording_dir"],
                          "--part_segm_fn", info["part_segm_fn"],
                          "--output_folder", out_dir, "--maxiters",
-                         str(steps or PROX_STEPS), "--flip", "false"])
+                         str(steps or PROX_STEPS), "--flip", "false",
+                         *extra])
 
 
 def prox_assets(model, info, cfg):
     """Synthetic assets: the recording's VPoser, a seeded random
     smoothness encoder, the shipped infill AE and statistics, and the
-    part filter `cfg` names."""
+    part filter `cfg` names (with interpenetration on)."""
     import torch
 
     from lemo_tpu_torch.data.stats import GlobalStats, Local4ChanStats
@@ -1200,7 +1241,7 @@ def prox_assets(model, info, cfg):
     dev = model.device
     assets = os.path.join(ROOT, "lemo_tpu_torch", "assets")
     faces_segm, ign_table = part_filter(cfg, model.faces)
-    if ign_table is None:
+    if cfg.interpenetration and ign_table is None:
         raise AssertionError("the part segmentation was not read")
     return ProxAssets(
         model=model, vposer_params=info["vposer_params"],
@@ -1292,11 +1333,7 @@ def phase_prox(model, model_dict, card):
     tally)."""
     import torch
 
-    from lemo_tpu_torch.body_model import chain_cuda as cc
-    from lemo_tpu_torch.body_model import vertex_cuda as vc
     from lemo_tpu_torch.fitting.prox import driver
-    from lemo_tpu_torch.ops import chamfer_cuda as chc
-    from lemo_tpu_torch.ops import intersection_cuda as ic
 
     t0 = time.perf_counter()
     info = prox_recording(model_dict, model.device)
@@ -1319,10 +1356,7 @@ def phase_prox(model, model_dict, card):
         fits.append((args, kw))             # the window's inputs
         return real_fit(*args, **kw)
 
-    launch_counts = (cc.launches, vc.launches, chc.launches, ic.launches)
-    for counts in launch_counts:
-        for name in counts:
-            counts[name] = 0
+    _zero_all_counts()
     driver.fit_window = recorded_fit
     try:
         with chamfer_spy(ops, tally), intersection_spy(isect, isect_tally), \
@@ -1331,7 +1365,7 @@ def phase_prox(model, model_dict, card):
     finally:
         driver.fit_window = real_fit
     torch.cuda.synchronize()
-    counts = {k: v for c in launch_counts for k, v in c.items()}
+    counts = _all_counts()
     for w, (verts, frame_counts) in enumerate(broad):
         np.savez(os.path.join(PROX_DIR, f"broad_phase_w{w + 1}.npz"),
                  verts=verts, counts=frame_counts, faces=model.faces,
@@ -1377,7 +1411,7 @@ def refit_windows(fits, plain_versions: bool, deterministic: bool = True,
 
 
 def phase_prox_check(info, results, counts, fits, card):
-    """Phase 6b: the checks of the main-path run, then each window refitted
+    """Phase 6's checks: the checks of the main-path run, then each window refitted
     through the kernels and through the plain versions of all five kernels
     (`refit_windows`), compared at the first step (each term within rel
     1e-4, the total within 1e-5) and at the last (rel 1e-3)."""
@@ -1466,10 +1500,456 @@ def phase_prox_check(info, results, counts, fits, card):
     return ms, fis
 
 
+def _all_counts() -> dict:
+    """Every kernel wrapper's launch count, by name."""
+    from lemo_tpu_torch.ops import chamfer_cuda as chc
+    from lemo_tpu_torch.ops import intersection_cuda as ic
+
+    return {**_body_counts(), **chc.launches, **ic.launches}
+
+
+def _zero_all_counts() -> None:
+    from lemo_tpu_torch.ops import chamfer_cuda as chc
+    from lemo_tpu_torch.ops import intersection_cuda as ic
+
+    _zero_body_counts()
+    for counts in (chc.launches, ic.launches):
+        for name in counts:
+            counts[name] = 0
+
+
+@contextlib.contextmanager
+def fold_spy(calls: list):
+    """Wrap the driver's `make_batched_window_fitter` so that every fit it
+    builds records its factory's arguments, its inputs (the parameters
+    cloned), its outputs and the kernels launched during the call."""
+    from lemo_tpu_torch.fitting.prox import driver
+
+    real = driver.make_batched_window_fitter
+
+    def build(*fargs, **fkw):
+        fit = real(*fargs, **fkw)
+
+        def spied(static_batch, params, first_mask, **kw):
+            params = {k: v.detach().clone() for k, v in params.items()}
+            before = _all_counts()
+            out = fit(static_batch, params, first_mask, **kw)
+            after = _all_counts()
+            calls.append({"factory": (fargs, fkw), "fit": fit,
+                          "inputs": (static_batch, params, first_mask),
+                          "kw": kw, "outputs": out,
+                          "launches": {k: after[k] - before[k]
+                                       for k in after}})
+            return out
+        spied.loss_folded = fit.loss_folded
+        return spied
+
+    driver.make_batched_window_fitter = build
+    try:
+        yield
+    finally:
+        driver.make_batched_window_fitter = real
+
+
+def _window_static(st_b, i: int):
+    """Window i of a batched ProxStatic."""
+    import dataclasses
+
+    from lemo_tpu_torch.fitting.prox.losses import PER_WINDOW_FIELDS
+
+    return dataclasses.replace(st_b, **{
+        f: getattr(st_b, f)[i] for f in PER_WINDOW_FIELDS
+        if getattr(st_b, f) is not None})
+
+
+def _fold_fitter(call, steps: int):
+    """A batched fitter from a recorded call's factory arguments, for
+    `steps` iterations."""
+    from lemo_tpu_torch.fitting.prox.window import make_batched_window_fitter
+
+    fargs, fkw = call["factory"]
+    return make_batched_window_fitter(*fargs, **dict(fkw, maxiters=steps))
+
+
+def phase_wp(model, info, card) -> dict:
+    """Phase 6b, check 1: the window-parallel path through
+    `run_prox_fitting` on phase 6's recording with the all-terms config
+    as shipped (`window_parallel: true`, PROX_STEPS steps, the default
+    Jacobi polish), every launch counter at 0 before it and read after.
+    Checks the pkls, the loss histories' length, one launch of each
+    kernel a fold step for both windows (plus the pre-pass forwards and
+    each fit's final-terms evaluation, counted), one coll K for both
+    windows (the larger auto-K), the bit-equal head hand-off, and the
+    fold refitted through the kernels and through the plain versions
+    (REFIT_STEPS steps under deterministic algorithms: first-step terms
+    within rel 1e-4, the total within 1e-5, last-step losses within rel
+    1e-3). Returns the launch counts, the Chamfer and intersection
+    operands and tallies, and the timings."""
+    import torch
+
+    from lemo_tpu_torch.fitting.prox import driver
+    from lemo_tpu_torch.fitting.prox.window import _OPT_KEYS, \
+        dispatch_chunk, whole_chunks
+
+    out_dir = os.path.join(PROX_DIR, "out_wp")
+    cfg = prox_config(info, out_dir, extra=("--window_parallel", "true"))
+    assets = prox_assets(model, info, cfg)
+    calls: list = []
+    ops: dict = {}
+    tally: dict = {}
+    isect: dict = {}
+    isect_tally: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    _zero_all_counts()
+    t0 = time.perf_counter()
+    with fold_spy(calls), chamfer_spy(ops, tally), \
+            intersection_spy(isect, isect_tally):
+        results = driver.run_prox_fitting(cfg, assets, verbose=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _all_counts()
+    timings = dict(driver.LAST_PARALLEL_TIMINGS)
+    W = len(results)
+    T = int(results[0].params["transl"].shape[0])
+    n_pkls = _check_pkls(out_dir, info)
+    _log(f"[wp] {W} windows fitted at once in {wall:.1f} s, {n_pkls} pkls "
+         f"in the reference schema; timings {json.dumps(timings)}; peak "
+         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if W != 2 or n_pkls != PROX_FRAMES:
+        raise AssertionError(f"expected 2 windows and {PROX_FRAMES} pkls")
+
+    chunk = dispatch_chunk(cfg.steps_per_dispatch, cfg.maxiters)
+    rounds, iters = driver.jacobi_rounds(cfg.window_polish_iters,
+                                         cfg.window_polish_rounds, chunk)
+    S, R = whole_chunks(cfg.maxiters, chunk), whole_chunks(iters, chunk)
+    for w, r in enumerate(results):
+        th = r.term_history
+        _log(f"[wp] window {w + 1} terms first -> last record: " + ", ".join(
+            f"{k} {th[k][0]:.6g} -> {th[k][-1]:.6g}" for k in th))
+        if len(r.loss_history) != S + rounds * R or \
+                len(th["total_loss"]) != 1 + rounds:
+            raise AssertionError(f"window {w + 1}: histories "
+                                 f"{len(r.loss_history)}, "
+                                 f"{len(th['total_loss'])}")
+        if not np.isfinite(r.loss_history).all() or \
+                not r.loss_history[S - 1] < r.loss_history[0]:
+            raise AssertionError(f"window {w + 1} did not descend")
+        for k in ("s2m_dist", "m2s_dist", "contact_loss",
+                  "self_penetration_loss"):
+            if not th[k][0] > 0:
+                raise AssertionError(f"window {w + 1}: {k} is zero")
+
+    # launches: one of each kernel a fold step for both windows; each fit
+    # call adds one loss evaluation (its final terms, forward only)
+    steps = sum(c["launches"]["chain_bwd"] for c in calls)
+    evals = steps + len(calls)
+    for c in calls:
+        n = whole_chunks(c["kw"].get("maxiters_override") or cfg.maxiters,
+                         chunk)
+        want = {"chain_fwd": n + 1, "vertex_fwd": n + 1, "chain_bwd": n,
+                "vertex_bwd": n, "intersection": n + 1,
+                "chamfer": 3 * (n + 1)}
+        if c["launches"] != want:
+            raise AssertionError(f"fold call launches {c['launches']}, "
+                                 f"expected {want}")
+    # outside the fits: the candidate pre-pass's and the infill markers'
+    # forwards of all W*T warm-start frames, and the depth pre-pass's 4
+    # Chamfer selections a window
+    want = {"chain_fwd": evals + 2, "vertex_fwd": evals + 2,
+            "chain_bwd": steps, "vertex_bwd": steps, "intersection": evals,
+            "chamfer": 3 * evals + 4 * W}
+    _log(f"[wp] launches {counts}: {steps} fold steps ({S} stage + "
+         f"{rounds} Jacobi round(s) of {R}) for both windows, "
+         f"{len(calls)} final-terms evaluations, 2 pre-pass forwards and "
+         f"{4 * W} depth pre-pass selections; expected {want}")
+    if counts != want:
+        raise AssertionError(f"window-parallel launches {counts}, "
+                             f"expected {want}")
+
+    bp = results[0].broad_phase
+    F = model.faces.shape[0]
+    Ks = [driver._coll_pick_K(cfg, na, nw, F) for na, nw in bp["per_window"]]
+    st_b = calls[0]["inputs"][0]
+    _log(f"[wp] coll broad phase over both windows: per window (n_active, "
+         f"n_within) {bp['per_window']}, their own auto-K {Ks}; one K "
+         f"{bp['K']} for both, candidate ids "
+         f"{list(st_b.coll_candidate_ids.shape)}; {bp['scores_s']:.3f} s")
+    if bp["K"] != max(Ks) or \
+            tuple(st_b.coll_candidate_ids.shape) != (W, T, bp["K"]):
+        raise AssertionError("the coll K was not harmonized")
+
+    off = int(0.7 * T)                       # window 2 starts at frame off
+    n = min(T - off, int(T * 0.15))
+    same = all(np.array_equal(results[1].params[k][:n],
+                              results[0].params[k][off:off + n])
+               for k in results[0].params) and np.array_equal(
+        results[1].pose_embedding[:n], results[0].pose_embedding[off:off + n])
+    _log(f"[wp] window 2's frozen head ({n} frames) equals window 1's final "
+         f"tail bit for bit: {same}")
+    if not same:
+        raise AssertionError("the head hand-off is not bit-equal")
+
+    # the stage fit again from its inputs, through the kernels and through
+    # the plain versions, deterministic algorithms
+    call = calls[0]
+    st_in, warm, first = call["inputs"]
+    fit = _fold_fitter(call, REFIT_STEPS)
+    opt = {k: warm[k] for k in _OPT_KEYS + ("pose_embedding",)}
+    betas = warm["betas"].mean(1, keepdim=True).expand_as(
+        warm["betas"]).contiguous()
+    out, secs = {}, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, ctx in (("kernels", contextlib.nullcontext()),
+                          ("plain", plain_twins())):
+            with ctx:
+                with torch.no_grad():
+                    _, terms = fit.loss_folded(opt, betas, st_in)
+                t1 = time.perf_counter()
+                res = fit(st_in, warm, first)
+                torch.cuda.synchronize()
+                secs[name] = time.perf_counter() - t1
+            out[name] = ({k: v.cpu().numpy() for k, v in terms.items()},
+                         res[2].cpu().numpy())
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (tk, lk), (tp, lp) = out["kernels"], out["plain"]
+    faults = []
+    for w in range(W):
+        rel0 = {n_: abs(tk[n_][w] - tp[n_][w]) / abs(tp[n_][w])
+                for n_ in tk if tp[n_][w]}
+        _log(f"[wp] refit window {w + 1} first step kernels vs plain (rel): "
+             + ", ".join(f"{n_} {tk[n_][w]:.7g}/{tp[n_][w]:.7g} ({r0:.2e})"
+                         for n_, r0 in rel0.items()))
+        for n_, r0 in rel0.items():
+            tol0 = 1e-5 if n_ == "total_loss" else 1e-4
+            if not r0 < tol0:
+                faults.append(f"window {w + 1} first-step {n_} differs by "
+                              f"rel {r0:.3e} (tol {tol0:g})")
+        rel = abs(lk[w, -1] - lp[w, -1]) / abs(lp[w, -1])
+        _log(f"[wp] refit window {w + 1} step {REFIT_STEPS} loss kernels "
+             f"{lk[w, -1]:.7f} vs plain {lp[w, -1]:.7f} (rel {rel:.3e}, "
+             f"tol 1e-3)")
+        if not rel < 1e-3:
+            faults.append(f"window {w + 1} last-step loss differs by rel "
+                          f"{rel:.3e}")
+    _log(f"[wp] fold refits ({REFIT_STEPS} steps, both windows, "
+         f"deterministic): kernels {secs['kernels'] / REFIT_STEPS * 1e3:.3f}"
+         f" ms/step, plain {secs['plain'] / REFIT_STEPS * 1e3:.3f} ms/step "
+         f"on {card}")
+    if faults:
+        raise AssertionError("; ".join(faults))
+    return {"counts": counts, "ops": ops, "tally": tally, "isect": isect,
+            "isect_tally": isect_tally, "timings": timings, "T": T}
+
+
+def phase_wp_vs_sequential(model, info, card) -> None:
+    """Phase 6b, check 2: the fold against the sequential fitter on
+    PROXD_temp_S3.yaml (coll, depth and contact off, so no K), on the
+    inputs of a window-parallel run without polish, WP_CHECK_STEPS steps,
+    all under deterministic algorithms: window 1 of the run's two-window
+    fold within lemo_tpu's fold-against-sequential tolerances (transl
+    atol 2e-5, losses rtol 2e-4, tests/test_window_parallel.py:42-45),
+    and a fold of window 1 alone (the sequential fit's frame batch) equal
+    to the sequential fit bit for bit."""
+    import dataclasses
+
+    import torch
+
+    from lemo_tpu_torch.fitting.prox import driver
+    from lemo_tpu_torch.fitting.prox.losses import PER_WINDOW_FIELDS
+    from lemo_tpu_torch.fitting.prox.window import make_window_fitter
+
+    cfg = prox_config(info, os.path.join(PROX_DIR, "out_wp_s3"),
+                      steps=WP_CHECK_STEPS, config=PROX_S3_CFG,
+                      extra=("--window_parallel", "true",
+                             "--window_polish_iters", "0"))
+    assets = prox_assets(model, info, cfg)
+    calls: list = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with fold_spy(calls):
+            results = driver.run_prox_fitting(cfg, assets, verbose=True)
+        call = calls[0]
+        st_b, warm, first = call["inputs"]
+        fargs, fkw = call["factory"]
+        final, l_seq, _, _ = make_window_fitter(
+            *fargs[:5], maxiters=WP_CHECK_STEPS, lr=fkw["lr"],
+            steps_per_dispatch=fkw["steps_per_dispatch"],
+            priors=fkw["priors"], use_vposer=fkw["use_vposer"])(
+            _window_static(st_b, 0), {k: v[0] for k, v in warm.items()},
+            True)
+        one = dataclasses.replace(st_b, **{
+            f: getattr(st_b, f)[:1] for f in PER_WINDOW_FIELDS
+            if getattr(st_b, f) is not None})
+        ov1, _, l_one, _ = _fold_fitter(call, WP_CHECK_STEPS)(
+            one, {k: v[:1] for k, v in warm.items()}, first[:1])
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = all(torch.equal(ov1[k][0], final[k]) for k in final) and \
+        torch.equal(l_one[0], l_seq)
+    t_err = float(np.abs(results[0].params["transl"]
+                         - final["transl"].cpu().numpy()).max())
+    ls = l_seq.cpu().numpy()
+    lf = results[0].loss_history
+    l_err = float((np.abs(lf - ls) / np.abs(ls)).max())
+    _log(f"[wp] window 1 of the W={len(results)} fold vs the sequential "
+         f"fitter, {WP_CHECK_STEPS} steps on PROXD_temp_S3.yaml, "
+         f"deterministic algorithms: transl max |d| {t_err:.3e} (tol 2e-5),"
+         f" losses max rel {l_err:.3e} (tol 2e-4); final loss fold "
+         f"{lf[-1]:.7f} sequential {ls[-1]:.7f}; a fold of window 1 alone "
+         f"bit-equal to the sequential fit {same}; on {card}")
+    if not (lf.shape == ls.shape and t_err <= 2e-5 and l_err <= 2e-4
+            and same):
+        raise AssertionError("the fold's window 1 differs from the "
+                             "sequential fit")
+
+
+def _fold_step_timing(fit_of, args, steps: int) -> dict:
+    """ms/step over N_CALLS calls of `fit_of(steps)` after a warm-up, the
+    kernel launches of those calls a step, and a profiled call of
+    WP_PROFILE_STEPS steps (device-busy time, kernels launched)."""
+    import torch
+
+    fit = fit_of(steps)
+    fit(*args)
+    torch.cuda.synchronize()
+    _zero_all_counts()
+    t0 = time.perf_counter()
+    for _ in range(N_CALLS):
+        fit(*args)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: n for k, n in _all_counts().items() if n}
+    prof = _profile_call(fit_of(WP_PROFILE_STEPS), args)
+    ms = dt / (N_CALLS * steps) * 1e3
+    busy = prof["busy_us"] / WP_PROFILE_STEPS / 1e3
+    return {"ms_per_step": ms, "launches": launches,
+            "launches_per_step": {k: n / (N_CALLS * steps)
+                                  for k, n in launches.items()},
+            "profiled_ms_per_step": prof["wall_us"] / WP_PROFILE_STEPS / 1e3,
+            "device_busy_ms_per_step": busy,
+            "device_busy_share": prof["busy_us"] / prof["wall_us"],
+            "device_busy_share_of_unprofiled_wall": busy / ms,
+            "kernel_launches_per_step": prof["kernels"] / WP_PROFILE_STEPS}
+
+
+def phase_wp_sweep(model, model_dict, card) -> list[dict]:
+    """Phase 6b, check 3: the fold against W on PROXD_temp_S3.yaml. One
+    recording of WP_SWEEP_FRAMES frames from the port's writer; its first
+    W windows are those of a 100 + 70 (W - 1)-frame recording. For each W
+    of WP_SWEEP_W: `run_prox_fitting` (window_parallel, no polish,
+    STEPS steps, max_windows W) with the counters at 0 before it, for the
+    once-per-recording seconds (LAST_PARALLEL_TIMINGS), its launches and
+    its peak memory; then the fold on that run's inputs, STEPS steps a
+    call (`_fold_step_timing`). Last, the sequential fitter on window 1's
+    inputs at T=100, timed the same way. Returns one row a W and the
+    sequential row."""
+    import torch
+
+    from lemo_tpu_torch.fitting.prox import driver
+    from lemo_tpu_torch.fitting.prox.window import make_window_fitter
+    from lemo_tpu_torch.testing.synthetic_prox import \
+        write_synthetic_prox_recording
+
+    t0 = time.perf_counter()
+    base = os.path.join(PROX_DIR, "sweep")
+    info = write_synthetic_prox_recording(
+        os.path.join(base, "data"), num_frames=WP_SWEEP_FRAMES,
+        model_dict=model_dict, seed=1, pose_scale=0.35,
+        device=model.device)
+    info["part_segm_fn"] = ""
+    _log(f"[wp sweep] recording of {WP_SWEEP_FRAMES} frames written in "
+         f"{time.perf_counter() - t0:.1f} s")
+    cfg = prox_config(info, os.path.join(base, "out"), steps=STEPS,
+                      config=PROX_S3_CFG,
+                      extra=("--window_parallel", "true",
+                             "--window_polish_iters", "0"))
+    assets = prox_assets(model, info, cfg)
+    rows = []
+    call = None
+    for W in WP_SWEEP_W:
+        calls: list = []
+        torch.cuda.reset_peak_memory_stats()
+        _zero_all_counts()
+        t1 = time.perf_counter()
+        with fold_spy(calls):
+            results = driver.run_prox_fitting(cfg, assets, max_windows=W,
+                                              verbose=False)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        run_counts = {k: n for k, n in _all_counts().items() if n}
+        timings = dict(driver.LAST_PARALLEL_TIMINGS)
+        call = calls[0]
+        T = int(results[0].params["transl"].shape[0])
+        row = {"W": W, "frames": W * T,
+               "recording_frames": T + int(0.7 * T) * (W - 1),
+               "run_s": run_s, "run_launches": run_counts,
+               "once_per_recording_s": {
+                   k: timings[k] for k in ("load_s", "prepass_s",
+                                           "static_build_s", "save_s")},
+               "run_fit_s": timings["fit_s"], "total_s": timings["total_s"]}
+        st_b, warm, first = call["inputs"]
+        row.update(_fold_step_timing(lambda n: _fold_fitter(call, n),
+                                     (st_b, warm, first), STEPS))
+        row["frame_iters_per_s"] = W * T / row["ms_per_step"] * 1e3
+        row["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        rows.append(row)
+        _log(f"[wp sweep] W={W} ({W * T} frames a launch): "
+             f"{row['ms_per_step']:.3f} ms/step, "
+             f"{row['frame_iters_per_s']:.1f} frame-iters/s ({STEPS} steps "
+             f"x {N_CALLS} calls); launches a step "
+             f"{row['launches_per_step']}; profiled "
+             f"{row['profiled_ms_per_step']:.3f} ms/step, device busy "
+             f"{row['device_busy_ms_per_step']:.3f} ms/step "
+             f"({100 * row['device_busy_share']:.1f}% of the profiled wall, "
+             f"{100 * row['device_busy_share_of_unprofiled_wall']:.1f}% of "
+             f"the unprofiled), {row['kernel_launches_per_step']:.0f} kernel "
+             f"launches a step; once a recording "
+             f"{row['once_per_recording_s']}; peak memory "
+             f"{row['peak_memory_gib']:.2f} GiB; on {card}")
+        # one launch of each body kernel a step for all W windows, and one
+        # forward a call for its final terms
+        want = {"chain_bwd": N_CALLS * STEPS, "vertex_bwd": N_CALLS * STEPS,
+                "chain_fwd": N_CALLS * (STEPS + 1),
+                "vertex_fwd": N_CALLS * (STEPS + 1)}
+        if row["launches"] != want:
+            raise AssertionError(f"W={W}: launches {row['launches']}, "
+                                 f"expected {want}")
+
+    # the sequential step on the same config, window 1's inputs, T=100
+    st_b, warm, _ = call["inputs"]
+    fargs, fkw = call["factory"]
+
+    def seq_of(n):
+        fit = make_window_fitter(
+            *fargs[:5], maxiters=n, lr=fkw["lr"],
+            steps_per_dispatch=fkw["steps_per_dispatch"],
+            priors=fkw["priors"], use_vposer=fkw["use_vposer"])
+        return fit
+
+    T = int(warm["transl"].shape[1])
+    seq = {"W": "sequential", "frames": T}
+    seq.update(_fold_step_timing(
+        seq_of, (_window_static(st_b, 0), {k: v[0] for k, v in warm.items()},
+                 True), STEPS))
+    seq["frame_iters_per_s"] = T / seq["ms_per_step"] * 1e3
+    _log(f"[wp sweep] sequential window (T={T}): {seq['ms_per_step']:.3f} "
+         f"ms/step, {seq['frame_iters_per_s']:.1f} frame-iters/s; launches "
+         f"a step {seq['launches_per_step']}; device busy "
+         f"{seq['device_busy_ms_per_step']:.3f} ms/step "
+         f"({100 * seq['device_busy_share']:.1f}% of the profiled wall), "
+         f"{seq['kernel_launches_per_step']:.0f} kernel launches a step; "
+         f"on {card}")
+    return rows + [seq]
+
+
 # Phase 5's rows: each names the calls of `nn_distance` it takes, by the
 # calling function and the call's text (their lines may move): the depth
 # pre-pass's candidate passes and K x K subset passes, the depth terms'
-# K x K calls and the contact term (all in lemo_tpu_torch/fitting/prox/)
+# K x K calls and the contact term (all in lemo_tpu_torch/fitting/prox/;
+# the window-parallel fold reaches the same calls)
 _CHAMFER_SITES = {
     "chamfer/s2m_pass": [("_depth_candidate_data",
                           "nn_distance(scan, verts, vis)")],
@@ -1477,12 +1957,14 @@ _CHAMFER_SITES = {
                           "nn_distance(verts, scan, scan_m)")],
     "chamfer/KxK_s2m": [("_depth_candidate_data",
                          "nn_distance(sc_c, v_c, vis_c)"),
-                        ("depth_terms", "nn_distance(scan_c, v_c, vis_c)")],
+                        ("depth_frame_terms",
+                         "nn_distance(scan_c, v_c, vis_c)")],
     "chamfer/KxK_m2s": [("_depth_candidate_data",
                          "nn_distance(v_c, sc_c, sm_c)"),
-                        ("depth_terms",
+                        ("depth_frame_terms",
                          "nn_distance(v_c, scan_c, scan_m_c)")],
-    "chamfer/contact": [("contact_term", "nn_distance(cv, st.scene_verts)")],
+    "chamfer/contact": [("contact_frame_terms",
+                         "nn_distance(cv, st.scene_verts)")],
 }
 
 
@@ -1495,13 +1977,15 @@ def _chamfer_site(caller: str, func: str, text: str) -> str:
     return f"chamfer/{caller}"
 
 
-def phase_chamfer(ops, tally, launches, card) -> list[dict]:
+def phase_chamfer(ops, tally, launches, card, run: str = "phase 6",
+                  prefix: str = "", save: bool = True) -> list[dict]:
     """Phase 5: the kernel against its plain version on every (call site,
-    shape) the phase-6 run gave it: indices equal and distances equal bit
-    for bit, and a second launch bit-identical. One row per site of
-    `_CHAMFER_SITES`, with the launches of all its calls (which must add
-    up to the wrapper's count, `launches`), timed on the operands of its
-    most-launched call; those operands are saved in CHAMFER_OPERANDS for
+    shape) the phase-6 run (or `run`) gave it: indices equal and distances
+    equal bit for bit, and a second launch bit-identical. One row per site
+    of `_CHAMFER_SITES` (its name after `prefix`), with the launches of
+    all its calls (which must add up to the wrapper's count, `launches`),
+    timed on the operands of its most-launched call; with `save`, those
+    operands are saved in CHAMFER_OPERANDS for
     scripts/bench_torch_chamfer.py."""
     import torch
 
@@ -1533,7 +2017,7 @@ def phase_chamfer(ops, tally, launches, card) -> list[dict]:
         _log(f"[chamfer] {key[0]} at {key[1]} q{list(key[2])} "
              f"p{list(key[3])}: idx equal {agree:.6f}, dmin bit-equal to "
              f"plain {same}, max |d| err {d_err:.3e} m^2, repeat launch "
-             f"bit-identical {repeat}; called {tally[key]}x in phase 6")
+             f"bit-identical {repeat}; called {tally[key]}x in {run}")
         if not (same and repeat):
             faults.append(f"{key[0]} at {key[1]}: bits differ from plain "
                           f"({same}) or between launches ({repeat})")
@@ -1572,8 +2056,8 @@ def phase_chamfer(ops, tally, launches, card) -> list[dict]:
              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}, {pairs:.4e} "
              f"valid pairs of {float(T) * N * M:.4e}); valid query rows per "
              f"frame {spread(nq)}, valid points {spread(npv)}; launched "
-             f"{n_launch}x in phase 6 ({callers}); on {card}")
-        rows.append({"name": name, "route": "cuda",
+             f"{n_launch}x in {run} ({callers}); on {card}")
+        rows.append({"name": prefix + name, "route": "cuda",
                      "source": "lemo_tpu_torch/csrc/chamfer.cu",
                      "replaces": "lemo_tpu/ops/chamfer_pallas.py:41",
                      "launches": n_launch,
@@ -1588,7 +2072,8 @@ def phase_chamfer(ops, tally, launches, card) -> list[dict]:
         saved[name] = {"query": q.cpu(), "points": p.cpu(),
                        "mask": None if m is None else m.cpu(),
                        "launches": n_launch, "caller": key[1]}
-    torch.save(saved, CHAMFER_OPERANDS)
+    if save:
+        torch.save(saved, CHAMFER_OPERANDS)
     if set(sites) != set(_CHAMFER_SITES):
         raise AssertionError(f"chamfer call sites seen: {sorted(sites)}, "
                              f"expected {sorted(_CHAMFER_SITES)}")
@@ -1660,13 +2145,17 @@ def check_cone_energy(name: str, got, again, ref) -> dict:
     return out
 
 
-def phase_intersection(isect, tally, launches, card) -> list[dict]:
+def phase_intersection(isect, tally, launches, card, run: str = "phase 6",
+                       prefix: str = "", full_f: bool = True
+                       ) -> list[dict]:
     """Phase 7: the intersection kernel against its plain version on the
     operands of the first self-intersection call of each shape phase 6
-    gave it (each window's [T, K] candidate subsets), and on all F faces
-    of 4 frames of the first (the full-F path). Returns one JSON row per
-    main-path shape, with its launches; the full-F shape, which the
-    shipped config does not run, is printed only."""
+    (or `run`) gave it (each window's [T, K] candidate subsets), and, with
+    `full_f`, on all F faces of 4 frames of the first (the full-F path,
+    whose operands are saved in ISECT_OPERANDS with the others). Returns
+    one JSON row per main-path shape (its name after `prefix`), with its
+    launches; the full-F shape, which the shipped config does not run, is
+    printed only."""
     import torch
 
     from lemo_tpu_torch.ops import intersection as ti
@@ -1677,14 +2166,17 @@ def phase_intersection(isect, tally, launches, card) -> list[dict]:
                              f"loss called it {tally}")
     sites = [(f"intersection/subset_K{key[1][-1]}", key) + isect[key]
              for key in isect if key[1] is not None]
-    v0, faces, kw0 = next(iter(isect.values()))
-    sites.append(("intersection/full_F", None, v0[:N_FULL_F_FRAMES], faces,
-                  dict(kw0, candidate_ids=None)))
-    def cpu(x):
-        return x.cpu() if torch.is_tensor(x) else x
+    if full_f:
+        v0, faces, kw0 = next(iter(isect.values()))
+        sites.append(("intersection/full_F", None, v0[:N_FULL_F_FRAMES],
+                      faces, dict(kw0, candidate_ids=None)))
 
-    torch.save({name: (cpu(v), cpu(f), {k: cpu(x) for k, x in kw_.items()})
-                for name, _, v, f, kw_ in sites}, ISECT_OPERANDS)
+        def cpu(x):
+            return x.cpu() if torch.is_tensor(x) else x
+
+        torch.save({name: (cpu(v), cpu(f),
+                           {k: cpu(x) for k, x in kw_.items()})
+                    for name, _, v, f, kw_ in sites}, ISECT_OPERANDS)
     rows = []
     for name, key, v, faces, kw_ in sites:
         ops = ti.kernel_operands(v, faces, **kw_)
@@ -1717,9 +2209,9 @@ def phase_intersection(isect, tally, launches, card) -> list[dict]:
              f"{gates[1]:.4e}, past validity/adjacency/part {gates[2]:.4e}, "
              f"past the forward straddle test {gates[3]:.4e}, past both "
              f"{gates[4]:.4e}; repeat launch bit-identical {chk['repeat']}; "
-             f"launched {n_launch}x in phase 6; on {card}")
+             f"launched {n_launch}x in {run}; on {card}")
         if n_launch:
-            rows.append({"name": name, "route": "cuda",
+            rows.append({"name": prefix + name, "route": "cuda",
                          "source": "lemo_tpu_torch/csrc/intersection.cu",
                          "replaces": "lemo_tpu/ops/intersection_pallas.py:55",
                          "launches": n_launch,
@@ -1734,6 +2226,33 @@ def phase_intersection(isect, tally, launches, card) -> list[dict]:
         raise AssertionError("the main path did not launch the "
                              "intersection kernel")
     return rows
+
+
+def fold_kernel_rows(model, rows, wp, sweep_wp, card) -> list[dict]:
+    """Phase 6b's kernel rows: each kernel against its plain version at
+    the fold's shapes. The body-model pairs at B = 2 T (the all-terms fold,
+    launches from phase 6b's main run) and at the sweep's largest W (its
+    run's launches); the Chamfer kernel at each call site of the all-terms
+    fold and the intersection kernel at its [W T, K] (phases 5's and 7's
+    checks, launches from phase 6b's main run)."""
+    base = {r["name"]: r for r in rows}
+    big = sweep_wp[len(WP_SWEEP_W) - 1]
+    launches = {2 * wp["T"]: wp["counts"], big["frames"]: big["run_launches"]}
+    out = []
+    at = body_kernels_at(model, card, tuple(launches), "wp kernels")
+    for name, per_b in at.items():
+        for row in per_b:
+            out.append({**row, "name": f"{name} fold B={row['B']}",
+                        "route": "cuda", "source": base[name]["source"],
+                        "replaces": base[name]["replaces"],
+                        "launches": launches[row["B"]].get(name, 0),
+                        "library_ms": None})
+    out += phase_chamfer(wp["ops"], wp["tally"], wp["counts"]["chamfer"],
+                         card, run="phase 6b", prefix="fold ", save=False)
+    out += phase_intersection(wp["isect"], wp["isect_tally"],
+                              wp["counts"]["intersection"], card,
+                              run="phase 6b", prefix="fold ", full_f=False)
+    return out
 
 
 def main() -> int:
@@ -1783,6 +2302,12 @@ def main() -> int:
     rows += phase_intersection(isect, isect_tally, p_counts["intersection"],
                                card)
     phase_prox_check(info, results, p_counts, fits, card)
+    del ops, isect, fits
+    wp = phase_wp(model, info, card)
+    phase_wp_vs_sequential(model, info, card)
+    sweep_wp = phase_wp_sweep(model, model_dict, card)
+    rows += fold_kernel_rows(model, rows, wp, sweep_wp, card)
+    _log(f"[wp sweep] {json.dumps(sweep_wp)}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,20 +23,33 @@ def latent_dim(params: dict | None) -> int:
     return LATENT_DIM if w is None else int(w.shape[1])
 
 
-def _linear(p, name, x):
-    return F.linear(x, p[f"{name}.weight"], p[f"{name}.bias"])
+def _linear(p, name, x, rows=None):
+    """x @ w^T + b. On a CUDA tensor with `rows`, one product per block of
+    `rows` rows: cuBLAS picks its kernel, and with it the rounding, by
+    the row count, so a block rounds as a product of its rows alone does.
+    On the CPU one product of all rows, the order `lemo_tpu`'s fold
+    decodes in and the CPU tests hold the port to (a product a block
+    there rounds apart below 16 rows, and misses `lemo_tpu`'s all-terms
+    fold; PERF.md section 6)."""
+    w, b = p[f"{name}.weight"], p[f"{name}.bias"]
+    if rows is None or x.shape[0] <= rows or not x.is_cuda:
+        return F.linear(x, w, b)
+    return torch.cat([F.linear(c, w, b) for c in x.split(rows)])
 
 
 def _lrelu(x):
     return torch.where(x >= 0, x, 0.2 * x)
 
 
-def decode(params, z, output_type: str = "aa"):
+def decode(params, z, output_type: str = "aa", rows: int | None = None):
     """z [B, 32] -> body pose: 'aa' [B, 63] axis-angle, 'matrot'
-    [B, 1, 21, 9]."""
-    h = _lrelu(_linear(params, "bodyprior_dec_fc1", z))
-    h = _lrelu(_linear(params, "bodyprior_dec_fc2", h))
-    h = _linear(params, "bodyprior_dec_out", h)  # [B, 21*6]
+    [B, 1, 21, 9]. With `rows`, on the card each linear layer runs one
+    matrix product per block of `rows` rows, so that a fit of several
+    clips or windows folded into one batch decodes each block as its own
+    fit does (the rest of the decoder works row by row)."""
+    h = _lrelu(_linear(params, "bodyprior_dec_fc1", z, rows))
+    h = _lrelu(_linear(params, "bodyprior_dec_fc2", h, rows))
+    h = _linear(params, "bodyprior_dec_out", h, rows)  # [B, 21*6]
     R = rot6d_to_matrot(h.reshape(-1, 6))  # [B*21, 3, 3]
     if output_type == "matrot":
         return R.reshape(z.shape[0], 1, NUM_JOINTS, 9)

@@ -7,7 +7,9 @@ temp_prox/main_slide.py):
       --model_folder /path/to/body_models --vposer_ckpt /path/to/vposer \
       --part_segm_fn /path/to/body_models/smplx_parts_segm.pkl
 
-Runs on the CUDA card.
+Runs on the CUDA card. `--window_parallel true` fits all windows at once
+(`--window_polish_iters`, `--window_polish_mode jacobi|sequential` and
+`--window_polish_rounds` set its polish pass).
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ from __future__ import annotations
 import sys
 
 
-def main(argv=None):
+def main(argv=None, device=None):
+    """`device`: where the fit runs (None: the CUDA card)."""
     from lemo_tpu_torch.config import parse_config
     from lemo_tpu_torch.fitting.prox.driver import run_prox_fitting
 
@@ -23,7 +26,7 @@ def main(argv=None):
     if not cfg.recording_dir:
         print("error: --recording_dir is required", file=sys.stderr)
         sys.exit(2)
-    return run_prox_fitting(cfg)
+    return run_prox_fitting(cfg, device=device)
 
 
 if __name__ == "__main__":

@@ -328,11 +328,6 @@ class ProxConfig:
 
 def check_ported(cfg: ProxConfig) -> None:
     """Raise on a set option whose path the port does not have yet."""
-    if cfg.window_parallel:
-        raise NotImplementedError(
-            "window_parallel: the window-parallel fitter is not ported to "
-            "lemo_tpu_torch yet (ROADMAP.md queue 1, slice 8); windows run "
-            "sequentially with window_parallel: false")
     if cfg.save_meshes or cfg.render_results:
         raise NotImplementedError(
             "save_meshes / render_results: the per-window mesh and render "

@@ -233,9 +233,13 @@ def make_temporal_fitter_batched(model: SmplxModel, vposer_params: dict,
     and the conv prior runs as one N=C batch. The loss is the sum of the
     per-clip losses; clip parameters are disjoint and Adam is
     elementwise, so each clip follows its single-clip trajectory up to
-    f32 reassociation. The NaN/Inf freeze is per clip: a diverging clip
-    freezes only its own parameters and moments (`run_adam`'s
-    `per_clip`), so the others keep fitting.
+    f32 reassociation. The VPoser decode runs its products a clip at a
+    time (`vposer.decode(rows=T)`), so that each clip's decode equals its
+    own fit's bit for bit: Adam turns the rounding a product of all
+    clips' rows adds into whole steps on entries with near-zero
+    gradients. The NaN/Inf freeze is per clip: a diverging clip freezes
+    only its own parameters and moments (`run_adam`'s `per_clip`), so
+    the others keep fitting.
 
     impl='vmap': C independent single-clip fits, one after another. That
     is the same math as `lemo_tpu`'s vmapped core (each clip its own
@@ -274,7 +278,8 @@ def make_temporal_fitter_batched(model: SmplxModel, vposer_params: dict,
         C, T = markers_target.shape[0], markers_target.shape[1]
         x72 = _x72(v, shape10)                               # [C, T, 72]
         out = fwd(P.smplx_params_from_72(x72.reshape(C * T, 72), vpp,
-                                         num_expr), model.consts)
+                                         num_expr, decode_rows=T),
+                  model.consts)
         verts = out["vertices"]                              # [C*T, V, 3]
         mk = take_rows(verts, ids67).reshape(C, T, -1, 3)
         per_clip = weights.rec_markers * \

@@ -30,10 +30,12 @@ def join72(parts: dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def smplx_params_from_72(x72: torch.Tensor, vposer_params: dict,
-                         num_expressions: int = 10) -> dict[str, torch.Tensor]:
+                         num_expressions: int = 10,
+                         decode_rows: int | None = None
+                         ) -> dict[str, torch.Tensor]:
     """Decode [T, 72] rows into SMPL-X parameters (VPoser z -> 63-d body
     pose, zero face params). The body model must use PCA hands with 12
-    components."""
+    components. `decode_rows`: `vposer.decode`'s block of rows."""
     T = x72.shape[0]
     parts = split72(x72)
     zeros3 = torch.zeros((T, 3), dtype=x72.dtype, device=x72.device)
@@ -41,7 +43,8 @@ def smplx_params_from_72(x72: torch.Tensor, vposer_params: dict,
         "transl": parts["transl"],
         "global_orient": parts["global_orient"],
         "betas": parts["betas"],
-        "body_pose": vp.decode(vposer_params, parts["vposer_z"], "aa"),
+        "body_pose": vp.decode(vposer_params, parts["vposer_z"], "aa",
+                               rows=decode_rows),
         "left_hand_pose": parts["left_hand_pose"],
         "right_hand_pose": parts["right_hand_pose"],
         "jaw_pose": zeros3,

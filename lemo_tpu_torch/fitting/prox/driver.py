@@ -6,10 +6,12 @@ Loads the priors and the body model, walks the overlapping windows in
 order, warm-starts each from the pkls on disk (its own outputs first, so
 a killed run resumes), runs the infill pre-pass and the candidate
 pre-passes, fits the window stage by stage, and writes per-frame pkls
-and a conf.yaml snapshot. Not ported yet, and raising when asked for
-(`config.prox_config.check_ported`): the window-parallel driver
-(ROADMAP.md queue 1, slice 8) and the mesh/render saver (slice 10); the
-tensorboard logger (slice 10) is simply absent.
+and a conf.yaml snapshot. With `window_parallel`, all windows are fitted
+at once (`_run_window_parallel`: one [W*T] forward a step) and a polish
+pass restores the sequential stitching. Not ported yet, and raising when
+asked for (`config.prox_config.check_ported`): the mesh/render saver
+(ROADMAP.md queue 1, slice 10); the tensorboard logger (slice 10) is
+simply absent.
 """
 
 from __future__ import annotations
@@ -36,11 +38,13 @@ from lemo_tpu_torch.data import segments as seg
 from lemo_tpu_torch.data.prox import ProxRecording, ProxWindowDataset
 from lemo_tpu_torch.data.stats import GlobalStats, Local4ChanStats
 from lemo_tpu_torch.fitting.prox.camera import PerspectiveCamera
-from lemo_tpu_torch.fitting.prox.infill_prepass import run_infill_prepass
+from lemo_tpu_torch.fitting.prox.infill_prepass import \
+    InfillPrepassResult, make_batched_prepass, run_infill_prepass
 from lemo_tpu_torch.fitting.prox.losses import ProxStatic, ProxWeights, \
-    frame_visibility
-from lemo_tpu_torch.fitting.prox.window import fit_window, \
-    make_window_fitter, save_window_pkls
+    frame_visibility, stack_statics
+from lemo_tpu_torch.fitting.prox.window import dispatch_chunk, \
+    fit_window, make_batched_window_fitter, make_window_fitter, \
+    save_window_pkls, window_result
 from lemo_tpu_torch.ops.chamfer import nn_distance
 from lemo_tpu_torch.ops.sdf import quantize_grid, sample_sdf_world
 
@@ -236,18 +240,27 @@ def _sdf_candidate_ids(cfg: ProxConfig, verts: torch.Tensor,
     camera coords) comes nearest the scene anywhere in the window (one
     exact full-vertex SDF pass per window); the K smallest per-vertex
     min-SDF values."""
+    return _sdf_candidate_ids_windows(cfg, verts, st, 1)[0]
+
+
+def _sdf_candidate_ids_windows(cfg: ProxConfig, verts: torch.Tensor,
+                               st: ProxStatic, windows: int) -> np.ndarray:
+    """`_sdf_candidate_ids` of each of `windows` windows whose frames are
+    folded in `verts` [windows * T, V, 3] -> [windows, K], one SDF sample
+    of all their bodies."""
     vw = torch.matmul(verts, st.R.T) + st.t
     vals = sample_sdf_world(st.sdf, vw.reshape(-1, 3), st.grid_min,
                             st.grid_max, crop=None)
-    min_sdf = vals.reshape(vw.shape[0], -1).min(dim=0).values.cpu().numpy()
+    min_sdf = vals.reshape(windows, -1, verts.shape[1]).min(dim=1) \
+        .values.cpu().numpy()                                 # [W, V]
     K = min(int(cfg.sdf_candidates), verts.shape[1])
-    n_close = int((min_sdf < cfg.sdf_candidates_margin).sum())
+    n_close = int((min_sdf < cfg.sdf_candidates_margin).sum(axis=1).max())
     if n_close > K:
         warnings.warn(
             f"sdf_candidates={K} < {n_close} vertices within "
             f"{cfg.sdf_candidates_margin} m of the scene at warm start; "
             "raise sdf_candidates or the term may miss penetrations")
-    return np.argsort(min_sdf)[:K].astype(np.int64)
+    return np.argsort(min_sdf, axis=1)[:, :K].astype(np.int64)
 
 
 def _coll_candidate_scores(cfg: ProxConfig, assets: ProxAssets,
@@ -428,15 +441,75 @@ def _candidate_updates(cfg: ProxConfig, assets: ProxAssets, warm: dict,
         upd["sdf_candidate_ids"] = torch.as_tensor(
             _sdf_candidate_ids(cfg, verts, st), device=dev)
     if want_depth:
-        sids, vids, s2m_fr, m2s_fr, vis_c = _depth_candidate_data(
-            cfg, verts, st)
-        upd.update(depth_scan_cand_ids=torch.as_tensor(sids, device=dev),
-                   depth_vert_cand_ids=torch.as_tensor(vids, device=dev),
-                   s2m_frozen=torch.as_tensor(s2m_fr, device=dev),
-                   m2s_frozen=torch.as_tensor(m2s_fr, device=dev))
-        if cfg.depth_frozen_visibility:
-            upd["depth_vis_frozen"] = torch.as_tensor(vis_c, device=dev)
+        upd.update(_depth_updates(cfg, verts, st))
     return upd
+
+
+def _depth_updates(cfg: ProxConfig, verts: torch.Tensor,
+                   st: ProxStatic) -> dict:
+    """The depth candidate fields of a window's static
+    (`_depth_candidate_data`) as tensors on its device."""
+    dev = verts.device
+    sids, vids, s2m_fr, m2s_fr, vis_c = _depth_candidate_data(cfg, verts, st)
+    upd = dict(depth_scan_cand_ids=torch.as_tensor(sids, device=dev),
+               depth_vert_cand_ids=torch.as_tensor(vids, device=dev),
+               s2m_frozen=torch.as_tensor(s2m_fr, device=dev),
+               m2s_frozen=torch.as_tensor(m2s_fr, device=dev))
+    if cfg.depth_frozen_visibility:
+        upd["depth_vis_frozen"] = torch.as_tensor(vis_c, device=dev)
+    return upd
+
+
+def _apply_candidates_batch(cfg: ProxConfig, assets: ProxAssets,
+                            warm: dict, statics: list) -> tuple[list, dict]:
+    """Candidate sets of W windows (`lemo_tpu/fitting/prox/driver.py:
+    519-572`) from their warm starts `warm` ({name: [W, T, ...]} on the
+    device): one forward of all W*T frames feeds every pre-pass; one
+    self-intersection K for all windows, sized from the largest live
+    count over them (`_coll_pick_K`), so the [T, K] sets stack; the SDF
+    candidates from one sample of all W bodies; the depth candidates per
+    window. Returns (statics, broad_phase): the self-intersection
+    pre-pass's largest per-frame counts over all windows, K, its seconds,
+    and each window's own (n_active, n_within) under "per_window"
+    (None when the pre-pass did not run)."""
+    dev = assets.model.device
+    st0 = statics[0]
+    W = len(statics)
+    want_sdf = bool(cfg.sdf_penetration and st0.sdf is not None
+                    and cfg.sdf_candidates > 0)
+    want_depth = bool((cfg.s2m or cfg.m2s) and st0.scan is not None
+                      and cfg.depth_candidates > 0)
+    want_coll = bool(cfg.interpenetration and cfg.coll_candidates > 0)
+    if not (want_sdf or want_depth or want_coll):
+        return statics, None
+    T = int(warm["transl"].shape[1])
+    flat = {k: v.reshape((W * T,) + v.shape[2:]) for k, v in warm.items()}
+    verts = _warm_start_vertices(cfg, assets, flat)          # [W*T, V, 3]
+    upds: list = [{} for _ in range(W)]
+    broad_phase = None
+    if want_coll:
+        t0 = time.perf_counter()
+        scores, counts = _coll_candidate_scores(cfg, assets, verts)
+        counts = counts.reshape(W, T, 2).max(axis=1)         # [W, 2]
+        n_active, n_within = (int(c) for c in counts.max(axis=0))
+        K = _coll_pick_K(cfg, n_active, n_within, assets.model.faces.shape[0])
+        for i in range(W):
+            upds[i]["coll_candidate_ids"] = torch.as_tensor(
+                _coll_ids_from_scores(scores[i * T:(i + 1) * T], K),
+                device=dev)
+        broad_phase = dict(n_active=n_active, n_within=n_within, K=K,
+                           scores_s=time.perf_counter() - t0,
+                           per_window=[tuple(int(x) for x in c)
+                                       for c in counts])
+    if want_sdf:
+        ids = _sdf_candidate_ids_windows(cfg, verts, st0, W)
+        for i in range(W):
+            upds[i]["sdf_candidate_ids"] = torch.as_tensor(ids[i], device=dev)
+    if want_depth:
+        for i, st in enumerate(statics):
+            upds[i].update(_depth_updates(cfg, verts[i * T:(i + 1) * T], st))
+    return [dataclasses.replace(st, **u) for st, u in zip(statics, upds)], \
+        broad_phase
 
 
 def stage_joint_weights(cfg: ProxConfig, joint_weights: np.ndarray,
@@ -567,6 +640,223 @@ def _make_warm_world_markers(assets: ProxAssets, rec: ProxRecording):
     return warm_world_markers
 
 
+def _sync(dev: torch.device) -> None:
+    """Wait for the device, so that a phase's seconds hold its work."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def jacobi_rounds(polish: int, rounds: int, chunk: int) -> tuple[int, int]:
+    """(rounds, iterations a round) of the Jacobi polish
+    (`lemo_tpu/fitting/prox/driver.py:976-979`); each round then runs
+    whole chunks (`window.whole_chunks`), so polish 250 with chunk 100 is
+    2 rounds of 200 steps."""
+    n = max(1, min(int(rounds), polish // chunk if polish >= chunk else 1))
+    return n, max(1, polish // n)
+
+
+# the wall-clock split of the most recent window-parallel run (seconds;
+# polish_round_s a list, polish_mode a word); each WindowResult of that
+# run carries the same dict in `timings`
+LAST_PARALLEL_TIMINGS: dict = {}
+
+
+def _run_window_parallel(cfg, assets, rec, ds, jw, mapper, result_folder,
+                         n_windows, verbose):
+    """All windows fitted at once (`lemo_tpu/fitting/prox/driver.py:
+    777-1126`, one device): every warm start comes from the previous
+    stage's pkls, so windows load in threads and the pre-passes batch;
+    each stage is one batched fit (`make_batched_window_fitter`), its
+    candidate sets rebuilt at each stage boundary; then the polish pass
+    re-fits each window's head from the previous window's solution,
+    Jacobi (batched rounds, heads injected before each) or sequential
+    (one window after another at the final stage's weights)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    model = assets.model
+    dev = model.device
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=8) as ex:
+        window_data = list(ex.map(ds.load_window, range(n_windows)))
+    warm = {k: torch.as_tensor(np.stack([wd["warm_start"][k]
+                                         for wd in window_data]), device=dev)
+            for k in window_data[0]["warm_start"]}
+    _sync(dev)
+    timings: dict = {"load_s": time.perf_counter() - t0}
+
+    tsec = time.perf_counter()
+    infill_results = [None] * n_windows
+    if cfg.use_motion_infill_prior and assets.infill_ae_params:
+        # one forward of all W*T warm-start frames gives the markers
+        W, T = warm["transl"].shape[:2]
+        flat = {k: v.reshape((W * T,) + v.shape[2:]) for k, v in warm.items()}
+        mv67, mj = _make_warm_world_markers(assets, rec)(flat)
+        masks = np.stack([wd["marker_mask"] for wd in window_data])
+        tw, cl = make_batched_prepass(
+            assets.infill_stats,
+            finetune_steps=int(cfg.infill_finetune_steps))(
+            assets.infill_ae_params, mv67.reshape((W, T) + mv67.shape[1:]),
+            mj.reshape((W, T) + mj.shape[1:]),
+            torch.as_tensor(masks, device=dev))
+        infill_results = [
+            InfillPrepassResult(targets_world=tw[i], contact_lbl=cl[i],
+                                had_occlusion=bool(masks[i].size
+                                                   > masks[i].sum()))
+            for i in range(n_windows)]
+    _sync(dev)
+    timings["prepass_s"] = time.perf_counter() - tsec
+
+    tsec = time.perf_counter()
+    statics = [build_window_static(cfg, assets, rec, wd, jw, ir,
+                                   with_candidates=False)[0]
+               for wd, ir in zip(window_data, infill_results)]
+    statics, broad_phase = _apply_candidates_batch(cfg, assets, warm, statics)
+    static_batch = stack_statics(statics)
+    first_mask = np.arange(n_windows) == 0
+    _sync(dev)
+    timings["static_build_s"] = time.perf_counter() - tsec
+
+    priors = build_priors(cfg)
+    timings["fit_s"] = timings["refresh_s"] = 0.0
+    losses_stages, terms_stages = [], []
+    for stage in range(cfg.n_stages):
+        w_s = weights_from_config(cfg, stage)
+        if stage > 0 and cfg.candidates_refresh_stages:
+            # candidate sets from this stage's warm start, the previous
+            # stage's solution
+            tsec = time.perf_counter()
+            statics, broad_phase = _apply_candidates_batch(cfg, assets, warm,
+                                                           statics)
+            static_batch = stack_statics(statics)
+            _sync(dev)
+            timings["refresh_s"] += time.perf_counter() - tsec
+        static_batch_s = dataclasses.replace(
+            static_batch, joint_weights=torch.as_tensor(
+                stage_joint_weights(cfg, jw, stage), device=dev))
+        fitter = make_batched_window_fitter(
+            model, assets.vposer_params, mapper, statics[0], w_s,
+            maxiters=cfg.maxiters, lr=cfg.lr,
+            steps_per_dispatch=cfg.steps_per_dispatch, priors=priors,
+            use_vposer=cfg.use_vposer, optim_type=cfg.optim_type)
+        tsec = time.perf_counter()
+        opt_vars, betas, losses, terms = fitter(static_batch_s, warm,
+                                                first_mask)
+        losses_stages.append(losses.cpu().numpy())
+        terms_stages.append({k: v.cpu().numpy() for k, v in terms.items()})
+        timings["fit_s"] += time.perf_counter() - tsec
+        if stage + 1 < cfg.n_stages:
+            warm = dict(opt_vars, betas=betas)
+    losses = np.concatenate(losses_stages, axis=1)
+
+    sols = [{k: v[i] for k, v in opt_vars.items()} for i in range(n_windows)]
+    loss_hists = [losses[i] for i in range(n_windows)]
+    # one term record per stage (its final solution), then the polish
+    # pass's: one a Jacobi round, or one a sequential polish step
+    term_hists = [{k: np.stack([ts[k][i] for ts in terms_stages])
+                   for k in terms_stages[0]} for i in range(n_windows)]
+
+    polish = int(cfg.window_polish_iters or 0)
+    polish_mode = cfg.window_polish_mode
+    spans = ds.windows
+    T = int(statics[0].gt_joints.shape[0])
+    erase_head = int(T * 0.15)
+    tsec = time.perf_counter()
+    if polish > 0 and n_windows > 1 and polish_mode == "jacobi":
+        rounds, iters_per_round = jacobi_rounds(
+            polish, cfg.window_polish_rounds,
+            dispatch_chunk(cfg.steps_per_dispatch, cfg.maxiters))
+        # window 0 stays frozen whole, as the sequential polish never
+        # re-fits it; the others freeze their overlap heads
+        erase = np.full((n_windows,), erase_head, np.int64)
+        erase[0] = T
+        cur = {k: v.clone() for k, v in opt_vars.items()}
+
+        def inject_heads(arrs, n_inject_of):
+            for i in range(1, n_windows):
+                s_prev, e_prev = spans[i - 1]
+                s_cur, _ = spans[i]
+                n_inj = n_inject_of(max(e_prev - s_cur, 0))
+                if n_inj > 0:
+                    off = s_cur - s_prev
+                    for k in arrs:
+                        arrs[k][i, :n_inj] = arrs[k][i - 1, off:off + n_inj]
+
+        round_s = []
+        for _ in range(rounds):
+            t_r = time.perf_counter()
+            inject_heads(cur, lambda ov_n: ov_n)
+            ov2, _, p_losses, p_terms = fitter(
+                static_batch_s, dict(cur, betas=betas), first_mask,
+                maxiters_override=iters_per_round, erase_override=erase)
+            cur = {k: v.clone() for k, v in ov2.items()}
+            p_losses = p_losses.cpu().numpy()
+            p_terms = {k: v.cpu().numpy() for k, v in p_terms.items()}
+            round_s.append(time.perf_counter() - t_r)
+            for i in range(n_windows):
+                loss_hists[i] = np.concatenate([loss_hists[i], p_losses[i]])
+                term_hists[i] = {k: np.concatenate([term_hists[i][k],
+                                                    p_terms[k][i:i + 1]])
+                                 for k in term_hists[i]}
+        timings["polish_round_s"] = round_s
+        # the frozen heads equal the previous window's final tail (they
+        # were frozen through the rounds, so no optimized frame changes)
+        inject_heads(cur, lambda ov_n: min(ov_n, erase_head))
+        sols = [{k: v[i] for k, v in cur.items()} for i in range(n_windows)]
+    elif polish > 0 and n_windows > 1:
+        jw_final = torch.as_tensor(
+            stage_joint_weights(cfg, jw, cfg.n_stages - 1), device=dev)
+        statics = [dataclasses.replace(st, joint_weights=jw_final)
+                   for st in statics]
+        pfitter = make_window_fitter(
+            model, assets.vposer_params, mapper, statics[0], w_s,
+            maxiters=polish, lr=cfg.lr,
+            steps_per_dispatch=cfg.steps_per_dispatch, priors=priors,
+            use_vposer=cfg.use_vposer)
+        for i in range(1, n_windows):
+            s_prev, e_prev = spans[i - 1]
+            s_cur, _ = spans[i]
+            ov_n = max(e_prev - s_cur, 0)
+            prox_params = {k: v.clone() for k, v in sols[i].items()}
+            prox_params["betas"] = betas[i]
+            if ov_n > 0:
+                off = s_cur - s_prev
+                for k in sols[i]:
+                    prox_params[k][:ov_n] = sols[i - 1][k][off:off + ov_n]
+            final, p_losses, p_terms, _ = pfitter(statics[i], prox_params,
+                                                  first_window=False)
+            sols[i] = final
+            loss_hists[i] = np.concatenate([loss_hists[i],
+                                            p_losses.cpu().numpy()])
+            term_hists[i] = {k: np.concatenate([term_hists[i][k],
+                                                v.cpu().numpy()])
+                             for k, v in p_terms.items() if k in term_hists[i]}
+    _sync(dev)
+    timings["polish_s"] = time.perf_counter() - tsec
+
+    tsec = time.perf_counter()
+    results = [window_result(sols[i], betas[i], loss_hists[i], term_hists[i],
+                             assets.vposer_params, cfg.use_vposer)
+               for i in range(n_windows)]
+    with ThreadPoolExecutor(max_workers=8) as ex:
+        list(ex.map(lambda i: save_window_pkls(
+            results[i], window_data[i]["fns"], result_folder,
+            camera_params=_CAMERA_PKL_PARAMS), range(n_windows)))
+    timings["save_s"] = time.perf_counter() - tsec
+    timings["total_s"] = time.perf_counter() - t0
+    timings["polish_mode"] = polish_mode if polish > 0 else "off"
+    LAST_PARALLEL_TIMINGS.clear()
+    LAST_PARALLEL_TIMINGS.update(timings)
+    if verbose:
+        print(f"[window-parallel] {n_windows} windows in "
+              f"{timings['total_s']:.1f}s"
+              f"{f' (+{polish}-iter {polish_mode} polish)' if polish else ''}"
+              f"; losses {[round(float(h[-1]), 3) for h in loss_hists]}; "
+              "split " + ", ".join(f"{k}={v:.1f}s" for k, v in timings.items()
+                                   if isinstance(v, float)), flush=True)
+    return [dataclasses.replace(r, timings=timings, broad_phase=broad_phase)
+            for r in results]
+
+
 def run_prox_fitting(cfg: ProxConfig, assets: ProxAssets | None = None,
                      max_windows: int | None = None, verbose: bool = True,
                      device=None) -> list:
@@ -607,6 +897,9 @@ def run_prox_fitting(cfg: ProxConfig, assets: ProxAssets | None = None,
                               cfg.use_face_contour)
     n_windows = len(ds.windows) if max_windows is None else \
         min(max_windows, len(ds.windows))
+    if cfg.window_parallel:
+        return _run_window_parallel(cfg, assets, rec, ds, jw, mapper,
+                                    result_folder, n_windows, verbose)
 
     # host-side loading of window i+1 (PNG decoding, scan unprojection)
     # overlaps window i's fit; warm-start pkls are read only after the
@@ -680,8 +973,9 @@ def _fit_windows_sequential(cfg, assets, rec, ds, jw, mapper, result_folder,
                 stage_fitters[stage] = make_window_fitter(
                     model, assets.vposer_params, mapper, static, w_s,
                     maxiters=cfg.maxiters, lr=cfg.lr,
-                    optim_type=cfg.optim_type, priors=priors,
-                    use_vposer=cfg.use_vposer)
+                    optim_type=cfg.optim_type,
+                    steps_per_dispatch=cfg.steps_per_dispatch,
+                    priors=priors, use_vposer=cfg.use_vposer)
             t1 = time.perf_counter()
             result_s = fit_window(
                 model, assets.vposer_params, mapper, static, w_s, warm,

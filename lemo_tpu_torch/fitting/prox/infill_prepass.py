@@ -5,7 +5,8 @@ Once per window, before the fit: the warm-start body's markers become the
 Holden 4-channel image, the per-frame occlusion mask masks it, the infill
 AE is fine-tuned for 60 steps and decodes once, and the trajectory is
 integrated back to world-space marker targets and contact labels, which
-are constants of the window's loss.
+are constants of the window's loss. `make_batched_prepass` runs it for
+every window of a window-parallel fit.
 """
 
 from __future__ import annotations
@@ -80,3 +81,24 @@ def run_infill_prepass(ae_params: dict, markers_world: torch.Tensor,
     return InfillPrepassResult(targets_world=targets_world,
                                contact_lbl=contact_lbl,
                                had_occlusion=had_occ)
+
+
+def make_batched_prepass(stats: Local4ChanStats, finetune_steps: int = 60,
+                         finetune_lr: float = 3e-6):
+    """The pre-pass of W windows (`lemo_tpu/fitting/prox/infill_prepass.py:
+    129-142`): ``prepass(ae_params, mv [W, T, 67, 3], mj [W, T, 25, 3],
+    mask [W, T, 67]) -> (targets_world [W, T-1, 67, 3], contact
+    [W, T-1, 4])``. Each window fine-tunes its own copy of the AE from the
+    shared weights, as `lemo_tpu`'s vmap with in_axes=(None, 0, 0, 0)
+    does, so the windows run one after another: the pre-pass runs once a
+    recording, not once a step."""
+
+    def prepass(ae_params, mv, mj, mask):
+        outs = [run_infill_prepass(ae_params, mv[i], mj[i], mask[i], stats,
+                                   finetune_steps=finetune_steps,
+                                   finetune_lr=finetune_lr)
+                for i in range(mv.shape[0])]
+        return (torch.stack([o.targets_world for o in outs]),
+                torch.stack([o.contact_lbl for o in outs]))
+
+    return prepass

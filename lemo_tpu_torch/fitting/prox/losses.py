@@ -12,6 +12,12 @@ window; here every Chamfer call is one batched `nn_distance` over all T
 frames, so a step issues one selection per direction (s2m, m2s, contact).
 The self-interpenetration term likewise takes all T frames in one call
 of the intersection kernel (the JAX package maps them one at a time).
+
+`terms_folded` is the window-parallel form (the JAX package `vmap`s
+`terms_part` over windows, `lemo_tpu/fitting/prox/window.py:348-358`):
+W windows' frames are one [W*T] frame axis for the kernel-carrying
+terms, so each kernel still launches once a step, and every other term
+reduces over its window's [T, ...] slice.
 """
 
 from __future__ import annotations
@@ -25,10 +31,12 @@ from lemo_tpu_torch.body_model import vposer as vp
 from lemo_tpu_torch.data.stats import GlobalStats
 from lemo_tpu_torch.fitting.amass_temp import smoothness_prior_loss
 from lemo_tpu_torch.fitting.prox.camera import PerspectiveCamera
+from lemo_tpu_torch.fitting.amass_temp import \
+    smoothness_prior_loss_batched
 from lemo_tpu_torch.ops import robust
 from lemo_tpu_torch.ops.chamfer import nn_distance
 from lemo_tpu_torch.ops.intersection import batched_self_intersection
-from lemo_tpu_torch.ops.sdf import sample_sdf_world
+from lemo_tpu_torch.ops.sdf import sample_sdf_windows, sample_sdf_world
 from lemo_tpu_torch.ops.select import take_rows
 from lemo_tpu_torch.ops.visibility import vertex_normals, visibility_zbuffer
 from lemo_tpu_torch.priors.body_priors import angle_prior, l2_prior
@@ -118,6 +126,39 @@ class ProxStatic:
     image_size: tuple = (1920, 1080)
 
 
+# fields that carry a leading window axis when a recording's windows are
+# batched (window.make_batched_window_fitter); every other field is shared
+PER_WINDOW_FIELDS = frozenset({
+    "gt_joints", "joints_conf", "scan", "scan_mask", "marker_mask",
+    "infill_targets", "infill_contact_lbl", "sdf_candidate_ids",
+    "coll_candidate_ids", "depth_scan_cand_ids", "depth_vert_cand_ids",
+    "s2m_frozen", "m2s_frozen", "depth_vis_frozen"})
+# the per-window fields whose second axis is the window's T frames
+_FRAME_FIELDS = PER_WINDOW_FIELDS - {"infill_targets", "infill_contact_lbl",
+                                     "sdf_candidate_ids"}
+
+
+def stack_statics(statics: list) -> ProxStatic:
+    """W windows' statics -> one batched ProxStatic: PER_WINDOW_FIELDS
+    stacked on a leading axis, the shared fields taken from window 0."""
+    kw = {}
+    for f in dataclasses.fields(ProxStatic):
+        vals = [getattr(s, f.name) for s in statics]
+        kw[f.name] = (torch.stack(vals)
+                      if f.name in PER_WINDOW_FIELDS and vals[0] is not None
+                      else vals[0])
+    return ProxStatic(**kw)
+
+
+def fold_frames(st: ProxStatic, n_frames: int) -> ProxStatic:
+    """A batched static's per-frame fields [W, T, ...] -> [W*T, ...], the
+    static the per-frame terms see over the folded frame axis."""
+    return dataclasses.replace(st, **{
+        name: getattr(st, name).reshape(
+            (n_frames,) + getattr(st, name).shape[2:])
+        for name in _FRAME_FIELDS if getattr(st, name) is not None})
+
+
 def to_world(points: torch.Tensor, R: torch.Tensor, t: torch.Tensor):
     """cam -> world (fitting_temp_slide.py:679), exact f32."""
     return torch.matmul(points, R.T) + t
@@ -159,23 +200,23 @@ def _per_frame_masked_mean(values, mask):
                        torch.zeros_like(total))
 
 
-def depth_terms(verts_cam: torch.Tensor, st: ProxStatic, w: ProxWeights):
+def depth_frame_terms(verts_cam: torch.Tensor, st: ProxStatic,
+                      w: ProxWeights):
     """s2m / m2s Chamfer with per-frame visibility
-    (fitting_temp_slide.py:637-670), full or candidate form."""
-    zero = verts_cam.new_zeros(())
+    (fitting_temp_slide.py:637-670), full or candidate form, per frame
+    and unweighted: ([T] or None when its weight is 0, the same for m2s)."""
+    s2m = m2s = None
     if st.depth_scan_cand_ids is None:
         vis = frame_visibility(verts_cam, st)
-        s2m = m2s = zero
         if w.s2m > 0:
             d2, _ = nn_distance(st.scan, verts_cam, vis)
             s2m = _per_frame_masked_mean(_rsqrt_gmof(d2, w.rho_s2m),
-                                         st.scan_mask).mean()
+                                         st.scan_mask)
         if w.m2s > 0:
             d2, _ = nn_distance(verts_cam, st.scan, st.scan_mask)
             mask = vis & st.body_mask[None]
-            m2s = _per_frame_masked_mean(_rsqrt_gmof(d2, w.rho_m2s),
-                                         mask).mean()
-        return s2m * w.s2m, m2s * w.m2s
+            m2s = _per_frame_masked_mean(_rsqrt_gmof(d2, w.rho_m2s), mask)
+        return s2m, m2s
 
     # temporal-coherence subset (driver._depth_candidate_data): live K x K
     # Chamfer on the candidate clouds; non-candidates enter as the frozen
@@ -189,7 +230,6 @@ def depth_terms(verts_cam: torch.Tensor, st: ProxStatic, w: ProxWeights):
         vis_c = _gather_frames(frame_visibility(verts_cam, st), vids)
     scan_c = _gather_frames(st.scan, sids)                    # [T, Ks, 3]
     scan_m_c = _gather_frames(st.scan_mask, sids)
-    s2m = m2s = zero
     if w.s2m > 0:
         d2, _ = nn_distance(scan_c, v_c, vis_c)
         ds = _rsqrt_gmof(d2, w.rho_s2m)
@@ -197,7 +237,7 @@ def depth_terms(verts_cam: torch.Tensor, st: ProxStatic, w: ProxWeights):
         n_valid = st.s2m_frozen[:, 1]
         s2m = torch.where(n_valid > 0, (live + st.s2m_frozen[:, 0])
                           / torch.clamp(n_valid, min=1.0),
-                          torch.zeros_like(live)).mean()
+                          torch.zeros_like(live))
     if w.m2s > 0:
         mask_f = (vis_c & st.body_mask[vids]).to(verts_cam.dtype)
         d2, _ = nn_distance(v_c, scan_c, scan_m_c)
@@ -206,8 +246,17 @@ def depth_terms(verts_cam: torch.Tensor, st: ProxStatic, w: ProxWeights):
         cnt = mask_f.sum(-1) + st.m2s_frozen[:, 1]
         m2s = torch.where(cnt > 0, (live + st.m2s_frozen[:, 0])
                           / torch.clamp(cnt, min=1.0),
-                          torch.zeros_like(live)).mean()
-    return s2m * w.s2m, m2s * w.m2s
+                          torch.zeros_like(live))
+    return s2m, m2s
+
+
+def depth_terms(verts_cam: torch.Tensor, st: ProxStatic, w: ProxWeights):
+    """The weighted s2m / m2s terms of one window: the frame mean of
+    `depth_frame_terms`."""
+    zero = verts_cam.new_zeros(())
+    s2m, m2s = depth_frame_terms(verts_cam, st, w)
+    return (zero if s2m is None else s2m.mean() * w.s2m,
+            zero if m2s is None else m2s.mean() * w.m2s)
 
 
 def friction_terms(verts_world: torch.Tensor, st: ProxStatic,
@@ -228,14 +277,20 @@ def friction_terms(verts_world: torch.Tensor, st: ProxStatic,
     return loss_t * w.friction_tangent, loss_n * w.friction_normal
 
 
-def contact_term(verts_world: torch.Tensor, st: ProxStatic,
-                 w: ProxWeights):
-    """Scene-contact Chamfer (fitting_temp_slide.py:743-753): the contact
-    vertices of all T frames against the shared scene cloud, one call."""
+def contact_frame_terms(verts_world: torch.Tensor, st: ProxStatic):
+    """Scene-contact Chamfer (fitting_temp_slide.py:743-753) per frame,
+    unweighted: the contact vertices of all T frames against the shared
+    scene cloud, one call -> [T]."""
     cv = take_rows(verts_world, st.contact_verts_ids)        # [T, Nc, 3]
     d2, _ = nn_distance(cv, st.scene_verts)
     ds = torch.sqrt(d2 + 1e-4)
-    return (ds / (ds + 1.0)).mean(-1).mean() * w.contact
+    return (ds / (ds + 1.0)).mean(-1)
+
+
+def contact_term(verts_world: torch.Tensor, st: ProxStatic,
+                 w: ProxWeights):
+    """The weighted contact term of one window."""
+    return contact_frame_terms(verts_world, st).mean() * w.contact
 
 
 def infill_terms(verts_world: torch.Tensor, st: ProxStatic,
@@ -257,6 +312,68 @@ def infill_terms(verts_world: torch.Tensor, st: ProxStatic,
         lbl = st.infill_contact_lbl[: speeds.shape[0], i][:, None]
         cv_total = cv_total + robust.hinge_above(speeds, 0.1, lbl)
     return rec * w.motion_infill_rec, cv_total * w.motion_infill_contact
+
+
+def _sample_penetration_sdf(st: ProxStatic, points, w: ProxWeights,
+                            sample=sample_sdf_world):
+    """The scene SDF the penetration term samples at `points`: the
+    quantized grid when the static holds one, else the f32 grid."""
+    if st.sdf_packed is not None:
+        return sample(st.sdf_packed, points, st.grid_min, st.grid_max,
+                      mode="fp8" if w.sdf_fp8 else "bf16")
+    return sample(st.sdf, points, st.grid_min, st.grid_max)
+
+
+def friction_terms_windows(verts_world: torch.Tensor, st: ProxStatic,
+                           w: ProxWeights):
+    """`friction_terms` of W windows: verts_world [W, T, V, 3] -> the
+    tangent and normal terms [W], velocities inside each window."""
+    fv = take_rows(verts_world, st.fric_verts_ids)        # [W, T, Nf, 3]
+    sdf_v = sample_sdf_windows(st.sdf, fv, st.grid_min, st.grid_max)
+    contact = sdf_v[:, :-1] < 0.01
+    vel = fv[:, 1:] - fv[:, :-1]
+    v_dot_n = vel[..., 2]
+    v_t = torch.stack([vel[..., 0], vel[..., 1],
+                       vel[..., 2] - v_dot_n], dim=-1)
+    tangent_mag = torch.sqrt((v_t ** 2).sum(-1) + 1e-12)
+    loss_t = robust.masked_mean_rows(tangent_mag,
+                                     contact & (tangent_mag > 1e-4))
+    loss_n = robust.masked_mean_rows(v_dot_n.abs(), contact & (v_dot_n < 0))
+    return loss_t * w.friction_tangent, loss_n * w.friction_normal
+
+
+def infill_terms_windows(verts_world: torch.Tensor, st: ProxStatic,
+                         w: ProxWeights, foot_sel):
+    """`infill_terms` of W windows: verts_world [W, T, V, 3] and the
+    batched static -> the reconstruction and contact terms [W]."""
+    Ti = st.infill_targets.shape[1]
+    markers = take_rows(verts_world, st.infill_marker_ids)[:, :Ti]
+    miss = 1.0 - st.marker_mask[:, :Ti]
+    diff = (st.infill_targets - markers).abs() * miss[..., None]
+    rec = robust.masked_mean_rows(diff, (miss[..., None] > 0).expand_as(diff))
+    ids, slices = foot_sel
+    feet = take_rows(verts_world, ids)
+    vel_f = (feet[:, 1:] - feet[:, :-1]) * 30.0
+    cv_total = verts_world.new_zeros(verts_world.shape[0])
+    for i, part in enumerate(FOOT_PARTS):
+        speeds = torch.sqrt((vel_f[:, :, slices[part], :] ** 2).sum(-1)
+                            + 1e-12)                      # [W, T-1, n]
+        lbl = st.infill_contact_lbl[:, : speeds.shape[1], i][..., None]
+        cv_total = cv_total + robust.hinge_above_rows(
+            speeds, 0.1, lbl.expand_as(speeds))
+    return rec * w.motion_infill_rec, cv_total * w.motion_infill_contact
+
+
+def _prior_rows(prior, x: torch.Tensor) -> torch.Tensor:
+    """sum(prior(x)) of each window of x [W, T, ...] -> [W]: the L2 prior
+    over the window's entries, a row-wise prior over its frames."""
+    W = x.shape[0]
+    if prior is l2_prior:
+        return (x ** 2).reshape(W, -1).sum(1)
+    vals = prior(x.reshape((-1,) + x.shape[2:]))
+    if not torch.is_tensor(vals):             # the 'none' prior
+        return x.new_full((W,), float(vals))
+    return vals.reshape(W, -1).sum(1)
 
 
 def foot_selection(foot_ids: dict, device):
@@ -296,10 +413,11 @@ def make_prox_loss(forward_fn, consts, joint_mapper, vposer_params,
     foot_sel = (foot_selection(st_template.foot_ids, device)
                 if st_template.foot_ids is not None else None)
 
-    def forward_part(opt_vars, betas):
-        """SMPL-X forward on the frame batch [T, ...]."""
+    def forward_part(opt_vars, betas, decode_rows: int | None = None):
+        """SMPL-X forward on the frame batch [T, ...] (`decode_rows`:
+        `vposer.decode`'s block of rows)."""
         body_pose = (vp.decode(vposer_params, opt_vars["pose_embedding"],
-                               "aa")
+                               "aa", rows=decode_rows)
                      if use_vposer else opt_vars["body_pose"])
         params = {k: opt_vars[k] for k in (
             "transl", "global_orient", "left_hand_pose", "right_hand_pose",
@@ -353,13 +471,7 @@ def make_prox_loss(forward_fn, consts, joint_mapper, vposer_params,
         if w.sdf_penetration > 0 and st.sdf is not None:
             vsel = (verts_world.index_select(1, st.sdf_candidate_ids)
                     if st.sdf_candidate_ids is not None else verts_world)
-            if st.sdf_packed is not None:
-                sdf_vals = sample_sdf_world(
-                    st.sdf_packed, vsel, st.grid_min, st.grid_max,
-                    mode="fp8" if w.sdf_fp8 else "bf16")
-            else:
-                sdf_vals = sample_sdf_world(st.sdf, vsel, st.grid_min,
-                                            st.grid_max)
+            sdf_vals = _sample_penetration_sdf(st, vsel, w)
             pen = torch.where(sdf_vals < 0, -sdf_vals,
                               torch.zeros_like(sdf_vals))
             terms["sdf_penetration_loss"] = w.sdf_penetration * pen.sum()
@@ -408,9 +520,137 @@ def make_prox_loss(forward_fn, consts, joint_mapper, vposer_params,
         terms["total_loss"] = total
         return total, terms
 
+    def terms_folded(opt_vars, betas, out, st: ProxStatic):
+        """`terms_part` of W windows at once: opt_vars and betas
+        [W, T, ...], `out` the forward of their [W*T] frame batch viewed
+        [W, T, ...], `st` batched (`stack_statics`) -> (totals [W],
+        {term: [W]}). The kernel-carrying terms (self-intersection, depth,
+        contact) take the W*T frames in one call; the others reduce over
+        each window's frames."""
+        verts = out["vertices"]                          # [W, T, V, 3] cam
+        W, T = verts.shape[:2]
+        N = W * T
+
+        def rows(x):
+            return x.reshape(W, -1)
+
+        def per_window_mean(x):                          # [N] -> [W]
+            return x.reshape(W, T).mean(1)
+
+        st_f = fold_frames(st, N)
+        verts_f = verts.reshape((N,) + verts.shape[2:])
+        joints_all = out["joints"]
+        mapped = joints_all.index_select(2, jm)
+        zero = verts.new_zeros(W)
+        terms = {}
+        jw = (st.joint_weights * st.joints_conf)[..., None]
+        terms["joint_loss"] = rows(
+            jw ** 2 * (st.gt_joints - st.camera.project(mapped)).abs()
+        ).mean(1) * w.data
+        if use_vposer:
+            terms["pprior_loss"] = rows(opt_vars["pose_embedding"] ** 2
+                                        ).sum(1) * w.body_pose ** 2
+        else:
+            terms["pprior_loss"] = _prior_rows(
+                p_body, opt_vars["body_pose"]) * w.body_pose ** 2
+        terms["shape_loss"] = _prior_rows(p_shape, betas) * w.shape ** 2
+        full_pose = out["full_pose"]
+        terms["angle_prior_loss"] = rows(angle_prior(
+            full_pose.reshape((N,) + full_pose.shape[2:])[:, 3:66])).sum(1) \
+            * (w.bending_factor * w.body_pose) ** 2
+        terms["hand_prior_loss"] = (
+            _prior_rows(p_lhand, opt_vars["left_hand_pose"])
+            + _prior_rows(p_rhand, opt_vars["right_hand_pose"])) * \
+            w.hand_prior ** 2
+        terms["expression_loss"] = _prior_rows(
+            p_expr, opt_vars["expression"]) * w.expr ** 2
+        terms["jaw_prior_loss"] = _prior_rows(p_jaw,
+                                              opt_vars["jaw_pose"] * w.jaw)
+        if w.coll > 0 and st.faces is not None:
+            terms["self_penetration_loss"] = w.coll * \
+                batched_self_intersection(
+                    verts_f, st.faces, candidate_ids=st_f.coll_candidate_ids,
+                    segm=st.faces_segm, ign_table=st.ign_table
+                ).reshape(W, T).sum(1)
+        else:
+            terms["self_penetration_loss"] = zero
+
+        terms["s2m_dist"] = terms["m2s_dist"] = zero
+        if (w.s2m > 0 or w.m2s > 0) and st.scan is not None:
+            s2m, m2s = depth_frame_terms(verts_f, st_f, w)
+            if s2m is not None:
+                terms["s2m_dist"] = per_window_mean(s2m) * w.s2m
+            if m2s is not None:
+                terms["m2s_dist"] = per_window_mean(m2s) * w.m2s
+
+        verts_world = to_world(verts, st.R, st.t)
+        joints_world = to_world(joints_all, st.R, st.t)
+
+        if w.sdf_penetration > 0 and st.sdf is not None:
+            if st.sdf_candidate_ids is not None:
+                ids = st.sdf_candidate_ids                # [W, K]
+                vsel = torch.gather(verts_world, 2, ids[:, None, :, None]
+                                    .expand(W, T, ids.shape[1], 3))
+            else:
+                vsel = verts_world
+            sdf_vals = _sample_penetration_sdf(st, vsel, w,
+                                               sample=sample_sdf_windows)
+            pen = torch.where(sdf_vals < 0, -sdf_vals,
+                              torch.zeros_like(sdf_vals))
+            terms["sdf_penetration_loss"] = w.sdf_penetration * rows(pen).sum(1)
+        else:
+            terms["sdf_penetration_loss"] = zero
+
+        if (w.friction_normal > 0 or w.friction_tangent > 0) and \
+                st.fric_verts_ids is not None and st.sdf is not None:
+            terms["loss_fric_tangent"], terms["loss_fric_normal"] = \
+                friction_terms_windows(verts_world, st, w)
+        else:
+            terms["loss_fric_tangent"] = terms["loss_fric_normal"] = zero
+
+        if w.contact > 0 and st.scene_verts is not None:
+            terms["contact_loss"] = per_window_mean(contact_frame_terms(
+                verts_world.reshape((N,) + verts_world.shape[2:]), st)) \
+                * w.contact
+        else:
+            terms["contact_loss"] = zero
+
+        terms["smooth_acc_loss"] = terms["smooth_vel_loss"] = zero
+        terms["motion_prior_smooth_loss"] = zero
+        if st.smooth_marker_ids is not None:
+            markers_s = take_rows(verts, st.smooth_marker_ids)
+            if w.smooth_acc > 0:
+                mv = markers_s[:, 1:] - markers_s[:, :-1]
+                terms["smooth_acc_loss"] = rows(
+                    (mv[:, 1:] - mv[:, :-1]) ** 2).mean(1) * w.smooth_acc
+            if w.smooth_vel > 0:
+                terms["smooth_vel_loss"] = rows(
+                    (markers_s[:, 1:] - markers_s[:, :-1]) ** 2).mean(1) \
+                    * w.smooth_vel
+            if w.motion_smooth > 0 and st.smooth_enc_params is not None:
+                terms["motion_prior_smooth_loss"] = w.motion_smooth * \
+                    smoothness_prior_loss_batched(
+                        st.smooth_enc_params,
+                        take_rows(verts_world, st.smooth_marker_ids),
+                        joints_world[:, 0, :25], st.smooth_stats,
+                        reduce_clips=False)
+
+        if w.motion_infill_rec > 0 and st.infill_targets is not None:
+            terms["motion_infill_loss"], \
+                terms["motion_infill_contact_loss"] = infill_terms_windows(
+                    verts_world, st, w, foot_sel)
+        else:
+            terms["motion_infill_loss"] = zero
+            terms["motion_infill_contact_loss"] = zero
+
+        total = sum(terms.values())
+        terms["total_loss"] = total
+        return total, terms
+
     def loss_fn(opt_vars, betas, st: ProxStatic = st_template):
         return terms_part(opt_vars, betas, forward_part(opt_vars, betas), st)
 
     loss_fn.forward_part = forward_part
     loss_fn.terms_part = terms_part
+    loss_fn.terms_folded = terms_folded
     return loss_fn

@@ -4,11 +4,17 @@ pkls, the stage-weighted loss, the overlap freeze of the first 15% of a
 non-first window's frames, and per-frame pkl results in the reference's
 schema.
 
-`lemo_tpu` runs a window's fit as `lax.scan`s of <= 100 steps; here it is
-one loop of eager Adam steps (`fitting.adam.run_adam`) with no host sync
-inside: the overlap freeze multiplies the gradients by a frame mask, the
-NaN/Inf freeze is decided on the device, and the per-step loss terms are
-kept in device tensors until the window ends.
+`lemo_tpu` runs a window's fit as `lax.scan`s of `steps_per_dispatch`
+steps; here it is one loop of eager Adam steps (`fitting.adam.run_adam`)
+with no host sync inside, as many steps as those whole chunks hold: the
+overlap freeze multiplies the gradients by a frame mask, the NaN/Inf
+freeze is decided on the device, and the per-step loss terms are kept in
+device tensors until the window ends.
+
+`make_batched_window_fitter` is the window-parallel fitter
+(`lemo_tpu/fitting/prox/window.py:229-490`, its `impl='fold'`): all W
+windows of a recording in one [W*T] forward a step and one per-window
+loss (`losses.terms_folded`).
 """
 
 from __future__ import annotations
@@ -74,16 +80,35 @@ def overlap_grad_mask(T: int, erase_n: int, device):
     return mask
 
 
+def dispatch_chunk(steps_per_dispatch: int, maxiters: int) -> int:
+    """The steps of one of `lemo_tpu`'s compiled chunks
+    (`lemo_tpu/fitting/prox/window.py:202`); a fit runs whole chunks."""
+    return max(min(max(int(steps_per_dispatch), 1), int(maxiters)), 1)
+
+
+def whole_chunks(iters: int, chunk: int) -> int:
+    """The Adam steps `lemo_tpu` runs for `iters`: whole chunks,
+    ceil(iters / chunk) * chunk (`while done < iters: ...; done += chunk`)."""
+    return -(-int(iters) // chunk) * chunk
+
+
 def make_window_fitter(model: SmplxModel, vposer_params: dict,
                        joint_mapper: np.ndarray,
                        static_template: ProxStatic, weights: ProxWeights,
                        maxiters: int = 900, lr: float = 0.005,
                        overlap_frac: float = 0.15, optim_type: str = "adam",
+                       steps_per_dispatch: int = 100,
                        priors: dict | None = None, use_vposer: bool = True):
     """The per-window optimizer, built once per stage and reused by every
     window: ``fit(static, prox_params, first_window) -> (final params,
-    losses [maxiters], {term: [maxiters]}, betas)``, all on the device."""
+    losses [maxiters], {term: [maxiters]}, betas)``, all on the device.
+    As `lemo_tpu`'s, the fit runs whole chunks of `steps_per_dispatch`
+    steps (`whole_chunks`), so the final parameters have had
+    ceil(maxiters / chunk) * chunk steps, and the histories are cut to
+    `maxiters` (`lemo_tpu/fitting/prox/window.py:202-218`)."""
     spec = create_optimizer(optim_type, lr)   # raises on unported types
+    n_steps = whole_chunks(maxiters,
+                           dispatch_chunk(steps_per_dispatch, maxiters))
     T = static_template.gt_joints.shape[0]
     fwd = make_forward_fn(model)
     loss_fn = make_prox_loss(fwd, model.consts, joint_mapper, vposer_params,
@@ -97,11 +122,122 @@ def make_window_fitter(model: SmplxModel, vposer_params: dict,
         mask = overlap_grad_mask(T, 0 if first_window else erase_frames,
                                  betas.device)
         final, losses, terms = run_adam(
-            lambda v: loss_fn(v, betas, static), opt_vars, maxiters,
-            [spec.lr] * maxiters, b1=spec.b1, b2=spec.b2, eps=spec.eps,
+            lambda v: loss_fn(v, betas, static), opt_vars, n_steps,
+            [spec.lr] * n_steps, b1=spec.b1, b2=spec.b2, eps=spec.eps,
             grad_mask=mask, has_aux=True)
-        return final, losses, terms, betas
+        return final, losses[:maxiters], \
+            {k: v[:maxiters] for k, v in terms.items()}, betas
 
+    return fit
+
+
+def make_batched_window_fitter(model: SmplxModel, vposer_params: dict,
+                               joint_mapper: np.ndarray,
+                               static_template: ProxStatic,
+                               weights: ProxWeights, maxiters: int = 900,
+                               lr: float = 0.005, overlap_frac: float = 0.15,
+                               mesh=None, steps_per_dispatch: int = 100,
+                               priors: dict | None = None,
+                               use_vposer: bool = True,
+                               optim_type: str = "adam", impl: str = "fold"):
+    """The window-parallel fitter: all W windows of a recording optimized
+    at once, each warm-started from the previous stage's pkls; the frozen
+    overlap heads keep their warm-start values (the driver's polish pass
+    restores the sequential stitching).
+
+    Each step runs one SMPL-X forward on the [W*T] frame batch, so every
+    kernel launches once a step for all windows, and the per-window loss
+    `terms_folded`. Adam runs with `run_adam(per_clip=True)` on the W
+    totals: a window whose loss goes NaN/Inf keeps its last good
+    parameters and moments while the others go on, all at one step count.
+
+    Returns ``fit(static_batch, prox_params_batch, first_mask,
+    maxiters_override=None, erase_override=None) -> (opt_vars [W, T, ...],
+    betas [W, T, 10], losses [W, S], final_terms {term: [W]})``, on the
+    device. S = ceil(iters / chunk) * chunk, the steps `lemo_tpu` runs,
+    and the history is not cut (`lemo_tpu/fitting/prox/window.py:
+    472-487`); `final_terms` is one more loss evaluation at the final
+    parameters. `erase_override` [W] sets each window's frozen head
+    (frames; T freezes a window whole); by default 0 on the first window
+    and int(T * overlap_frac) on the others.
+
+    The VPoser decode runs its products a window at a time
+    (`vposer.decode(rows=T)`), so that each window's decode equals its
+    own fit's bit for bit, and a one-window fold is its sequential fit.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_batched_window_fitter: a device mesh (the window axis "
+            "sharded over cards) is not ported to lemo_tpu_torch yet "
+            "(ROADMAP.md queue 1 item 6, scale-out); pass mesh=None")
+    if impl == "vmap":
+        raise ValueError(
+            "impl='vmap' is lemo_tpu's TPU-only alternative (the whole "
+            "chunk vmapped with the fused kernel off); impl='fold' computes "
+            "the same trajectories and is the one form lemo_tpu_torch has")
+    if impl != "fold":
+        raise ValueError(f"unknown window-parallel impl {impl!r} "
+                         "(expected 'fold' or 'vmap')")
+    if optim_type in ("lbfgs", "lbfgsls"):
+        raise ValueError(
+            "window_parallel supports the gradient-descent family "
+            "(adam/rmsprop/sgd); L-BFGS curvature history over a batched "
+            "window axis is not implemented — unset window_parallel to "
+            f"fit sequentially with optim_type={optim_type!r}")
+    spec = create_optimizer(optim_type, lr)   # raises on unported types
+    T = static_template.gt_joints.shape[0]
+    fwd = make_forward_fn(model)
+    loss_fn = make_prox_loss(fwd, model.consts, joint_mapper, vposer_params,
+                             static_template, weights,
+                             model.config.num_expressions, priors=priors,
+                             use_vposer=use_vposer)
+    chunk = dispatch_chunk(steps_per_dispatch, maxiters)
+    pose_key = "pose_embedding" if use_vposer else "body_pose"
+
+    def loss_folded(ov, betas, st_b):
+        W = betas.shape[0]
+        flat = {k: v.reshape((W * T,) + v.shape[2:]) for k, v in ov.items()}
+        out = loss_fn.forward_part(flat, betas.reshape(W * T, -1),
+                                   decode_rows=T)
+        out_w = {k: v.reshape((W, T) + v.shape[1:]) for k, v in out.items()}
+        return loss_fn.terms_folded(ov, betas, out_w, st_b)
+
+    def fit(static_batch: ProxStatic, prox_params_batch, first_mask,
+            maxiters_override: int | None = None, erase_override=None):
+        W = len(first_mask)
+        n_steps = whole_chunks(maxiters_override or maxiters, chunk)
+        mean_betas = prox_params_batch["betas"].mean(dim=1, keepdim=True)
+        betas = mean_betas.expand(W, T, mean_betas.shape[-1]).contiguous()
+        opt_vars = {k: prox_params_batch[k] for k in _OPT_KEYS + (pose_key,)}
+        dev = betas.device
+        if erase_override is not None:
+            erase_n = torch.as_tensor(np.asarray(erase_override), device=dev)
+        else:
+            erase_n = torch.where(
+                torch.as_tensor(np.asarray(first_mask), device=dev), 0,
+                int(T * overlap_frac))
+        frame_w = (torch.arange(T, device=dev)[None]
+                   >= erase_n[:, None]).to(torch.float32)          # [W, T]
+
+        def mask(_name, g):
+            if g.dim() >= 2 and tuple(g.shape[:2]) == (W, T):
+                return g * frame_w.reshape((W, T) + (1,) * (g.dim() - 2))
+            return g
+
+        def loss(v):
+            totals, _ = loss_folded(v, betas, static_batch)
+            return totals.sum(), totals
+
+        final, losses = run_adam(loss, opt_vars, n_steps,
+                                 [spec.lr] * n_steps, b1=spec.b1, b2=spec.b2,
+                                 eps=spec.eps, grad_mask=mask, per_clip=True)
+        with torch.no_grad():
+            _, terms = loss_folded(final, betas, static_batch)
+        return final, betas, losses, {k: v.detach() for k, v in terms.items()}
+
+    # (opt_vars, betas, static_batch) -> (totals [W], {term: [W]}): one
+    # evaluation of the folded loss, for callers that check it
+    fit.loss_folded = loss_folded
     return fit
 
 
@@ -118,6 +254,17 @@ def fit_window(model: SmplxModel, vposer_params: dict,
                                     static, weights, maxiters, lr,
                                     use_vposer=use_vposer)
     final, losses, terms, betas = fitter(static, prox_params, first_window)
+    return window_result(final, betas, losses.cpu().numpy(),
+                         {k: v.cpu().numpy() for k, v in terms.items()},
+                         vposer_params, use_vposer)
+
+
+def window_result(final: dict, betas: torch.Tensor, loss_history,
+                  term_history: dict, vposer_params: dict,
+                  use_vposer: bool = True) -> WindowResult:
+    """A window's WindowResult from its final parameters on the device
+    (read back to the host, the body pose decoded) and its host-side
+    loss and term histories."""
     with torch.no_grad():
         if use_vposer:
             body_pose = vp.decode(vposer_params, final["pose_embedding"],
@@ -132,12 +279,11 @@ def fit_window(model: SmplxModel, vposer_params: dict,
                  if k != "pose_embedding"}
     params_np["betas"] = betas.cpu().numpy()
     params_np["body_pose"] = body_pose.cpu().numpy()
-    losses = losses.cpu().numpy()
     return WindowResult(
         params=params_np, pose_embedding=pose_embedding,
-        body_pose=params_np["body_pose"], final_loss=float(losses[-1]),
-        loss_history=losses,
-        term_history={k: v.cpu().numpy() for k, v in terms.items()})
+        body_pose=params_np["body_pose"],
+        final_loss=float(loss_history[-1]), loss_history=loss_history,
+        term_history=term_history)
 
 
 def save_window_pkls(result: WindowResult, frame_names: list[str],

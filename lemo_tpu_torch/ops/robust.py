@@ -31,3 +31,19 @@ def hinge_above(values: torch.Tensor, threshold: float,
     if mask is not None:
         over = over & mask.bool()
     return masked_mean(values.abs(), over)
+
+
+def masked_mean_rows(values: torch.Tensor, mask: torch.Tensor
+                     ) -> torch.Tensor:
+    """`masked_mean` of each row of the leading axis: [W, ...] -> [W]."""
+    W = values.shape[0]
+    mask = mask.to(values.dtype).reshape(W, -1)
+    total = mask.sum(1)
+    return torch.where(total > 0, (values.reshape(W, -1) * mask).sum(1)
+                       / torch.clamp(total, min=1.0), torch.zeros_like(total))
+
+
+def hinge_above_rows(values: torch.Tensor, threshold: float,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """`hinge_above` of each row of the leading axis: [W, ...] -> [W]."""
+    return masked_mean_rows(values.abs(), (values > threshold) & mask.bool())

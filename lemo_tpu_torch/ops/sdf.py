@@ -54,7 +54,8 @@ def sample_grid_trilinear(grid: torch.Tensor, coords: torch.Tensor,
                           ) -> torch.Tensor:
     """grid [D0, D1, D2] (already quantized for `mode`); coords [..., 3]
     in [-1, 1] over the sub-grid `grid[start : start + size]` (the whole
-    grid by default). Border padding, align_corners=False."""
+    grid by default; `start` may be an int64 tensor broadcasting against
+    coords, a sub-grid per point). Border padding, align_corners=False."""
     D = grid.shape
     size = tuple(D) if size is None else tuple(size)
     dims = torch.tensor(size, dtype=coords.dtype, device=coords.device)
@@ -64,7 +65,8 @@ def sample_grid_trilinear(grid: torch.Tensor, coords: torch.Tensor,
     maxi = dims - 1
     c0 = torch.minimum(torch.clamp(lo, min=0), maxi).long()
     c1 = torch.minimum(torch.clamp(lo + 1.0, min=0), maxi).long()
-    st = torch.tensor(start, dtype=torch.long, device=coords.device)
+    st = (start if torch.is_tensor(start)
+          else torch.tensor(start, dtype=torch.long, device=coords.device))
     g0, g1 = c0 + st, c1 + st
     flat = grid.reshape(-1)
     D1, D2 = D[1], D[2]
@@ -126,3 +128,30 @@ def sample_sdf_world(sdf_grid: torch.Tensor, points_world: torch.Tensor,
                                      (crop, crop, crop))
     coords = normalize_points(points_world, grid_min, grid_max)
     return sample_grid_trilinear(sdf_grid, coords, mode)
+
+
+def sample_sdf_windows(sdf_grid: torch.Tensor, points_world: torch.Tensor,
+                       grid_min: torch.Tensor, grid_max: torch.Tensor,
+                       crop: int | None = 128, mode: str = "f32"
+                       ) -> torch.Tensor:
+    """`sample_sdf_world` of W windows in one pass: points [W, ..., 3] ->
+    [W, ...], each window cropped at its own points' bounding box, as W
+    calls would crop it (the JAX package `vmap`s the call over windows),
+    with the crop starts kept on the device."""
+    if crop is None or min(sdf_grid.shape) <= crop:
+        return sample_sdf_world(sdf_grid, points_world, grid_min, grid_max,
+                                crop=None, mode=mode)
+    W = points_world.shape[0]
+    Dt = torch.tensor(sdf_grid.shape, dtype=points_world.dtype,
+                      device=points_world.device)
+    cell = (grid_max - grid_min) / Dt
+    pts = points_world.detach().reshape(W, -1, 3)
+    lo_cell = torch.floor((pts.min(dim=1).values - grid_min) / cell) - 1
+    starts = torch.minimum(torch.clamp(lo_cell, min=0), Dt - crop)  # [W, 3]
+    shape = (W,) + (1,) * (points_world.dim() - 2) + (3,)
+    sub_min = (grid_min + starts * cell).reshape(shape)
+    sub_max = sub_min + crop * cell
+    coords = normalize_points(points_world, sub_min, sub_max)
+    return sample_grid_trilinear(sdf_grid, coords, mode,
+                                 starts.long().reshape(shape),
+                                 (crop, crop, crop))

@@ -83,14 +83,19 @@ def test_yaml_outside_subset_raises(bad):
                                          ("render_results", True)])
 def test_unported_options_raise(field, value):
     """Each option whose path is not ported raises naming its ROADMAP
-    slice; interpenetration, ported since, passes the check, as does the
-    all-terms config that ships with it on."""
+    slice; interpenetration and window_parallel, ported since, pass the
+    check, as does the all-terms config that ships with the first on."""
     cfg = dataclasses.replace(ProxConfig(), **{field: value})
     if field == "interpenetration":
         check_ported(cfg)
         shipped = parse_config(["--config", S3_ALL])
         assert shipped.interpenetration and shipped.coll_candidates == 8192
         check_ported(shipped)
+        return
+    if field == "window_parallel":
+        check_ported(cfg)
+        check_ported(parse_config(["--config", S3_ALL, "--window_parallel",
+                                   "true"]))
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_ported(cfg)

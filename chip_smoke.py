@@ -126,12 +126,46 @@ Phases (any failure raises and the script exits non-zero):
    version at the fold's shapes: the body pairs at B = 200 and 800, the
    Chamfer kernel at each call site of the all-terms fold, the
    intersection kernel at [200, K].
+8. The trainers and the AMASS evaluation, after phase 4b on its
+   full-size model directory, from lemo_tpu_torch/_build/train_smoke/
+   (the trainers write preprocess_stats/ and runs_try/ relative to the
+   working directory): a CMU training corpus written by the port's writer
+   beside phase 4b's TotalCapture clips (the test split; 16 subjects x 2
+   sequences of 16 s at 60 fps: 128 clips of 4 s) and synthetic PROX
+   occlusion masks. Each run has the launch counts zeroed just before and
+   read just after. (1) train_smooth_prior as shipped (with-hand global
+   markers, z 64, no downsampling, batch 60) for 10 steps; (2)
+   train_infill_prior as shipped (local_markers_4chan, batch 120) for 24
+   steps: one batch an epoch, so 21 random-mask steps and 3 PROX-mask
+   steps; (3) test_smooth_prior on the smoothness run's checkpoint; (4)
+   `train.vposer.train` at batch 256 with the mesh loss through the
+   full-size body (`use_pca=False`, 10 betas, 10 expressions) on the
+   corpus's poses, 5 steps through the kernels and through the plain
+   versions (first-step loss within rel 1e-5, final within rel 1e-3);
+   (5) eval_amass on phase 4b's Stage-2 fits, through the kernels and
+   the plain versions (every metric within rel 1e-5). Checks the output
+   files, finite loss histories whose totals fall, one chain and one
+   vertex forward a clip in each dataset build, 2 chain and vertex
+   forwards and 1 backward of each a VPoser step, three forwards a clip
+   in eval_amass. Each trainer's step is timed (3 calls after a
+   warm-up), profiled (busy share, launches a step) and measured (peak
+   memory), with its FLOPs as torch's FlopCounterMode counts them and
+   their bound at 67 TFLOP/s; each dataset build's wall time. Last, each
+   body-model kernel entry point against its plain version at B = 256
+   on the VPoser model (phase 2's tolerances).
+
+The script re-executes itself with PYTHONHASHSEED=0 (the synthetic
+male/female models are seeded with Python's string hash), and phase 4b's
+two CLIs run under deterministic algorithms, so that phase 4b fits the
+same corpus from the same Stage-1 results and infill targets on every
+call.
 
 Prints the W sweep's JSON rows, then the kernels' JSON line (rows 1-4
 also carry their launches on the AMASS path, `launches_amass`, and their
 check at its frame counts, `amass_frames`; phase 6b adds a row for each
-kernel at each of the fold's shapes, named "... fold ..."), then as the
-last line
+kernel at each of the fold's shapes, named "... fold ..."; phase 8 a
+row for each body-model kernel at B = 256, named "... vposer-train
+..."), then as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Exits non-zero without printing a result when CUDA is absent.
 """
@@ -139,6 +173,7 @@ Exits non-zero without printing a result when CUDA is absent.
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
 import linecache
 import os
@@ -175,11 +210,24 @@ WP_CHECK_STEPS = 10            # steps of the fold-vs-sequential check
 WP_PROFILE_STEPS = 5           # steps of the sweep's profiled calls
 # windows of 100 frames at stride 70: W windows need 100 + 70 (W - 1)
 WP_SWEEP_FRAMES = 100 + 70 * (max(WP_SWEEP_W) - 1)
+# phase 8: the trainers and the AMASS evaluation
+TRAIN_SUBJECTS = 16            # CMU: 16 subjects x 2 sequences of 16 s
+TRAIN_SEQ_FRAMES = 960         # at 60 fps: 4 clips of 4 s a sequence
+SMOOTH_STEPS = 10              # the smoothness CLI's --num_steps
+INFILL_STEPS = 24              # the infill CLI's: 21 random-mask, 3 PROX
+VPOSER_BATCH = 256             # the VPoser trainer's batch (its default)
+VPOSER_STEPS = 5               # VPoser mesh steps of each check run
+TRAIN_TIMED_STEPS = {"smooth": 5, "infill": 10, "vposer": 20}
+TRAIN_PROFILE_STEPS = 3
+TRAIN_DEVICE = "cuda"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PROX_CFG = os.path.join(ROOT, "cfg_files", "PROXD_temp_S3_all_terms.yaml")
 PROX_S3_CFG = os.path.join(ROOT, "cfg_files", "PROXD_temp_S3.yaml")
 PROX_DIR = os.path.join(ROOT, "lemo_tpu_torch", "_build", "prox_smoke")
 AMASS_DIR = os.path.join(ROOT, "lemo_tpu_torch", "_build", "amass_smoke")
+# phase 8's working directory (the trainers write preprocess_stats/ and
+# runs_try/ relative to it)
+TRAIN_DIR = os.path.join(ROOT, "lemo_tpu_torch", "_build", "train_smoke")
 # phase 7's operands, for scripts/bench_torch_intersection.py
 ISECT_OPERANDS = os.path.join(PROX_DIR, "isect_operands.pt")
 # phase 5's operands, for scripts/bench_torch_chamfer.py
@@ -833,22 +881,30 @@ def phase_amass(card) -> dict:
     s1_calls, s2_calls = [], []
     _zero_body_counts()
     t0 = time.perf_counter()
-    with fitter_spy(s1, "make_stage1_fitter", s1_calls):
-        cli1.main(common + ["--save_dir", s1_dir], device="cuda")
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    with fitter_spy(s2, "make_temporal_fitter_batched", s2_calls):
-        cli2.main(common + ["--perframe_res_dir", s1_dir,
-                            "--smooth_model_path", paths["enc"],
-                            "--smooth_stats_path", paths["smooth_stats"],
-                            "--clip_batch", str(AMASS_CLIP_BATCH),
-                            "--save_dir", s2_dir], device="cuda")
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    # both CLIs under deterministic algorithms, so that the Stage-2 fits'
+    # inputs (the Stage-1 results and the infill AE's finetuned targets),
+    # and with them the checks of phase_amass_checks, repeat from call to
+    # call
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with fitter_spy(s1, "make_stage1_fitter", s1_calls):
+            cli1.main(common + ["--save_dir", s1_dir], device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with fitter_spy(s2, "make_temporal_fitter_batched", s2_calls):
+            cli2.main(common + ["--perframe_res_dir", s1_dir,
+                                "--smooth_model_path", paths["enc"],
+                                "--smooth_stats_path", paths["smooth_stats"],
+                                "--clip_batch", str(AMASS_CLIP_BATCH),
+                                "--save_dir", s2_dir], device="cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        torch.use_deterministic_algorithms(False)
     counts = _body_counts()
     T = AMASS_CLIP_SECONDS * 30 - 1
-    _log(f"[amass] Stage-1 CLI {t1 - t0:.1f} s, Stage-2 CLI "
-         f"{t2 - t1:.1f} s ({AMASS_CLIPS} clips of {T} frames, "
+    _log(f"[amass] Stage-1 CLI {t1 - t0:.1f} s, Stage-2 CLI {t2 - t1:.1f} s "
+         f"(deterministic algorithms on; {AMASS_CLIPS} clips of {T} frames, "
          f"{AMASS_STEPS} steps a fit, --clip_batch {AMASS_CLIP_BATCH}); "
          f"launches {counts} on {card}")
     _check_cli_outputs(s1_dir, AMASS_CLIPS, T)
@@ -915,8 +971,11 @@ def _profile_call(fit, args) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     by_name: dict = {}
+    us_by_name: dict = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0) + 1
+        us_by_name[e.name] = us_by_name.get(e.name, 0.0) + \
+            e.time_range.end - e.time_range.start
     busy, end = 0.0, -1.0
     for s, e in sorted((e.time_range.start, e.time_range.end)
                        for e in kernels):
@@ -924,7 +983,7 @@ def _profile_call(fit, args) -> dict:
             busy += e - max(s, end)
             end = e
     return {"wall_us": wall_us, "busy_us": busy, "kernels": len(kernels),
-            "by_name": by_name}
+            "by_name": by_name, "us_by_name": us_by_name}
 
 
 def phase_amass_sweep(amass, card) -> list[dict]:
@@ -1138,6 +1197,389 @@ def body_kernels_at(model, card, frames, tag: str) -> dict:
                               tag=tag)
             out.setdefault(name, []).append(
                 {**row, "name": name, "B": B, "Bp": int(catT.shape[1])})
+    return out
+
+
+def write_prox_masks(root: str) -> None:
+    """Synthetic PROX occlusion masks, <root>/<recording>/mask_markers.npy
+    [frames, 67] (1 visible, 0 occluded), about 15% occluded: two
+    recordings of 600 frames, whose 120-frame clips all pass the
+    infill trainer's 5% floor."""
+    rng = np.random.RandomState(8)
+    for rec in ("rec_a", "rec_b"):
+        os.makedirs(os.path.join(root, rec), exist_ok=True)
+        np.save(os.path.join(root, rec, "mask_markers.npy"),
+                (rng.rand(600, 67) > 0.15).astype(np.float32))
+
+
+@contextlib.contextmanager
+def call_spy(module, name: str, calls: list, timed: bool = False):
+    """Wrap `module.name` so that each call records its arguments, its
+    result, the body kernels it launched and (with `timed`) its wall
+    seconds up to a device synchronisation."""
+    import torch
+
+    real = getattr(module, name)
+
+    def spied(*args, **kw):
+        before = _body_counts()
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        if timed:
+            torch.cuda.synchronize()
+        after = _body_counts()
+        calls.append({"args": args, "kw": kw, "out": out,
+                      "s": time.perf_counter() - t0,
+                      "launches": {k: after[k] - before[k] for k in after}})
+        return out
+
+    setattr(module, name, spied)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _forward_counts(n: int) -> dict:
+    return {"chain_fwd": n, "vertex_fwd": n, "chain_bwd": 0,
+            "vertex_bwd": 0}
+
+
+def _run_build_cli(tag, main, argv, card) -> tuple:
+    """One CLI of phase 8 with the launch counts zeroed just before and
+    read just after, each dataset build timed and held to one chain and
+    one vertex forward a clip (no backward). Returns (its result, its
+    builds)."""
+    import torch
+
+    from lemo_tpu_torch.data import amass
+
+    builds: list = []
+    _zero_body_counts()
+    t0 = time.perf_counter()
+    with call_spy(amass, "build_dataset", builds, timed=True):
+        out = main(argv, device=TRAIN_DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _body_counts()
+    clips = 0
+    for b in builds:
+        n = len(b["args"][1])
+        clips += n
+        _log(f"[train] {tag}: dataset build, {n} clips of mode "
+             f"{b['args'][2]}: {b['s']:.2f} s, launches {b['launches']} on "
+             f"{card}")
+        if b["launches"] != _forward_counts(n):
+            raise AssertionError(f"{tag}: build of {n} clips launched "
+                                 f"{b['launches']}")
+    _log(f"[train] {tag}: {wall:.1f} s, launches {counts}")
+    return out, builds, counts, clips
+
+
+def _check_history(tag, history, steps) -> None:
+    totals = [h["total"] for h in history]
+    if [h["step"] for h in history] != list(range(1, steps + 1)) or \
+            not all(np.isfinite(v) for h in history for k, v in h.items()
+                    if k != "step") or not totals[-1] < totals[0]:
+        raise AssertionError(f"{tag}: history {history}")
+    _log(f"[train] {tag}: logged totals {totals[0]:.6f} -> "
+         f"{totals[-1]:.6f} over {steps} steps, all finite")
+
+
+def _step_flops(step, params, *args) -> float:
+    """The FLOPs of one train step as torch's FlopCounterMode counts them
+    (convolutions and matrix products, forward and backward), on the
+    meta device at the same shapes."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from lemo_tpu_torch.fitting.adam import adam_init
+
+    meta = {k: torch.empty_like(v, device="meta") for k, v in _leaves(params)}
+
+    def tree(t):
+        return {k: tree(v) if isinstance(v, dict) else meta[id(v)]
+                for k, v in t.items()}
+
+    with FlopCounterMode(display=False) as fc:
+        step(tree(params), adam_init(tree(params)),
+             *[torch.empty_like(a, device="meta") for a in args])
+    return float(fc.get_total_flops())
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield id(v), v
+
+
+def time_trainer(tag, call, batch, flops, card) -> dict:
+    """A trainer's step on the card: `call(n)` trains n steps. ms/step and
+    samples/s over N_CALLS calls of TRAIN_TIMED_STEPS[tag] steps after a
+    warm-up, the peak memory of those calls, and the device-busy share
+    and kernel launches a step of one profiled call of
+    TRAIN_PROFILE_STEPS steps; the FLOP bound at F32_FLOPS_PER_S."""
+    import torch
+
+    steps = TRAIN_TIMED_STEPS[tag]
+    call(steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(N_CALLS):
+        call(steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = _profile_call(call, (TRAIN_PROFILE_STEPS,))
+    ms = dt / (N_CALLS * steps) * 1e3
+    busy_ms = prof["busy_us"] / TRAIN_PROFILE_STEPS / 1e3
+    row = {"trainer": tag, "batch": batch, "ms_per_step": ms,
+           "samples_per_s": batch * N_CALLS * steps / dt,
+           "device_busy_ms_per_step": busy_ms,
+           "device_busy_share": prof["busy_us"] / prof["wall_us"],
+           "device_busy_share_of_unprofiled_wall": busy_ms / ms,
+           "kernel_launches_per_step": prof["kernels"] / TRAIN_PROFILE_STEPS,
+           "peak_gib": peak, "flops_per_step": flops,
+           "flop_bound_ms": flops / F32_FLOPS_PER_S * 1e3,
+           # the kernels that take the most device time: (ms, launches) a
+           # step
+           "top_kernels": {
+               n[:90]: (us / TRAIN_PROFILE_STEPS / 1e3,
+                        prof["by_name"][n] / TRAIN_PROFILE_STEPS)
+               for n, us in sorted(prof["us_by_name"].items(),
+                                   key=lambda kv: -kv[1])[:8]}}
+    _log(f"[train] {tag} step, batch {batch}: {ms:.3f} ms/step, "
+         f"{row['samples_per_s']:.1f} samples/s ({steps} steps x {N_CALLS} "
+         f"calls); device busy {busy_ms:.3f} ms/step "
+         f"({100 * row['device_busy_share']:.1f}% of the profiled wall, "
+         f"{100 * row['device_busy_share_of_unprofiled_wall']:.1f}% of the "
+         f"unprofiled), {row['kernel_launches_per_step']:.0f} kernel "
+         f"launches a step; peak {peak:.2f} GiB; {flops:.4g} FLOP a step, "
+         f"bound {row['flop_bound_ms']:.3f} ms at 67 TFLOP/s f32; on {card}")
+    _log(f"[train] {tag} step, the most device time (ms, launches a step): "
+         f"{row['top_kernels']}")
+    return row
+
+
+def phase_train(card) -> tuple[list, dict]:
+    """Phase 8: the trainers and the AMASS evaluation on phase 4b's
+    full-size model directory, from TRAIN_DIR. Returns (the trainers'
+    timing rows, the VPoser model and its run's launch counts)."""
+    import torch
+
+    from lemo_tpu_torch.body_model import load_model, make_forward_fn
+    from lemo_tpu_torch.body_model.smplx import find_smplx_npz
+    from lemo_tpu_torch.cli import eval_amass, test_smooth_prior, \
+        train_infill_prior, train_smooth_prior
+    from lemo_tpu_torch.data.amass import AMASS_TRAIN_DATASETS
+    from lemo_tpu_torch.testing.synthetic import write_amass_dataset
+    from lemo_tpu_torch.train import infill as ti
+    from lemo_tpu_torch.train import smooth as ts
+    from lemo_tpu_torch.train import vposer as tv
+
+    amass_dir = os.path.join(AMASS_DIR, "amass")
+    models = os.path.join(AMASS_DIR, "body_models")
+    t0 = time.perf_counter()
+    write_amass_dataset(amass_dir, "CMU", num_subjects=TRAIN_SUBJECTS,
+                        seqs_per_subject=2, num_frames=TRAIN_SEQ_FRAMES,
+                        fps=60)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    os.makedirs(TRAIN_DIR)
+    write_prox_masks(os.path.join(TRAIN_DIR, "mask_markers"))
+    _log(f"[train] CMU corpus ({TRAIN_SUBJECTS * 2} sequences of "
+         f"{TRAIN_SEQ_FRAMES} frames at 60 fps) and PROX masks written in "
+         f"{time.perf_counter() - t0:.1f} s")
+    common = ["--amass_dir", amass_dir, "--body_model_path", models]
+    rows = []
+    cwd = os.getcwd()
+    os.chdir(TRAIN_DIR)
+    try:
+        # 1. the smoothness prior, as shipped but for the step count
+        trains: list = []
+        with call_spy(ts, "train", trains):
+            (_, hist), _, _, clips = _run_build_cli(
+                "train_smooth_prior", train_smooth_prior.main,
+                common + ["--num_steps", str(SMOOTH_STEPS), "--log_step",
+                          "1"], card)
+        if clips != 4 * TRAIN_SUBJECTS * 2 + AMASS_CLIPS:
+            raise AssertionError(f"train_smooth_prior built {clips} clips")
+        _check_history("train_smooth_prior", hist, SMOOTH_STEPS)
+        smooth_run = max(glob.glob(os.path.join("runs_try", "*")),
+                         key=os.path.getmtime)
+        for f in ("params.json", "Enc_last_model.npz", "Dec_last_model.npz"):
+            if not os.path.isfile(os.path.join(smooth_run, f)):
+                raise AssertionError(f"train_smooth_prior: no {f}")
+        images_tr, _, cfg, _ = trains[0]["args"]
+        step, _ = ts.make_train_step(cfg)
+        x = torch.as_tensor(images_tr[:cfg.batch_size].swapaxes(1, 2)[:, None]
+                            .copy(), device=TRAIN_DEVICE)
+        flops = _step_flops(step, ts.init_params(
+            torch.Generator().manual_seed(0), cfg, TRAIN_DEVICE), x)
+        rows.append(time_trainer(
+            "smooth", lambda n: ts.train(images_tr, None, cfg, n,
+                                         log_every=n, device=TRAIN_DEVICE),
+            cfg.batch_size, flops, card))
+        del trains, x
+
+        # 2. the infill prior, as shipped but for the step count: one batch
+        # an epoch, so steps 1-21 random masks and 22-24 PROX masks
+        trains, picks = [], []
+        with call_spy(ti, "train", trains), \
+                call_spy(ti, "prox_mask_to_image_mask", picks):
+            (_, hist), _, _, clips = _run_build_cli(
+                "train_infill_prior", train_infill_prior.main,
+                common + ["--num_steps", str(INFILL_STEPS), "--log_step",
+                          "1"], card)
+        if clips != 4 * TRAIN_SUBJECTS * 2 or len(picks) != 3:
+            raise AssertionError(f"train_infill_prior: {clips} clips, "
+                                 f"{len(picks)} PROX-mask steps")
+        _check_history("train_infill_prior", hist, INFILL_STEPS)
+        infill_run = max(glob.glob(os.path.join("runs_try", "*")),
+                         key=os.path.getmtime)
+        for f in ("params.json", "AE_last_model.npz"):
+            if not os.path.isfile(os.path.join(infill_run, f)):
+                raise AssertionError(f"train_infill_prior: no {f}")
+        images, cfg, _ = trains[0]["args"]
+        step, _ = ti.make_train_step(cfg)
+        x = torch.as_tensor(images[:cfg.batch_size].swapaxes(2, 3).copy(),
+                            device=TRAIN_DEVICE)
+        flops = _step_flops(step, ti.init_infill_ae(
+            torch.Generator().manual_seed(0), device=TRAIN_DEVICE), x,
+            torch.ones_like(x[:, 0]))
+        rows.append(time_trainer(
+            "infill", lambda n: ti.train(images, cfg, n, log_every=n,
+                                         device=TRAIN_DEVICE),
+            cfg.batch_size, flops, card))
+        del trains, x, images
+
+        # 3. the smoothness prior's evaluation on the run's checkpoint
+        errors, _, counts, clips = _run_build_cli(
+            "test_smooth_prior", test_smooth_prior.main,
+            common + ["--enc_path", os.path.join(smooth_run,
+                                                 "Enc_last_model.npz"),
+                      "--dec_path", os.path.join(smooth_run,
+                                                 "Dec_last_model.npz"),
+                      "--stats_path", os.path.join(
+                          "preprocess_stats", "preprocess_stats_smooth_"
+                          "withHand_global_markers.npz")], card)
+        if len(errors) != 4 or not np.isfinite(errors).all() or \
+                counts != _forward_counts(clips):
+            raise AssertionError(f"test_smooth_prior: {errors}, {counts}")
+
+        # 4. VPoser with the mesh loss at batch 256 on the full-size body
+        model = load_model(find_smplx_npz(models, "neutral"), use_pca=False,
+                           num_betas=10, num_expressions=10, device=TRAIN_DEVICE)
+        fwd = make_forward_fn(model)
+        poses = tv.prepare_amass_poses(amass_dir, AMASS_TRAIN_DATASETS)
+        cfg = tv.VPoserTrainConfig(batch_size=VPOSER_BATCH)
+
+        def vposer(n, log_every=None):
+            return tv.train(poses, cfg, n, seed=0, body_fwd=fwd,
+                            body_consts=model.consts,
+                            log_every=log_every or n, device=TRAIN_DEVICE)
+
+        _zero_body_counts()
+        _, hk = vposer(VPOSER_STEPS, 1)
+        torch.cuda.synchronize()
+        v_counts = _body_counts()
+        want = {"chain_fwd": 2 * VPOSER_STEPS, "vertex_fwd": 2 * VPOSER_STEPS,
+                "chain_bwd": VPOSER_STEPS, "vertex_bwd": VPOSER_STEPS}
+        if v_counts != want:
+            raise AssertionError(f"VPoser mesh training launched {v_counts}, "
+                                 f"expected {want}")
+        with plain_twins():
+            _, hp = vposer(VPOSER_STEPS, 1)
+        first = abs(hk[0]["total"] - hp[0]["total"]) / abs(hp[0]["total"])
+        last = abs(hk[-1]["total"] - hp[-1]["total"]) / abs(hp[-1]["total"])
+        _log(f"[train] VPoser mesh training ({len(poses)} poses, batch "
+             f"{VPOSER_BATCH}, {VPOSER_STEPS} steps): launches {v_counts}; "
+             f"kernels vs plain versions: first-step loss rel {first:.3e} "
+             f"(tol 1e-5), final loss rel {last:.3e} (tol 1e-3); totals "
+             f"{hk[0]['total']:.6f} -> {hk[-1]['total']:.6f}")
+        if not (first <= 1e-5 and last <= 1e-3) or not all(
+                np.isfinite(h[k]) for h in hk + hp for k in h):
+            raise AssertionError("VPoser mesh training: kernels and plain "
+                                 "versions differ")
+        # its FLOPs: the matrix products as FlopCounterMode counts them on
+        # the card, and the body kernels' work (2 forwards, 1 backward)
+        from torch.utils.flop_counter import FlopCounterMode
+
+        from lemo_tpu_torch.fitting.adam import adam_init
+
+        vp_params = tv.vp.init_vposer(torch.Generator().manual_seed(0),
+                                      device=TRAIN_DEVICE)
+        step = tv.make_train_step(cfg, fwd, model.consts)
+        batch = torch.as_tensor(poses[:VPOSER_BATCH], device=TRAIN_DEVICE)
+        with FlopCounterMode(display=False) as fc:
+            step(vp_params, adam_init(vp_params), batch,
+                 torch.zeros((VPOSER_BATCH, cfg.latent), device=TRAIN_DEVICE))
+        D = int(model.consts["fused_dirs"].shape[2])
+        work = body_kernel_work(VPOSER_BATCH, model.num_verts,
+                                len(model.parents), D)
+        flops = float(fc.get_total_flops()) + sum(
+            n * work[k][1] for k, n in want.items()) / VPOSER_STEPS
+        rows.append(time_trainer("vposer", vposer, VPOSER_BATCH, flops,
+                                 card))
+        del poses
+
+        # 5. the AMASS evaluation of phase 4b's Stage-2 fits, through the
+        # kernels and through the plain versions
+        argv = common + ["--fitting_root", os.path.join(AMASS_DIR, "res_temp"),
+                         "--start", "0", "--end", str(AMASS_CLIPS),
+                         "--step", "1"]
+        report, _, counts, clips = _run_build_cli(
+            "eval_amass", eval_amass.main,
+            argv + ["--out", "eval_amass.json"], card)
+        with plain_twins():
+            plain = eval_amass.main(argv + ["--out", "eval_amass_plain.json"],
+                                    device=TRAIN_DEVICE)
+        if counts != _forward_counts(3 * AMASS_CLIPS):
+            raise AssertionError(f"eval_amass launched {counts}")
+        with open("eval_amass.json") as f:
+            saved = json.load(f)
+        if len(saved["clips"]) != AMASS_CLIPS:
+            raise AssertionError(f"eval_amass: {len(saved['clips'])} clips")
+
+        def numbers(d, path=()):
+            for k, v in d.items():
+                if isinstance(v, dict):
+                    yield from numbers(v, path + (k,))
+                elif isinstance(v, float):
+                    yield path + (k,), v
+
+        got, ref = dict(numbers(report)), dict(numbers(plain))
+        rel = max(abs(got[k] - v) / max(abs(v), 1e-30) for k, v in
+                  ref.items())
+        _log(f"[train] eval_amass: {len(saved['clips'])} clips, mean "
+             f"{json.dumps(report['mean'])}; kernels vs plain versions: max "
+             f"rel {rel:.3e} (tol 1e-5); launches {counts}")
+        if set(got) != set(ref) or not all(np.isfinite(v) for v in
+                                           got.values()) or not rel <= 1e-5:
+            raise AssertionError("eval_amass: kernels and plain versions "
+                                 "differ, or a metric is not finite")
+    finally:
+        os.chdir(cwd)
+    return rows, {"model": model, "launches": v_counts}
+
+
+def train_kernel_rows(rows, vposer, card) -> list[dict]:
+    """Phase 8's kernel rows: each body-model kernel entry point against
+    its plain version at the VPoser trainer's B = 256 on its model, with
+    the launches of phase 8's VPoser run."""
+    base = {r["name"]: r for r in rows}
+    out = []
+    at = body_kernels_at(vposer["model"], card, (VPOSER_BATCH,),
+                         "vposer-train kernels")
+    for name, per_b in at.items():
+        for row in per_b:
+            out.append({**row, "name": f"{name} vposer-train B={row['B']}",
+                        "route": "cuda", "source": base[name]["source"],
+                        "replaces": base[name]["replaces"],
+                        "launches": vposer["launches"][name],
+                        "library_ms": None})
     return out
 
 
@@ -2256,6 +2698,11 @@ def fold_kernel_rows(model, rows, wp, sweep_wp, card) -> list[dict]:
 
 
 def main() -> int:
+    if os.environ.get("PYTHONHASHSEED") != "0":
+        # the synthetic male/female models are seeded with Python's string
+        # hash: without a fixed hash seed each call fits another corpus
+        os.execve(sys.executable, [sys.executable] + sys.argv,
+                  {**os.environ, "PYTHONHASHSEED": "0"})
     import torch
 
     if not torch.cuda.is_available():
@@ -2296,6 +2743,10 @@ def main() -> int:
         row["amass_frames"] = at_frames[row["name"]]
     del amass
     _log(f"[amass sweep] {json.dumps(sweep)}")
+    trainers, vposer = phase_train(card)
+    rows += train_kernel_rows(rows, vposer, card)
+    del vposer
+    _log(f"[trainers] {json.dumps(trainers)}")
     info, results, p_counts, fits, ops, tally, isect, isect_tally = \
         phase_prox(model, model_dict, card)
     rows += phase_chamfer(ops, tally, p_counts["chamfer"], card)

@@ -1,5 +1,6 @@
-"""VPoser decoder (port of `lemo_tpu/body_model/vposer.py`; the fitters
-only call `decode(z, 'aa')`). Parameters are a flat dict with torch
+"""VPoser (port of `lemo_tpu/body_model/vposer.py`): the decoder, which
+the fitters call as `decode(z, 'aa')`, and the encoder, which the
+VPoser trainer calls. Parameters are a flat dict with torch
 `state_dict` keys (`bodyprior_dec_fc1.weight` ...)."""
 
 from __future__ import annotations
@@ -55,6 +56,27 @@ def decode(params, z, output_type: str = "aa", rows: int | None = None):
         return R.reshape(z.shape[0], 1, NUM_JOINTS, 9)
     aa = matrot_to_aa(R)  # [B*21, 3]
     return aa.reshape(z.shape[0], NUM_JOINTS * 3)
+
+
+def encode(params, pose_matrot):
+    """pose [B, n_features] (flattened matrot) -> (mu [B, 32], sigma
+    [B, 32]), sigma = softplus(logvar). BatchNorm runs in inference mode
+    over the stored running statistics, as `lemo_tpu` runs it."""
+    x = pose_matrot.reshape(pose_matrot.shape[0], -1)
+    x = _batchnorm(params, "bodyprior_enc_bn1", x)
+    x = _lrelu(_linear(params, "bodyprior_enc_fc1", x))
+    x = _batchnorm(params, "bodyprior_enc_bn2", x)
+    x = _lrelu(_linear(params, "bodyprior_enc_fc2", x))
+    mu = _linear(params, "bodyprior_enc_mu", x)
+    sigma = F.softplus(_linear(params, "bodyprior_enc_logvar", x))
+    return mu, sigma
+
+
+def _batchnorm(p, name, x, eps=1e-5):
+    """BatchNorm1d in inference mode: the running mean and variance."""
+    mean, var = p[f"{name}.running_mean"], p[f"{name}.running_var"]
+    return (x - mean) / torch.sqrt(var + eps) * p[f"{name}.weight"] + \
+        p[f"{name}.bias"]
 
 
 def init_vposer(gen: torch.Generator, num_joints: int = NUM_JOINTS,

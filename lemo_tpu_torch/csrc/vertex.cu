@@ -63,8 +63,12 @@
 // scratch because its grid runs in order; Hopper's blocks run in parallel
 // and in no order, so each K slice writes its partial product to a scratch
 // slab [S, ...] and `sum_slices_kernel` adds the S slabs in slice order:
-// deterministic, no atomics. S follows from the shapes alone (`split_k`):
-// enough slices that each product's grid fills two waves of 132 SMs.
+// deterministic, no atomics. The slices follow from K alone (`split_k`,
+// at most DCAT_SLICES or DA2_SLICES), not from the frame count: a frame's
+// sums and
+// their order are then the same whatever frames share its launch, so a
+// fit of several clips folded into one batch rounds each clip as its own
+// fit does.
 //
 // Everything accumulates in f32 with FMA: no TF32, no half precision.
 
@@ -281,7 +285,6 @@ __global__ void __launch_bounds__(NT)
 // here.
 
 constexpr int GT = 256;                // threads of a GEMM block
-constexpr int WAVE_BLOCKS = 2 * 132;   // two blocks on each of 132 SMs
 
 // BM x BN block tile, K staged through shared memory KC rows at a time
 template <int BM, int BN, int KC, class P>
@@ -417,6 +420,10 @@ struct DcatProblem {
   }
 };
 constexpr int DCAT_BM = 128, DCAT_BN = 128, DCAT_KC = 16;
+// K slices at most: at Bp <= 128 (one clip) SMPL-X's D = 507 rows (4
+// tiles) then fill two blocks on each of 132 SMs, as the slice count the
+// kernel took from the shapes before did there
+constexpr int DCAT_SLICES = 66;
 
 // K3: dA2 partials [S, 12, Jp, Bp] = W^T dT over K = Vp, with column
 // n = q Bp + b of plane q: dT[q] = dout[q/3] * vs[q%3] (q < 9), dout[q-9].
@@ -445,6 +452,7 @@ struct Da2Problem {
   }
 };
 constexpr int DA2_BM = 64, DA2_BN = 256, DA2_KC = 16;
+constexpr int DA2_SLICES = 44;   // as DCAT_SLICES: 6 tiles at Bp 128
 
 // out[i] = sum_s part[s * n + i], s in order: the deterministic last pass.
 __global__ void sum_slices_kernel(const float* __restrict__ part,
@@ -458,16 +466,13 @@ __global__ void sum_slices_kernel(const float* __restrict__ part,
   }
 }
 
-// The K slices of an M x N x K product cut into BM x BN tiles: enough that
-// the grid holds about WAVE_BLOCKS blocks, each slice a whole number of
-// KC-row chunks. From the shapes alone, so the scratch and the order of
-// the sums are fixed for given shapes. Returns S and sets *kslice.
-int split_k(int M, int N, int K, int BM, int BN, int KC, int* kslice) {
-  const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+// The K slices of a product with K rows staged KC at a time: at most
+// max_slices slices of a whole number of KC-row chunks each. From K
+// alone, so each output's sums, and the order they are added in, do not
+// depend on M or N (the frame count). Returns S and sets *kslice.
+int split_k(int K, int KC, int max_slices, int* kslice) {
   const int chunks = (K + KC - 1) / KC;
-  int s = (WAVE_BLOCKS + tiles - 1) / tiles;
-  s = s < 1 ? 1 : (s > chunks ? chunks : s);
-  const int per = (chunks + s - 1) / s;
+  const int per = (chunks + max_slices - 1) / max_slices;
   *kslice = per * KC;
   return (chunks + per - 1) / per;
 }
@@ -477,11 +482,11 @@ bool shapes_ok(int D, int Jp, int Vp, int Bp) {
          Bp > 0 && Bp % (DB / 2) == 0;
 }
 
-template <int BM, int BN, int KC, class P>
+template <int BM, int BN, int KC, int SLICES, class P>
 int launch_reduction(const P& p, float* part, float* out, long n_out,
                      cudaStream_t s) {
   int kslice;
-  const int slices = split_k(p.M, p.N, p.K, BM, BN, KC, &kslice);
+  const int slices = split_k(p.K, KC, SLICES, &kslice);
   const dim3 grid((p.M + BM - 1) / BM, (p.N + BN - 1) / BN, slices);
   splitk_gemm_kernel<BM, BN, KC, P><<<grid, GT, 0, s>>>(p, kslice);
   cudaError_t err = cudaGetLastError();
@@ -554,8 +559,8 @@ int lemo_vertex_fwd(const float* cat, const float* a2, const float* dirs,
 int lemo_vertex_bwd_slices(int D, int Jp, int Vp, int Bp, int* slices) {
   if (!shapes_ok(D, Jp, Vp, Bp)) return (int)cudaErrorInvalidValue;
   int kslice;
-  slices[0] = split_k(D, Bp, 3 * Vp, DCAT_BM, DCAT_BN, DCAT_KC, &kslice);
-  slices[1] = split_k(Jp, 12 * Bp, Vp, DA2_BM, DA2_BN, DA2_KC, &kslice);
+  slices[0] = split_k(3 * Vp, DCAT_KC, DCAT_SLICES, &kslice);
+  slices[1] = split_k(Vp, DA2_KC, DA2_SLICES, &kslice);
   return 0;
 }
 
@@ -578,7 +583,7 @@ int lemo_vertex_bwd_dcat(const float* dirs, const float* dvs, float* dcat,
                          void* stream) {
   if (!shapes_ok(D, 1, Vp, Bp)) return (int)cudaErrorInvalidValue;
   const DcatProblem p{dirs, dvs, part_dcat, D, Bp, 3 * Vp};
-  return launch_reduction<DCAT_BM, DCAT_BN, DCAT_KC>(
+  return launch_reduction<DCAT_BM, DCAT_BN, DCAT_KC, DCAT_SLICES>(
       p, part_dcat, dcat, (long)D * Bp, (cudaStream_t)stream);
 }
 
@@ -589,7 +594,7 @@ int lemo_vertex_bwd_da2(const float* w, const float* vs, const float* dout,
                         void* stream) {
   if (!shapes_ok(1, Jp, Vp, Bp)) return (int)cudaErrorInvalidValue;
   const Da2Problem p{w, vs, dout, part_da2, Jp, 12 * Bp, Vp, Bp};
-  return launch_reduction<DA2_BM, DA2_BN, DA2_KC>(
+  return launch_reduction<DA2_BM, DA2_BN, DA2_KC, DA2_SLICES>(
       p, part_da2, da2, 12L * Jp * Bp, (cudaStream_t)stream);
 }
 

@@ -28,6 +28,49 @@ def piecewise_lr(boundaries_values: list[tuple[int, float]],
     return lrs
 
 
+class AdamState:
+    """Adam's first and second moments, one tensor a parameter, and the
+    step count, carried from one `adam_step` to the next (optax's
+    `ScaleByAdamState`)."""
+
+    def __init__(self, params: dict[str, torch.Tensor]):
+        self.mu = {k: torch.zeros_like(v) for k, v in params.items()}
+        self.nu = {k: torch.zeros_like(v) for k, v in params.items()}
+        self.count = 0
+
+
+def adam_step(params: dict[str, torch.Tensor],
+              grads: dict[str, torch.Tensor], state: AdamState, lr: float,
+              b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+              dead: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+    """One Adam update (optax's: bias-corrected moments, `p - lr * m_hat /
+    (sqrt(v_hat) + eps)`). Returns the new parameters (detached) and
+    advances `state`. With `dead`, a bool tensor of the parameters'
+    leading shape (a scalar, or [C] for C folded problems), the entries
+    where it is set keep their parameters and moments."""
+    state.count += 1
+    # bias corrections in f32, as optax computes them (1 - 0.999**t
+    # differs from its f64 value by ~1e-5 relative at t=1)
+    t = np.float32(state.count)
+    bc1 = float(np.float32(1) - np.float32(b1) ** t)
+    bc2 = float(np.float32(1) - np.float32(b2) ** t)
+    out = {}
+    with torch.no_grad():
+        for k, g in grads.items():
+            p = params[k].detach()
+            m = (1.0 - b1) * g + b1 * state.mu[k]
+            v = (1.0 - b2) * (g * g) + b2 * state.nu[k]
+            upd = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            if dead is None:
+                out[k], state.mu[k], state.nu[k] = p + (-lr) * upd, m, v
+                continue
+            frozen = dead.reshape(dead.shape + (1,) * (p.dim() - dead.dim()))
+            out[k] = torch.where(frozen, p, p + (-lr) * upd)
+            state.mu[k] = torch.where(frozen, state.mu[k], m)
+            state.nu[k] = torch.where(frozen, state.nu[k], v)
+    return out
+
+
 def run_adam(loss_fn: Callable[[dict], torch.Tensor],
              init_params: dict[str, torch.Tensor],
              num_steps: int,
@@ -58,8 +101,7 @@ def run_adam(loss_fn: Callable[[dict], torch.Tensor],
     if per_clip and has_aux:
         raise ValueError("run_adam: per_clip and has_aux exclude each other")
     params = {k: v.detach().clone() for k, v in init_params.items()}
-    mu = {k: torch.zeros_like(v) for k, v in params.items()}
-    nu = {k: torch.zeros_like(v) for k, v in params.items()}
+    state = AdamState(params)
     dev = next(iter(params.values())).device
     n_clips = next(iter(params.values())).shape[0] if per_clip else None
     shape = () if n_clips is None else (n_clips,)
@@ -83,26 +125,13 @@ def run_adam(loss_fn: Callable[[dict], torch.Tensor],
                 for k in aux_keys]))
         if not per_clip:
             watched = loss
-        grads = torch.autograd.grad(loss, leaves)
+        grads = dict(zip(keys, torch.autograd.grad(loss, leaves)))
         if grad_mask is not None:
-            grads = [grad_mask(k, g) for k, g in zip(keys, grads)]
+            grads = {k: grad_mask(k, g) for k, g in grads.items()}
         losses[i] = watched.detach()
         dead = dead | ~torch.isfinite(watched.detach())
-        # bias corrections in f32, as optax computes them (1 - 0.999**t
-        # differs from its f64 value by ~1e-5 relative at t=1)
-        t = np.float32(i + 1)
-        bc1 = float(np.float32(1) - np.float32(b1) ** t)
-        bc2 = float(np.float32(1) - np.float32(b2) ** t)
-        with torch.no_grad():
-            for k, g in zip(keys, grads):
-                p = params[k].detach()
-                m = (1.0 - b1) * g + b1 * mu[k]
-                v = (1.0 - b2) * (g * g) + b2 * nu[k]
-                upd = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-                frozen = dead.reshape(shape + (1,) * (p.dim() - len(shape)))
-                params[k] = torch.where(frozen, p, p + (-lr_table[i]) * upd)
-                mu[k] = torch.where(frozen, mu[k], m)
-                nu[k] = torch.where(frozen, nu[k], v)
+        params = adam_step(params, grads, state, lr_table[i], b1, b2, eps,
+                           dead=dead)
     final = {k: v.detach() for k, v in params.items()}
     if per_clip:
         return final, losses.T
@@ -110,3 +139,41 @@ def run_adam(loss_fn: Callable[[dict], torch.Tensor],
         return final, losses
     hist = torch.stack(aux_rows) if aux_rows else None
     return final, losses, {k: hist[:, j] for j, k in enumerate(aux_keys or [])}
+
+
+def _flatten(tree: dict, prefix: tuple = ()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _unflatten(flat: dict) -> dict:
+    tree: dict = {}
+    for path, v in flat.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return tree
+
+
+def adam_init(params: dict) -> AdamState:
+    """The Adam state of a (nested) parameter dict, for `adam_minimize`."""
+    return AdamState(dict(_flatten(params)))
+
+
+def adam_minimize(loss_fn: Callable, params: dict, state: AdamState,
+                  lr: float, *args):
+    """One Adam step on `loss_fn(params, *args) -> (loss, {name: scalar})`
+    over a (nested) dict of tensors, the trainers' step (optax's
+    `value_and_grad` then `update`). Returns (new params, metrics with
+    'total', the loss), the metrics still on the device."""
+    flat = {k: v.detach().requires_grad_(True)
+            for k, v in _flatten(params)}
+    loss, metrics = loss_fn(_unflatten(flat), *args)
+    grads = dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
+    new = adam_step(flat, grads, state, lr)
+    return _unflatten(new), {**{k: v.detach() for k, v in metrics.items()},
+                             "total": loss.detach()}

@@ -43,6 +43,14 @@ class Stage2Weights:
     contact_vel: float = 0.03
 
 
+def _rotate(x, R):
+    """x [..., 3] times R [..., 3, 3] (row vectors, broadcast), as three
+    elementwise products in a fixed order: a batched product would round
+    by the batch's shape, this rounds each row alike."""
+    return (x[..., 0:1] * R[..., 0, :] + x[..., 1:2] * R[..., 1, :]) + \
+        x[..., 2:3] * R[..., 2, :]
+
+
 def smoothness_prior_loss(enc_params, markers_with_hand, joints_frame0,
                           stats: GlobalStats):
     """Latent-acceleration loss of the frozen smoothness encoder.
@@ -53,7 +61,7 @@ def smoothness_prior_loss(enc_params, markers_with_hand, joints_frame0,
     """
     R, _ = frame0_normalizer(joints_frame0.detach())
     origin = markers_with_hand[0, 0].detach()
-    m = torch.matmul(markers_with_hand - origin, R)  # [T, 81, 3]
+    m = _rotate(markers_with_hand - origin, R)  # [T, 81, 3]
     clip = stats.normalize(m.reshape(m.shape[0], -1)[None])  # [1, T, d]
     img = clip.transpose(1, 2)[:, None]  # [1, 1, d, T]
     vel = reflect_pad_dt(img[..., 1:] - img[..., :-1])
@@ -67,16 +75,19 @@ def smoothness_prior_loss_batched(enc_params, markers, joints_frame0,
                                   reduce_clips: bool = True):
     """Clip-batched :func:`smoothness_prior_loss`: markers
     [C, T, 81, 3], joints_frame0 [C, 25, 3] -> the per-clip losses [C]
-    (or their sum). The C clip images run through the frozen encoder as
-    one N=C convolution batch."""
+    (or their sum). On the card the frozen encoder convolves one clip
+    image at a time (`smooth_enc_forward(per_sample=True)`), so that each
+    clip's gradient equals its own fit's bit for bit; on the CPU the C
+    images are one N=C batch."""
     C, T = markers.shape[0], markers.shape[1]
     R, _ = frame0_normalizer(joints_frame0.detach())      # [C, 3, 3]
     origin = markers[:, 0, 0].detach()                     # [C, 3]
-    m = torch.matmul(markers - origin[:, None, None], R[:, None])
+    m = _rotate(markers - origin[:, None, None], R[:, None, None])
     clip = stats.normalize(m.reshape(C, T, -1))
     img = clip.transpose(1, 2)[:, None]                    # [C, 1, d, T]
     vel = reflect_pad_dt(img[..., 1:] - img[..., :-1])
-    z, _ = smooth_enc_forward(enc_params, vel, downsample=False)
+    z, _ = smooth_enc_forward(enc_params, vel, downsample=False,
+                              per_sample=True)
     dz = z[..., 1:] - z[..., :-1]
     per_clip = (dz ** 2).mean(dim=(1, 2, 3))
     return per_clip.sum() if reduce_clips else per_clip
@@ -229,15 +240,17 @@ def make_temporal_fitter_batched(model: SmplxModel, vposer_params: dict,
     init72 [C, T, 72]) -> (x72 [C, T, 72], per-clip losses [C, S]).
 
     impl='fold' (the default): the C clips are folded into one forward of
-    C*T frames, so each chain and vertex kernel launch carries C*T frames,
-    and the conv prior runs as one N=C batch. The loss is the sum of the
-    per-clip losses; clip parameters are disjoint and Adam is
-    elementwise, so each clip follows its single-clip trajectory up to
-    f32 reassociation. The VPoser decode runs its products a clip at a
-    time (`vposer.decode(rows=T)`), so that each clip's decode equals its
-    own fit's bit for bit: Adam turns the rounding a product of all
-    clips' rows adds into whole steps on entries with near-zero
-    gradients. The NaN/Inf freeze is per clip: a diverging clip freezes
+    C*T frames, so each chain and vertex kernel launch carries C*T frames.
+    The loss is the sum of the per-clip losses; clip parameters are
+    disjoint and Adam is elementwise. On the card each clip's gradient
+    equals its own fit's bit for bit, so each clip follows its
+    single-clip trajectory exactly: Adam turns any other rounding into
+    whole steps on entries with near-zero gradients. For that the VPoser
+    decode runs its products a clip at a time (`vposer.decode(rows=T)`)
+    and the smoothness prior its convolutions; the body kernels and the
+    translation's gradient sum each frame alike whatever the batch. On
+    the CPU the decode and the prior run as one batch, `lemo_tpu`'s
+    order. The NaN/Inf freeze is per clip: a diverging clip freezes
     only its own parameters and moments (`run_adam`'s `per_clip`), so
     the others keep fitting.
 

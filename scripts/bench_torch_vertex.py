@@ -23,7 +23,7 @@ compiles csrc/vertex.cu, the baseline and each compared source on its own
 with `nvcc -Xptxas -v` into lemo_tpu_torch/_build/ (all at once) and
 prints every kernel's registers, shared memory and spills. On phase 2's
 operands (`chip_smoke.body_operands`: the full-size synthetic SMPL-X at
-B=100) it holds every build's forward (1e-5 m abs) and backward (rel
+B=100, or `--frames B`) it holds every build's forward (1e-5 m abs) and backward (rel
 5e-5) against the plain versions and against a second launch of itself
 (bit-identical; a compared build that fails is reported and not timed,
 the port failing stops the script), and each stage of the port's kernels
@@ -299,6 +299,8 @@ def main() -> int:
     ap.add_argument("--f2", action="append", default=[],
                     help="NAME=PLANES,BLOCKS: csrc/vertex.cu with F2_PLANES "
                          "and F2_MIN_BLOCKS set so")
+    ap.add_argument("--frames", type=int, default=None,
+                    help="the operands' frame count B (default phase 2's)")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("bench_torch_vertex: CUDA is not available", file=sys.stderr)
@@ -325,7 +327,7 @@ def main() -> int:
 
     model = load_model(cs.smoke_model_dict(), use_pca=True, num_pca_comps=12,
                        device="cuda")
-    ops = cs.body_operands(model)
+    ops = cs.body_operands(model, frames=a.frames or cs.T_FRAMES)
     catT, A2, dirs, w = ops["vertex_fwd_kernel"][:4]
     dout = ops["vertex_bwd_kernel"][4]
     print(f"[operands] catT {tuple(catT.shape)}, A2 {tuple(A2.shape)}, dirs "

@@ -278,7 +278,14 @@ def test_port_imports_no_jax():
         " 'lemo_tpu_torch.fitting.amass_perframe',"
         " 'lemo_tpu_torch.fitting.amass_temp',"
         " 'lemo_tpu_torch.cli.opt_amass_perframe',"
-        " 'lemo_tpu_torch.cli.opt_amass_temp']\n"
+        " 'lemo_tpu_torch.cli.opt_amass_temp',"
+        " 'lemo_tpu_torch.train.smooth', 'lemo_tpu_torch.train.infill',"
+        " 'lemo_tpu_torch.train.vposer', 'lemo_tpu_torch.utils.logging',"
+        " 'lemo_tpu_torch.utils.metrics',"
+        " 'lemo_tpu_torch.cli.train_smooth_prior',"
+        " 'lemo_tpu_torch.cli.train_infill_prior',"
+        " 'lemo_tpu_torch.cli.test_smooth_prior',"
+        " 'lemo_tpu_torch.cli.eval_amass']\n"
         "assert all(m in sys.modules for m in need), need\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'optax' or m == 'lemo_tpu' or m.startswith('lemo_tpu.')]\n"

@@ -153,6 +153,30 @@ Phases (any failure raises and the script exits non-zero):
    their bound at 67 TFLOP/s; each dataset build's wall time. Last, each
    body-model kernel entry point against its plain version at B = 256
    on the VPoser model (phase 2's tolerances).
+9. The PROX optimizer family, after phase 6b on phase 6's recording:
+   (9a) `run_prox_fitting` on PROXD_temp_S3.yaml with `optim_type
+   lbfgsls`, `use_vposer false`, GMM body and hand priors (synthetic
+   gmm_08.pkl, K=8 D=63, and gmm_12.pkl, K=12 D=12, written into
+   lemo_tpu_torch/_build/gmm_priors/) and 20 steps a window in chunks
+   of 10, counters zeroed before: the pkls, falling finite histories,
+   and one launch of each body entry point an evaluation (2 + k a step,
+   k the step's line-search trials); window 2 timed (ms a step,
+   evaluations a step, ms an evaluation, frame-iters/s, evaluations/s)
+   and a 3-step call profiled (busy share, launches a step); (9b) each
+   window refitted from its recorded inputs for 10 steps under
+   deterministic algorithms through the kernels twice (the same bits
+   and trial counts) and through the plain versions (first-step terms
+   within rel 1e-4, the total 1e-5, the same trial count at every step,
+   final loss rel 1e-3; a split in the trial counts is printed and the
+   steps through it held to those rules); (9c) eval_prox through its
+   `main` on 9a's output, through the kernels (one chain and one vertex
+   forward a 25-frame chunk, 7 with the short last one) and the plain
+   versions (non_collision and contact abs 1e-5, accel and reprojection
+   rel 1e-5); (9d) RMSprop and SGD on the fold (`window_parallel`, no
+   polish, 10 steps at the config's lr): finite falling losses, transl
+   apart from Adam's; (9e) `fit_camera_init` on window 1's warm start
+   (B = 100), 30 Adam steps through the kernels and the plain versions
+   (transl rel 1e-5, the loss falls). Prints phase 9's command time.
 
 The script re-executes itself with PYTHONHASHSEED=0 (the synthetic
 male/female models are seeded with Python's string hash), and phase 4b's
@@ -165,7 +189,9 @@ also carry their launches on the AMASS path, `launches_amass`, and their
 check at its frame counts, `amass_frames`; phase 6b adds a row for each
 kernel at each of the fold's shapes, named "... fold ..."; phase 8 a
 row for each body-model kernel at B = 256, named "... vposer-train
-..."), then as the last line
+..."; phase 9 a row for the chain and vertex forwards at each of
+eval_prox's chunk sizes, named "... eval-prox ..."), then as the last
+line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Exits non-zero without printing a result when CUDA is absent.
 """
@@ -220,6 +246,13 @@ VPOSER_STEPS = 5               # VPoser mesh steps of each check run
 TRAIN_TIMED_STEPS = {"smooth": 5, "infill": 10, "vposer": 20}
 TRAIN_PROFILE_STEPS = 3
 TRAIN_DEVICE = "cuda"
+LBFGS_STEPS = 20               # phase 9a's --maxiters (the config's 900, cut)
+LBFGS_CHUNK = 10               # its --steps_per_dispatch: two chunks a window
+LBFGS_REFIT_STEPS = 10         # L-BFGS steps of each phase-9b refit
+LBFGS_PROFILE_STEPS = 3        # steps of phase 9a's profiled call
+OPT_FOLD_STEPS = 10            # phase 9d's steps of each optimizer
+CAM_INIT_STEPS = 30            # phase 9e's Adam steps
+EVAL_CHUNK = 25                # eval_prox's --chunk (its default)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PROX_CFG = os.path.join(ROOT, "cfg_files", "PROXD_temp_S3_all_terms.yaml")
 PROX_S3_CFG = os.path.join(ROOT, "cfg_files", "PROXD_temp_S3.yaml")
@@ -232,6 +265,11 @@ TRAIN_DIR = os.path.join(ROOT, "lemo_tpu_torch", "_build", "train_smoke")
 ISECT_OPERANDS = os.path.join(PROX_DIR, "isect_operands.pt")
 # phase 5's operands, for scripts/bench_torch_chamfer.py
 CHAMFER_OPERANDS = os.path.join(PROX_DIR, "chamfer_operands.pt")
+# phase 9's synthetic GMM priors (gmm_08.pkl body, gmm_12.pkl hands) and
+# the model file eval_prox reads (<dir>/SMPLX_MALE.npz)
+GMM_DIR = os.path.join(ROOT, "lemo_tpu_torch", "_build", "gmm_priors")
+EVAL_MODEL_DIR = os.path.join(ROOT, "lemo_tpu_torch", "_build", "eval_model")
+LBFGS_OUT = os.path.join(PROX_DIR, "out_lbfgs")
 CHAMFER_OPS_PER_PAIR = 9.0     # csrc/chamfer.cu: 3 mul + 2 add, add, mul, sub, cmp
 # csrc/intersection.cu, f32 operations of one unordered face pair by the
 # gate it reaches. The gates are symmetric in the pair, so each is paid
@@ -2697,6 +2735,415 @@ def fold_kernel_rows(model, rows, wp, sweep_wp, card) -> list[dict]:
     return out
 
 
+def write_gmm_pickles(folder: str) -> None:
+    """Synthetic stand-ins for SMPLify-X's mixtures, in the dict form
+    lemo_tpu's tests write (tests/test_prior_types_stages.py:27-40):
+    gmm_08.pkl (8 components over the 63-d body pose) and gmm_12.pkl (12
+    over the 12 hand PCA coefficients), seeded."""
+    os.makedirs(folder, exist_ok=True)
+    for K, D, seed in ((8, 63, 8), (12, 12, 12)):
+        rng = np.random.RandomState(seed)
+        covs = []
+        for _ in range(K):
+            a = rng.randn(D, D) * 0.05
+            covs.append(a @ a.T + 0.1 * np.eye(D))
+        with open(os.path.join(folder, f"gmm_{K:02d}.pkl"), "wb") as fh:
+            pickle.dump({"means": rng.randn(K, D) * 0.2,
+                         "covars": np.stack(covs),
+                         "weights": rng.dirichlet(np.ones(K))}, fh)
+
+
+def lbfgs_config(info, out_dir: str):
+    """PROXD_temp_S3.yaml with strong-Wolfe L-BFGS for LBFGS_STEPS steps
+    a window, the raw body pose and GMM body and hand priors from
+    GMM_DIR."""
+    return prox_config(info, out_dir, steps=LBFGS_STEPS, config=PROX_S3_CFG,
+                       extra=("--optim_type", "lbfgsls", "--use_vposer",
+                              "false", "--body_prior_type", "gmm",
+                              "--left_hand_prior_type", "gmm",
+                              "--right_hand_prior_type", "gmm",
+                              "--prior_folder", GMM_DIR,
+                              "--num_gaussians", "8",
+                              "--steps_per_dispatch", str(LBFGS_CHUNK)))
+
+
+def lbfgs_fitter(cfg, fit: dict, steps: int):
+    """A window fitter of `cfg`'s optimizer and priors for `steps` steps
+    in one chunk, on the inputs phase 9a recorded for one window."""
+    from lemo_tpu_torch.fitting.prox import driver
+    from lemo_tpu_torch.fitting.prox.window import make_window_fitter
+
+    model, vpp, mapper, static, weights, _ = fit["args"]
+    return make_window_fitter(
+        model, vpp, mapper, static, weights, maxiters=steps, lr=cfg.lr,
+        optim_type=cfg.optim_type, steps_per_dispatch=steps,
+        priors=driver.build_priors(cfg, model.device),
+        use_vposer=cfg.use_vposer)
+
+
+def phase_lbfgs(model, info, card) -> dict:
+    """Phase 9a: the L-BFGS recording (PROXD_temp_S3.yaml, `lbfgsls`, GMM
+    priors, no VPoser, LBFGS_STEPS steps a window in chunks of
+    LBFGS_CHUNK) through `run_prox_fitting`, every launch counter at 0
+    before it. Each window's fit is recorded: its inputs, the stepper's
+    final state, its wall time and the body kernels it launched, which
+    must be one launch of each entry point an evaluation, 2 + k a step.
+    Then one profiled call of LBFGS_PROFILE_STEPS steps on window 2."""
+    import torch
+
+    from lemo_tpu_torch.fitting.prox import driver
+
+    write_gmm_pickles(GMM_DIR)
+    cfg = lbfgs_config(info, LBFGS_OUT)
+    if cfg.optim_type != "lbfgsls" or cfg.use_vposer:
+        raise AssertionError("phase 9a's flags did not reach the config")
+    assets = prox_assets(model, info, cfg)
+    fits: list = []
+    real = driver.fit_window
+
+    def recorded(*args, **kw):
+        before = _body_counts()
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        fits.append({"args": args, "kw": kw, "s": time.perf_counter() - t0,
+                     "state": kw["fitter"].last_state,
+                     "launches": {k: v - before[k]
+                                  for k, v in _body_counts().items()}})
+        return out
+
+    _zero_all_counts()
+    t0 = time.perf_counter()
+    driver.fit_window = recorded
+    try:
+        results = driver.run_prox_fitting(cfg, assets, verbose=True)
+    finally:
+        driver.fit_window = real
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _all_counts()
+    n_pkls = _check_pkls(LBFGS_OUT, info)
+    if len(results) != 2 or n_pkls != PROX_FRAMES:
+        raise AssertionError(f"expected 2 windows and {PROX_FRAMES} pkls")
+    evals_all = 0
+    for w, (r, f) in enumerate(zip(results, fits)):
+        trials = list(f["state"].trials)
+        evals = sum(2 + k for k in trials)
+        evals_all += evals
+        th = r.term_history
+        _log(f"[lbfgs] window {w + 1}: loss {r.loss_history[0]:.6f} -> "
+             f"{r.loss_history[-1]:.6f} over {len(trials)} steps; trials a "
+             f"step {trials}; {evals} evaluations; launches {f['launches']};"
+             f" largest |t| {f['state'].max_t:.6g}, largest |x| of a trial "
+             f"{f['state'].max_abs_x:.6g}; terms first -> last: "
+             + ", ".join(f"{k} {th[k][0]:.6g} -> {th[k][-1]:.6g}"
+                         for k in th if th[k][0] or th[k][-1]))
+        if not np.isfinite(r.loss_history).all() or \
+                not r.loss_history[-1] < r.loss_history[0] or \
+                not all(np.isfinite(v).all() for v in th.values()):
+            raise AssertionError(f"window {w + 1} did not descend")
+        if len(trials) != LBFGS_STEPS or f["launches"] != {
+                "chain_fwd": evals, "chain_bwd": evals,
+                "vertex_fwd": evals, "vertex_bwd": evals}:
+            raise AssertionError(f"window {w + 1}: {len(trials)} steps, "
+                                 f"launches {f['launches']} for {evals} "
+                                 "evaluations")
+    f2 = fits[1]
+    trials = list(f2["state"].trials)
+    evals = sum(2 + k for k in trials)
+    T = results[1].params["transl"].shape[0]
+    timing = {"ms_per_step": f2["s"] / LBFGS_STEPS * 1e3,
+              "evals_first_step": 2 + trials[0],
+              "evals_per_step_mean": evals / LBFGS_STEPS,
+              "evals_per_step_max": 2 + max(trials),
+              "ms_per_eval": f2["s"] / evals * 1e3,
+              "frame_iters_per_s": T * LBFGS_STEPS / f2["s"],
+              "evals_per_s": evals / f2["s"]}
+    fit = lbfgs_fitter(cfg, f2, LBFGS_PROFILE_STEPS)
+    prof = _profile_call(fit, (f2["args"][3], f2["args"][5], False))
+    p_evals = sum(2 + k for k in fit.last_state.trials)
+    timing.update(
+        profiled_steps=LBFGS_PROFILE_STEPS, profiled_evals=p_evals,
+        device_busy_share=prof["busy_us"] / prof["wall_us"],
+        launches_per_step=prof["kernels"] / LBFGS_PROFILE_STEPS,
+        launches_per_eval=prof["kernels"] / p_evals)
+    _log(f"[lbfgs] timed window 2 (T={T}, after window 1): "
+         f"{json.dumps(timing)} on {card}")
+    _log(f"[lbfgs] run {wall:.1f} s, launches {counts} ({evals_all} "
+         f"evaluations in the fits)")
+    return {"cfg": cfg, "fits": fits, "results": results, "counts": counts,
+            "timing": timing}
+
+
+def refit_lbfgs(lb: dict, plain_versions: bool) -> list[dict]:
+    """Each window of phase 9a fitted again from its recorded inputs for
+    LBFGS_REFIT_STEPS steps under `torch.use_deterministic_algorithms`,
+    through the kernels or the plain versions: per window the loss and
+    term histories and the trial count of each step."""
+    import torch
+
+    out = []
+    ctx = plain_twins() if plain_versions else contextlib.nullcontext()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with ctx:
+            for f in lb["fits"]:
+                fit = lbfgs_fitter(lb["cfg"], f, LBFGS_REFIT_STEPS)
+                _, losses, terms, _ = fit(f["args"][3], f["args"][5],
+                                          f["kw"]["first_window"])
+                out.append({"losses": losses.cpu().numpy(),
+                            "terms": {k: v.cpu().numpy()
+                                      for k, v in terms.items()},
+                            "trials": list(fit.last_state.trials)})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
+def phase_lbfgs_check(lb: dict, card) -> None:
+    """Phase 9b: each window refitted three ways (`refit_lbfgs`): the
+    kernel path twice must give the same losses and trial counts bit for
+    bit; against the plain versions, the first step's terms within rel
+    1e-4 (the total 1e-5), the same trial count at every step and the
+    final losses within rel 1e-3. Where rounding makes the two paths
+    take another trial count at some step, that step and every step
+    before it are held to those rules, and the split is printed."""
+    kern = refit_lbfgs(lb, False)
+    again = refit_lbfgs(lb, False)
+    plain = refit_lbfgs(lb, True)
+    faults = []
+    for w, (k, k2, p) in enumerate(zip(kern, again, plain)):
+        same = np.array_equal(k["losses"], k2["losses"]) and \
+            k["trials"] == k2["trials"]
+        _log(f"[lbfgs] window {w + 1} refit ({LBFGS_REFIT_STEPS} steps, "
+             f"deterministic algorithms): kernels repeat bit for bit {same};"
+             f" trials kernels {k['trials']}, plain {p['trials']}")
+        if not same:
+            faults.append(f"window {w + 1}: the kernel path does not repeat")
+        first = {n: (float(k["terms"][n][0]), float(p["terms"][n][0]))
+                 for n in k["terms"]}
+        rel0 = {n: abs(a - b) / abs(b) for n, (a, b) in first.items() if b}
+        _log(f"[lbfgs] window {w + 1} first step kernels vs plain (rel): "
+             + ", ".join(f"{n} {a:.7g}/{b:.7g} ({rel0[n]:.2e})"
+                         for n, (a, b) in first.items() if n in rel0))
+        for n, r0 in rel0.items():
+            tol0 = 1e-5 if n == "total_loss" else 1e-4
+            if not r0 < tol0:
+                faults.append(f"window {w + 1} first-step {n} differs by "
+                              f"rel {r0:.3e} (tol {tol0:g})")
+        split = next((i for i, (a, b) in enumerate(zip(k["trials"],
+                                                       p["trials"]))
+                      if a != b), None)
+        held = LBFGS_REFIT_STEPS if split is None else split + 1
+        rel = np.abs(k["losses"][:held] - p["losses"][:held]) / \
+            np.abs(p["losses"][:held])
+        if split is None:
+            _log(f"[lbfgs] window {w + 1}: the same trial count at every "
+                 f"step; final loss kernels {k['losses'][-1]:.7f} vs plain "
+                 f"{p['losses'][-1]:.7f} (rel {rel[-1]:.3e}, tol 1e-3) on "
+                 f"{card}")
+            if not rel[-1] < 1e-3:
+                faults.append(f"window {w + 1} final loss differs by rel "
+                              f"{rel[-1]:.3e}")
+        else:
+            _log(f"[lbfgs] window {w + 1}: SPLIT at step {split + 1}: "
+                 f"kernels take {k['trials'][split]} trials, plain "
+                 f"{p['trials'][split]}; losses through that step within "
+                 f"rel {rel.max():.3e} (tol 1e-3) on {card}")
+            if not rel.max() < 1e-3:
+                faults.append(f"window {w + 1} losses before the split "
+                              f"differ by rel {rel.max():.3e}")
+    if faults:
+        raise AssertionError("; ".join(faults))
+
+
+def phase_eval_prox(model_dict, info, card) -> dict:
+    """Phase 9c: eval_prox through its `main` on phase 9a's output (170
+    frames, chunks of EVAL_CHUNK: the body forward at B = 25 and a short
+    last chunk), with the launch counts zeroed just before and read just
+    after, then again under `plain_twins()`: frames, launches (one chain
+    and one vertex forward a chunk, no backward, counted at each chunk's
+    B), non_collision and contact within abs 1e-5, accel and reprojection
+    within rel 1e-5, and every vertex's world position and SDF value
+    within abs 2e-5 of the plain run's (phase 2's 1e-5 on a camera
+    coordinate, through the rotation to the world, is at most sqrt(3) *
+    1e-5 a coordinate; the synthetic SDF is the height above its floor,
+    so a value moves no more than its vertex). Returns {kernel: {B:
+    launches}} of the kernel run."""
+    import torch
+
+    from lemo_tpu_torch.body_model import lbs
+    from lemo_tpu_torch.cli import eval_prox
+    from lemo_tpu_torch.ops import sdf as sdf_ops
+    from lemo_tpu_torch.testing.synthetic_prox import CX, CY, FX, FY
+
+    os.makedirs(EVAL_MODEL_DIR, exist_ok=True)
+    np.savez(os.path.join(EVAL_MODEL_DIR, "SMPLX_MALE.npz"), **model_dict)
+
+    def run(tag, forwards, samples):
+        with call_spy(lbs, "_lbs_fused", forwards), \
+                call_spy(sdf_ops, "sample_sdf_world", samples):
+            return eval_prox.main(
+                ["--fitting_dir",
+                 os.path.join(LBFGS_OUT, info["recording_name"]),
+                 "--recording_dir", info["recording_dir"],
+                 "--body_model_path", EVAL_MODEL_DIR,
+                 "--chunk", str(EVAL_CHUNK),
+                 "--focal_length_x", str(FX), "--focal_length_y", str(FY),
+                 "--camera_center_x", str(CX), "--camera_center_y", str(CY),
+                 "--out", os.path.join(PROX_DIR, f"eval_prox_{tag}.json")],
+                device="cuda")
+
+    forwards, samples = [], []
+    _zero_all_counts()
+    t0 = time.perf_counter()
+    got = run("kernels", forwards, samples)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _body_counts()
+    ref_samples: list = []
+    with plain_twins():
+        ref = run("plain", [], ref_samples)
+    at_B: dict = {}
+    for c in forwards:
+        B = int(c["args"][0].shape[0])
+        for name in ("chain_fwd", "vertex_fwd"):
+            at_B.setdefault(name, {}).setdefault(B, 0)
+            at_B[name][B] += c["launches"][name]
+    sizes = [EVAL_CHUNK] * (PROX_FRAMES // EVAL_CHUNK)
+    if PROX_FRAMES % EVAL_CHUNK:
+        sizes.append(PROX_FRAMES % EVAL_CHUNK)
+    want = {B: sizes.count(B) for B in set(sizes)}
+    (vk,), (sk,) = [c["args"][1] for c in samples], \
+        [c["out"] for c in samples]
+    (vp,), (sp,) = [c["args"][1] for c in ref_samples], \
+        [c["out"] for c in ref_samples]
+    d_vert = float((vk - vp).abs().max())
+    d_sdf = float((sk - sp).abs().max())
+    _log(f"[eval_prox] kernels {json.dumps(got)}; plain {json.dumps(ref)}; "
+         f"{wall:.2f} s (model load included), launches {counts}, at each "
+         f"chunk's B {at_B} on {card}")
+    _log(f"[eval_prox] {vk.shape[0]} vertices: world position max |d| from "
+         f"the plain run's {d_vert:.3e}, SDF {d_sdf:.3e} (tol 2e-5 each); "
+         f"SDF in [{float(sk.min()):.4f}, {float(sk.max()):.4f}] m")
+    faults = []
+    if got.get("frames") != PROX_FRAMES or \
+            counts != _forward_counts(len(sizes)) or \
+            at_B != {"chain_fwd": want, "vertex_fwd": want}:
+        faults.append(f"frames {got.get('frames')}, launches {counts}, at "
+                      f"each B {at_B} (expected {want} of each forward)")
+    if not (d_vert <= 2e-5 and d_sdf <= 2e-5):
+        faults.append(f"vertices {d_vert:.3e} / SDF {d_sdf:.3e} from the "
+                      "plain run's")
+    for k, tol, relative in (("non_collision", 1e-5, False),
+                             ("contact", 1e-5, False),
+                             ("accel_m_s2", 1e-5, True),
+                             ("reproj_err_px", 1e-5, True)):
+        if k not in got or not np.isfinite(got[k]):
+            faults.append(f"{k} missing or not finite")
+            continue
+        d = abs(got[k] - ref[k]) / (abs(ref[k]) if relative else 1.0)
+        if not d <= tol:
+            faults.append(f"{k}: {got[k]} vs plain {ref[k]} ({d:.3e})")
+    if faults:
+        raise AssertionError("eval_prox: " + "; ".join(faults))
+    return at_B
+
+
+def eval_prox_kernel_rows(model, rows, launches_at: dict, card) -> list:
+    """Phase 9c's kernel rows: the chain and vertex forwards, which
+    eval_prox launches, against their plain versions at each of its chunk
+    sizes, with the launches counted at that size in phase 9c's run
+    ({kernel: {B: launches}})."""
+    base = {r["name"]: r for r in rows}
+    out = []
+    frames = tuple(sorted(launches_at["chain_fwd"], reverse=True))
+    at = body_kernels_at(model, card, frames, "eval-prox kernels")
+    for name in ("chain_fwd", "vertex_fwd"):
+        for row in at[name]:
+            out.append({**row, "name": f"{name} eval-prox B={row['B']}",
+                        "route": "cuda", "source": base[name]["source"],
+                        "replaces": base[name]["replaces"],
+                        "launches": launches_at[name][row["B"]],
+                        "library_ms": None})
+    return out
+
+
+def phase_opt_fold(model, info, card) -> None:
+    """Phase 9d: RMSprop and SGD on the fold, on phase 6's recording with
+    PROXD_temp_S3.yaml, `window_parallel` and no polish, OPT_FOLD_STEPS
+    steps at the config's lr, beside Adam on the same: finite losses that
+    fall in each window, and a final transl that differs from Adam's."""
+    from lemo_tpu_torch.fitting.prox import driver
+
+    runs = {}
+    for opt in ("adam", "rmsprop", "sgd"):
+        cfg = prox_config(info, os.path.join(PROX_DIR, f"out_fold_{opt}"),
+                          steps=OPT_FOLD_STEPS, config=PROX_S3_CFG,
+                          extra=("--window_parallel", "true",
+                                 "--window_polish_iters", "0",
+                                 "--optim_type", opt))
+        t0 = time.perf_counter()
+        runs[opt] = driver.run_prox_fitting(cfg, prox_assets(model, info,
+                                                             cfg),
+                                            verbose=False)
+        _log(f"[opt fold] {opt}: {time.perf_counter() - t0:.2f} s; losses "
+             + "; ".join(f"window {w + 1} {r.loss_history[0]:.6f} -> "
+                         f"{r.loss_history[-1]:.6f}"
+                         for w, r in enumerate(runs[opt])) + f" on {card}")
+    for opt in ("rmsprop", "sgd"):
+        for w, (r, a) in enumerate(zip(runs[opt], runs["adam"])):
+            d = float(np.abs(r.params["transl"] - a.params["transl"]).max())
+            _log(f"[opt fold] {opt} window {w + 1}: transl max |d| from "
+                 f"Adam's {d:.3e}")
+            if not np.isfinite(r.loss_history).all() or \
+                    not r.loss_history[-1] < r.loss_history[0] or d == 0:
+                raise AssertionError(f"{opt} window {w + 1}: losses "
+                                     f"{r.loss_history}, transl |d| {d}")
+
+
+def phase_camera_init(lb: dict, card) -> None:
+    """Phase 9e: `fit_camera_init` on window 1's warm start (B = 100)
+    against its keypoints, CAM_INIT_STEPS Adam steps through the kernels
+    (one forward and one backward of each entry point a step) and
+    through the plain versions: the loss falls and the final transl
+    agrees within rel 1e-5."""
+    import torch
+
+    from lemo_tpu_torch.body_model import make_forward_fn
+    from lemo_tpu_torch.fitting.prox.camera_init import fit_camera_init
+
+    model, _, mapper, static, _, warm = lb["fits"][0]["args"]
+    init = {k: v for k, v in warm.items() if k != "pose_embedding"}
+
+    def run():
+        return fit_camera_init(make_forward_fn(model), model.consts, mapper,
+                               static.camera, init, static.gt_joints,
+                               num_steps=CAM_INIT_STEPS)
+
+    _zero_body_counts()
+    t0 = time.perf_counter()
+    got, losses = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _body_counts()
+    with plain_twins():
+        ref, ref_losses = run()
+    rel = _max_rel(got["transl"], ref["transl"])
+    _log(f"[camera init] B={init['transl'].shape[0]}: loss "
+         f"{float(losses[0]):.6f} -> {float(losses[-1]):.6f} over "
+         f"{CAM_INIT_STEPS} steps ({wall / CAM_INIT_STEPS * 1e3:.3f} ms a "
+         f"step), plain {float(ref_losses[-1]):.6f}; transl vs plain rel "
+         f"{rel:.3e} (tol 1e-5); launches {counts} on {card}")
+    n = CAM_INIT_STEPS
+    if not float(losses[-1]) < float(losses[0]) or not rel <= 1e-5 or \
+            counts != {"chain_fwd": n, "chain_bwd": n, "vertex_fwd": n,
+                       "vertex_bwd": n}:
+        raise AssertionError("camera init: loss did not fall, transl "
+                             "differs from the plain versions', or "
+                             "launches are off")
+
+
 def main() -> int:
     if os.environ.get("PYTHONHASHSEED") != "0":
         # the synthetic male/female models are seeded with Python's string
@@ -2759,6 +3206,15 @@ def main() -> int:
     sweep_wp = phase_wp_sweep(model, model_dict, card)
     rows += fold_kernel_rows(model, rows, wp, sweep_wp, card)
     _log(f"[wp sweep] {json.dumps(sweep_wp)}")
+    t9 = time.perf_counter()
+    lb = phase_lbfgs(model, info, card)
+    phase_lbfgs_check(lb, card)
+    at_eval = phase_eval_prox(model_dict, info, card)
+    phase_opt_fold(model, info, card)
+    phase_camera_init(lb, card)
+    rows += eval_prox_kernel_rows(model, rows, at_eval, card)
+    _log(f"[lbfgs] timing {json.dumps(lb['timing'])} on {card}")
+    _log(f"[phase 9] command time {time.perf_counter() - t9:.1f} s on {card}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,7 @@
 """The fitting engine: Adam over a dict of tensors (port of
-`lemo_tpu/fitting/adam.py`).
+`lemo_tpu/fitting/adam.py`), and beside it the rest of the gradient
+family that `lemo_tpu/fitting/lbfgs.py:create_optimizer` serves, SGD and
+RMSprop, with optax's updates.
 
 `lemo_tpu` runs the whole fit as one `lax.scan`; here it is a Python
 loop of eager steps with no host synchronisation inside it: the
@@ -8,10 +10,16 @@ is a device-side `torch.where`, and the per-step losses are written into
 a device tensor. With `per_clip`, C independent problems share the loop
 (the clip-folded Stage 2, `lemo_tpu/fitting/amass_temp.py:271-305`):
 each has its own freeze, all share the step count.
+
+`run_adam(spec=...)` runs the same loop with another member of the
+family (`AdamSpec`, the default, `SgdSpec`, `RmspropSpec`); a spec holds
+the update's constants, and `run_adam`'s `lr_table` each step's
+learning rate.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import numpy as np
@@ -71,16 +79,138 @@ def adam_step(params: dict[str, torch.Tensor],
     return out
 
 
+def _frozen(dead: torch.Tensor | None, p: torch.Tensor):
+    """`dead` broadcast over a parameter's trailing axes (None: nothing
+    frozen)."""
+    if dead is None:
+        return None
+    return dead.reshape(dead.shape + (1,) * (p.dim() - dead.dim()))
+
+
+def _keep(frozen, old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    return new if frozen is None else torch.where(frozen, old, new)
+
+
+class TraceState:
+    """optax's `TraceState`: the momentum trace, one tensor a parameter."""
+
+    def __init__(self, params: dict[str, torch.Tensor]):
+        self.trace = {k: torch.zeros_like(v) for k, v in params.items()}
+
+
+class RmsState(TraceState):
+    """optax's `ScaleByRmsState` (nu, from zeros: `initial_scale` 0) and
+    the trace that `optax.rmsprop` chains after it."""
+
+    def __init__(self, params: dict[str, torch.Tensor]):
+        super().__init__(params)
+        self.nu = {k: torch.zeros_like(v) for k, v in params.items()}
+
+
+def sgd_step(params, grads, state: TraceState, lr: float,
+             momentum: float = 0.9, nesterov: bool = True,
+             dead: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+    """One step of `optax.sgd(lr, momentum, nesterov)`: the trace
+    t = g + momentum * t, the update g + momentum * t with Nesterov (t
+    without), scaled by -lr and added. `dead` as in `adam_step`."""
+    out = {}
+    with torch.no_grad():
+        for k, g in grads.items():
+            p = params[k].detach()
+            t = g + momentum * state.trace[k]
+            upd = g + momentum * t if nesterov else t
+            frozen = _frozen(dead, p)
+            out[k] = _keep(frozen, p, p + (-lr) * upd)
+            state.trace[k] = _keep(frozen, state.trace[k], t)
+    return out
+
+
+def rmsprop_step(params, grads, state: RmsState, lr: float,
+                 decay: float = 0.99, eps: float = 1e-8,
+                 momentum: float = 0.0,
+                 dead: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+    """One step of `optax.rmsprop(lr, decay, eps, momentum=momentum)`:
+    nu = (1 - decay) * g**2 + decay * nu, the update g * rsqrt(nu + eps)
+    (eps inside the root), scaled by -lr, then the trace of decay
+    `momentum` that optax chains after it (at 0.0 it adds 0 * t, which
+    is the identity on finite values; kept so that a non-finite trace
+    acts as in lemo_tpu). `dead` as in `adam_step`."""
+    out = {}
+    with torch.no_grad():
+        for k, g in grads.items():
+            p = params[k].detach()
+            nu = (1.0 - decay) * (g * g) + decay * state.nu[k]
+            upd = (-lr) * (torch.rsqrt(nu + eps) * g)
+            t = upd + momentum * state.trace[k]
+            frozen = _frozen(dead, p)
+            out[k] = _keep(frozen, p, p + t)
+            state.nu[k] = _keep(frozen, state.nu[k], nu)
+            state.trace[k] = _keep(frozen, state.trace[k], t)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamSpec:
+    """`optax.adam`'s update (b1, b2, eps) for `run_adam(spec=...)`; the
+    learning rate is `run_adam`'s `lr_table`."""
+
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+    def init(self, params):
+        return AdamState(params)
+
+    def step(self, params, grads, state, lr, dead=None):
+        return adam_step(params, grads, state, lr, self.b1, self.b2,
+                         self.eps, dead=dead)
+
+
+@dataclasses.dataclass(frozen=True)
+class SgdSpec:
+    """`optax.sgd`'s update (momentum, nesterov) for
+    `run_adam(spec=...)`."""
+
+    momentum: float = 0.9
+    nesterov: bool = True
+
+    def init(self, params):
+        return TraceState(params)
+
+    def step(self, params, grads, state, lr, dead=None):
+        return sgd_step(params, grads, state, lr, self.momentum,
+                        self.nesterov, dead=dead)
+
+
+@dataclasses.dataclass(frozen=True)
+class RmspropSpec:
+    """`optax.rmsprop`'s update (decay, eps, momentum) for
+    `run_adam(spec=...)`."""
+
+    decay: float = 0.99
+    eps: float = 1e-8
+    momentum: float = 0.0
+
+    def init(self, params):
+        return RmsState(params)
+
+    def step(self, params, grads, state, lr, dead=None):
+        return rmsprop_step(params, grads, state, lr, self.decay, self.eps,
+                            self.momentum, dead=dead)
+
+
 def run_adam(loss_fn: Callable[[dict], torch.Tensor],
              init_params: dict[str, torch.Tensor],
              num_steps: int,
              lr_table: list[float],
-             b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
              grad_mask: Callable[[str, torch.Tensor], torch.Tensor]
              | None = None,
-             has_aux: bool = False, per_clip: bool = False):
-    """`num_steps` of Adam (optax's update: bias-corrected moments,
-    `m_hat / (sqrt(v_hat) + eps)`) on a dict of tensors.
+             has_aux: bool = False, per_clip: bool = False,
+             spec: AdamSpec | SgdSpec | RmspropSpec = AdamSpec()):
+    """`num_steps` of the update `spec` at the learning rates of
+    `lr_table` on a dict of tensors: by default Adam (optax's update:
+    bias-corrected moments, `m_hat / (sqrt(v_hat) + eps)`), or another
+    member of `fitting.lbfgs.create_optimizer`'s gradient family.
 
     Returns (final params, per-step losses [num_steps]). A NaN/Inf loss
     freezes the parameters and moments from that step on (the
@@ -101,7 +231,7 @@ def run_adam(loss_fn: Callable[[dict], torch.Tensor],
     if per_clip and has_aux:
         raise ValueError("run_adam: per_clip and has_aux exclude each other")
     params = {k: v.detach().clone() for k, v in init_params.items()}
-    state = AdamState(params)
+    state = spec.init(params)
     dev = next(iter(params.values())).device
     n_clips = next(iter(params.values())).shape[0] if per_clip else None
     shape = () if n_clips is None else (n_clips,)
@@ -130,8 +260,7 @@ def run_adam(loss_fn: Callable[[dict], torch.Tensor],
             grads = {k: grad_mask(k, g) for k, g in grads.items()}
         losses[i] = watched.detach()
         dead = dead | ~torch.isfinite(watched.detach())
-        params = adam_step(params, grads, state, lr_table[i], b1, b2, eps,
-                           dead=dead)
+        params = spec.step(params, grads, state, lr_table[i], dead=dead)
     final = {k: v.detach() for k, v in params.items()}
     if per_clip:
         return final, losses.T

@@ -70,19 +70,25 @@ def weights_from_config(cfg: ProxConfig, stage: int = 0) -> ProxWeights:
         coll_frame_chunk=int(cfg.coll_frame_chunk))
 
 
-def build_priors(cfg: ProxConfig) -> dict:
-    """cfg.*_prior_type -> prior callables (main_slide.py:199-237); only
-    non-L2 types are materialized, and 'gmm' raises (not ported)."""
+def build_priors(cfg: ProxConfig, device) -> dict:
+    """cfg.*_prior_type -> prior callables on `device` (main_slide.py:
+    199-237); only non-L2 types are materialized. A hand GMM has
+    num_pca_comps components, as the reference's lhand_args/rhand_args
+    set them (:218-230)."""
     from lemo_tpu_torch.priors.body_priors import create_prior
 
+    base = {"prior_folder": cfg.prior_folder,
+            "num_gaussians": cfg.num_gaussians}
+    hand = {"prior_folder": cfg.prior_folder,
+            "num_gaussians": cfg.num_pca_comps}
     out: dict = {}
-    for key, ptype in (("body", cfg.body_prior_type),
-                       ("left_hand", cfg.left_hand_prior_type),
-                       ("right_hand", cfg.right_hand_prior_type),
-                       ("jaw", cfg.jaw_prior_type),
-                       ("expr", cfg.expr_prior_type)):
+    for key, ptype, kw in (("body", cfg.body_prior_type, base),
+                           ("left_hand", cfg.left_hand_prior_type, hand),
+                           ("right_hand", cfg.right_hand_prior_type, hand),
+                           ("jaw", cfg.jaw_prior_type, base),
+                           ("expr", cfg.expr_prior_type, base)):
         if ptype not in (None, "", "l2"):
-            out[key] = create_prior(ptype)
+            out[key] = create_prior(ptype, device=device, **kw)
     return out
 
 
@@ -716,7 +722,7 @@ def _run_window_parallel(cfg, assets, rec, ds, jw, mapper, result_folder,
     _sync(dev)
     timings["static_build_s"] = time.perf_counter() - tsec
 
-    priors = build_priors(cfg)
+    priors = build_priors(cfg, dev)
     timings["fit_s"] = timings["refresh_s"] = 0.0
     losses_stages, terms_stages = [], []
     for stage in range(cfg.n_stages):
@@ -922,7 +928,7 @@ def _fit_windows_sequential(cfg, assets, rec, ds, jw, mapper, result_folder,
                             n_windows, verbose, prefetcher, fut):
     model = assets.model
     dev = model.device
-    priors = build_priors(cfg)
+    priors = build_priors(cfg, dev)
     warm_world_markers = None
     if cfg.use_motion_infill_prior and assets.infill_ae_params:
         warm_world_markers = _make_warm_world_markers(assets, rec)

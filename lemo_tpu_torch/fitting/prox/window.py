@@ -5,11 +5,12 @@ non-first window's frames, and per-frame pkl results in the reference's
 schema.
 
 `lemo_tpu` runs a window's fit as `lax.scan`s of `steps_per_dispatch`
-steps; here it is one loop of eager Adam steps (`fitting.adam.run_adam`)
-with no host sync inside, as many steps as those whole chunks hold: the
-overlap freeze multiplies the gradients by a frame mask, the NaN/Inf
-freeze is decided on the device, and the per-step loss terms are kept in
-device tensors until the window ends.
+steps; here it is one loop of eager steps of Adam, SGD or RMSprop
+(`fitting.adam.run_adam`) with no host sync inside, as many steps as
+those whole chunks hold: the overlap freeze multiplies the gradients by
+a frame mask, the NaN/Inf freeze is decided on the device, and the
+per-step loss terms are kept in device tensors until the window ends.
+L-BFGS (`fitting.lbfgs`) reads each line-search trial back to the host.
 
 `make_batched_window_fitter` is the window-parallel fitter
 (`lemo_tpu/fitting/prox/window.py:229-490`, its `impl='fold'`): all W
@@ -30,7 +31,8 @@ import torch
 from lemo_tpu_torch.body_model import SmplxModel, make_forward_fn
 from lemo_tpu_torch.body_model import vposer as vp
 from lemo_tpu_torch.fitting.adam import run_adam
-from lemo_tpu_torch.fitting.lbfgs import create_optimizer
+from lemo_tpu_torch.fitting.lbfgs import create_optimizer, \
+    make_lbfgs_stepper
 from lemo_tpu_torch.fitting.prox.losses import ProxStatic, ProxWeights, \
     make_prox_loss
 
@@ -105,10 +107,21 @@ def make_window_fitter(model: SmplxModel, vposer_params: dict,
     As `lemo_tpu`'s, the fit runs whole chunks of `steps_per_dispatch`
     steps (`whole_chunks`), so the final parameters have had
     ceil(maxiters / chunk) * chunk steps, and the histories are cut to
-    `maxiters` (`lemo_tpu/fitting/prox/window.py:202-218`)."""
-    spec = create_optimizer(optim_type, lr)   # raises on unported types
-    n_steps = whole_chunks(maxiters,
-                           dispatch_chunk(steps_per_dispatch, maxiters))
+    `maxiters` (`lemo_tpu/fitting/prox/window.py:202-218`).
+
+    `optim_type` adam, sgd or rmsprop runs `run_adam` with that spec.
+    lbfgs and lbfgsls run strong-Wolfe L-BFGS (`fitting.lbfgs`; the
+    reference's optim_type=lbfgsls) as `lemo_tpu/fitting/prox/window.py:
+    112-164` does: at lr 1.0 whatever `lr` says, over the frames after
+    the overlap head only (the frozen head is a constant of the loss, so
+    no masked dimension enters the curvature pairs), in whole chunks with
+    the state carried across them, the term history taken at each step's
+    x. After each L-BFGS fit, ``fit.last_state`` is the stepper's final
+    `LbfgsState` (its per-step trial counts among it).
+    """
+    spec = create_optimizer(optim_type)   # raises on unknown types
+    chunk = dispatch_chunk(steps_per_dispatch, maxiters)
+    n_steps = whole_chunks(maxiters, chunk)
     T = static_template.gt_joints.shape[0]
     fwd = make_forward_fn(model)
     loss_fn = make_prox_loss(fwd, model.consts, joint_mapper, vposer_params,
@@ -117,14 +130,42 @@ def make_window_fitter(model: SmplxModel, vposer_params: dict,
                              use_vposer=use_vposer)
     erase_frames = int(T * overlap_frac)
 
+    if spec is None:
+        def loss_tail(tail, head, betas, static):
+            full = {k: torch.cat([head[k], tail[k]]) for k in tail}
+            return loss_fn(full, betas, static)
+
+        def fit_lbfgs(static: ProxStatic, prox_params, first_window: bool):
+            opt_vars, betas = init_opt_vars(prox_params, T, use_vposer)
+            n_freeze = 0 if first_window else erase_frames
+            head = {k: x[:n_freeze].detach() for k, x in opt_vars.items()}
+            tail0 = {k: x[n_freeze:] for k, x in opt_vars.items()}
+            init_state, run_chunk, unravel = make_lbfgs_stepper(
+                loss_tail, tail0, lr=1.0, has_aux=True)
+            state = init_state(tail0)
+            all_losses, all_terms = [], []
+            for _ in range(n_steps // chunk):
+                state, losses, terms = run_chunk(state, chunk, head, betas,
+                                                 static)
+                all_losses.append(losses)
+                all_terms.append(terms)
+            fit_lbfgs.last_state = state
+            tail = unravel(state.x)
+            final = {k: torch.cat([head[k], tail[k]]) for k in tail}
+            return final, torch.cat(all_losses)[:maxiters], \
+                {k: torch.cat([t[k] for t in all_terms])[:maxiters]
+                 for k in all_terms[0]}, betas
+
+        fit_lbfgs.last_state = None
+        return fit_lbfgs
+
     def fit(static: ProxStatic, prox_params, first_window: bool):
         opt_vars, betas = init_opt_vars(prox_params, T, use_vposer)
         mask = overlap_grad_mask(T, 0 if first_window else erase_frames,
                                  betas.device)
         final, losses, terms = run_adam(
             lambda v: loss_fn(v, betas, static), opt_vars, n_steps,
-            [spec.lr] * n_steps, b1=spec.b1, b2=spec.b2, eps=spec.eps,
-            grad_mask=mask, has_aux=True)
+            [lr] * n_steps, grad_mask=mask, has_aux=True, spec=spec)
         return final, losses[:maxiters], \
             {k: v[:maxiters] for k, v in terms.items()}, betas
 
@@ -147,9 +188,11 @@ def make_batched_window_fitter(model: SmplxModel, vposer_params: dict,
 
     Each step runs one SMPL-X forward on the [W*T] frame batch, so every
     kernel launches once a step for all windows, and the per-window loss
-    `terms_folded`. Adam runs with `run_adam(per_clip=True)` on the W
+    `terms_folded`. The optimizer (Adam, SGD or RMSprop; L-BFGS raises,
+    as in `lemo_tpu`) runs with `run_adam(per_clip=True)` on the W
     totals: a window whose loss goes NaN/Inf keeps its last good
-    parameters and moments while the others go on, all at one step count.
+    parameters and optimizer state while the others go on, all at one
+    step count.
 
     Returns ``fit(static_batch, prox_params_batch, first_mask,
     maxiters_override=None, erase_override=None) -> (opt_vars [W, T, ...],
@@ -184,7 +227,7 @@ def make_batched_window_fitter(model: SmplxModel, vposer_params: dict,
             "(adam/rmsprop/sgd); L-BFGS curvature history over a batched "
             "window axis is not implemented — unset window_parallel to "
             f"fit sequentially with optim_type={optim_type!r}")
-    spec = create_optimizer(optim_type, lr)   # raises on unported types
+    spec = create_optimizer(optim_type)   # raises on unknown types
     T = static_template.gt_joints.shape[0]
     fwd = make_forward_fn(model)
     loss_fn = make_prox_loss(fwd, model.consts, joint_mapper, vposer_params,
@@ -229,8 +272,8 @@ def make_batched_window_fitter(model: SmplxModel, vposer_params: dict,
             return totals.sum(), totals
 
         final, losses = run_adam(loss, opt_vars, n_steps,
-                                 [spec.lr] * n_steps, b1=spec.b1, b2=spec.b2,
-                                 eps=spec.eps, grad_mask=mask, per_clip=True)
+                                 [lr] * n_steps, grad_mask=mask,
+                                 per_clip=True, spec=spec)
         with torch.no_grad():
             _, terms = loss_folded(final, betas, static_batch)
         return final, betas, losses, {k: v.detach() for k, v in terms.items()}

@@ -182,14 +182,23 @@ def test_save_window_pkls_camera_params():
 
 @pytest.mark.parametrize("opt", ["lbfgs", "lbfgsls", "rmsprop", "sgd"])
 def test_unported_optimizers_raise(setup, opt):
+    """These optimizers were refused before they were ported; now each is
+    served as lemo_tpu serves it (None for L-BFGS, a spec otherwise)."""
+    from lemo_tpu.fitting.lbfgs import create_optimizer as j_create
+    from lemo_tpu_torch.fitting.adam import RmspropSpec, SgdSpec
     from lemo_tpu_torch.fitting.lbfgs import create_optimizer
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_optimizer(opt, 0.01)
+    spec = create_optimizer(opt)
+    assert (spec is None) == (j_create(opt, 0.01) is None)
+    kind = {"rmsprop": RmspropSpec, "sgd": SgdSpec}.get(opt, type(None))
+    assert isinstance(spec, kind)
 
 
 def test_gmm_prior_raises():
+    """The GMM prior was refused before it was ported; now, as in
+    lemo_tpu, only a missing mixture pickle raises."""
     from lemo_tpu_torch.config.prox_config import ProxConfig
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_driver.build_priors(ProxConfig(body_prior_type="gmm"))
+    cfg = ProxConfig(body_prior_type="gmm", prior_folder=tempfile.mkdtemp())
+    with pytest.raises(FileNotFoundError, match="gmm_08.pkl"):
+        t_driver.build_priors(cfg, "cpu")

@@ -262,7 +262,8 @@ def test_synthetic_model_is_bit_identical(seed):
 
 def test_port_imports_no_jax():
     """Importing the port and every submodule (the AMASS data layer,
-    both stages and both AMASS CLIs among them) pulls in neither jax nor
+    both stages, both AMASS CLIs, the optimizer family, the GMM prior,
+    camera init and eval_prox among them) pulls in neither jax nor
     any lemo_tpu module, and needs neither cv2 nor yaml (both are made
     unimportable first)."""
     code = (
@@ -285,7 +286,10 @@ def test_port_imports_no_jax():
         " 'lemo_tpu_torch.cli.train_smooth_prior',"
         " 'lemo_tpu_torch.cli.train_infill_prior',"
         " 'lemo_tpu_torch.cli.test_smooth_prior',"
-        " 'lemo_tpu_torch.cli.eval_amass']\n"
+        " 'lemo_tpu_torch.cli.eval_amass', 'lemo_tpu_torch.fitting.lbfgs',"
+        " 'lemo_tpu_torch.priors.body_priors',"
+        " 'lemo_tpu_torch.fitting.prox.camera_init',"
+        " 'lemo_tpu_torch.cli.eval_prox']\n"
         "assert all(m in sys.modules for m in need), need\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'optax' or m == 'lemo_tpu' or m.startswith('lemo_tpu.')]\n"

@@ -177,6 +177,43 @@ Phases (any failure raises and the script exits non-zero):
    apart from Adam's; (9e) `fit_camera_init` on window 1's warm start
    (B = 100), 30 Adam steps through the kernels and the plain versions
    (transl rel 1e-5, the loss falls). Prints phase 9's command time.
+10. The single-card remainder, after phase 9, on the full-size model and
+   the outputs of phases 4b, 5 and 6; each run zeroes the launch counts
+   just before and reads them just after. (10a) The BodyModel API at
+   B = 100 on named parameters and on `poZ_body` (`BodyModelWithPoser`),
+   through the kernels and the plain versions: v and Jtr within 1e-5 m,
+   the gradient of a seeded weighted sum of v with respect to pose_body
+   (poZ_body) and betas within rel 5e-5, one launch of each body entry
+   point each way; `lbs(pose2rot=False)` on aa_to_matrot of the same
+   poses through the kernels: within 1e-5 m of the axis-angle input's,
+   two launches the same bits, d/d(matrices) within rel 5e-5 of the plain
+   versions'. (10b) get_occlusion_mask's `main` on phase 6's fitted
+   recording (one forward at B = 170, Bp 256), with the SDF's
+   zero-crossing points and with a wall of points in front of the
+   bodies' lower half (`--scene_points`), through the kernels and the
+   plain versions: equal masks, or a differing entry's marker within
+   2e-5 m of a bucket edge or the margin; the occluded shares. (10c)
+   render_fitting with `--rendering_mode both` on 4 of phase 6's fitted
+   frames in a copy of the recording with 1920x1080 Color frames, through
+   the kernels and the plain versions: vertices within 1e-5 m, the
+   overlays and scene renders at their sizes with body and frame (scene)
+   pixels, at most 0.1% of the body's pixels differing; without
+   matplotlib its steps but the marker sheet run by name, and a line
+   says so. (10d) `run_prox_fitting` on phase 6's recording with
+   PROXD_temp_S3.yaml, `save_meshes` and `render_results` on, 10 steps a
+   window, windows in sequence and window-parallel: a ply (10,475
+   vertices, 20,080 faces) and a png for each of the 170 frames, each
+   ply within 1e-5 m of the plain forward of its frame's pkl, one chain
+   and one vertex forward a saver call. (10e) vis_opt_amass's rebuild of
+   clip 0 of phase 4b's Stage-2 output (T = 119) through the kernels and
+   the plain versions: markers within 1e-5 m; the sheet only with
+   matplotlib. (10f) 3 Stage-2 steps in `profile_trace`, each in
+   `annotate("s2_step")`: the Chrome trace names the annotation and the
+   chain and vertex kernels; `wallclock` prints the wall. (10g) The host
+   C++ library built from the port's copy, brute force and grid held
+   against `nn_distance_plain` on one frame of phase 5's s2m operands
+   (rtol 1e-5, atol 1e-6, brute-force indices equal). Prints phase 10's
+   command time.
 
 The script re-executes itself with PYTHONHASHSEED=0 (the synthetic
 male/female models are seeded with Python's string hash), and phase 4b's
@@ -190,8 +227,9 @@ check at its frame counts, `amass_frames`; phase 6b adds a row for each
 kernel at each of the fold's shapes, named "... fold ..."; phase 8 a
 row for each body-model kernel at B = 256, named "... vposer-train
 ..."; phase 9 a row for the chain and vertex forwards at each of
-eval_prox's chunk sizes, named "... eval-prox ..."), then as the last
-line
+eval_prox's chunk sizes, named "... eval-prox ..."; phase 10 one for
+them at B = 170, "... occlusion ...", and at B = 4, "... render ..."),
+then as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Exits non-zero without printing a result when CUDA is absent.
 """
@@ -253,6 +291,11 @@ LBFGS_PROFILE_STEPS = 3        # steps of phase 9a's profiled call
 OPT_FOLD_STEPS = 10            # phase 9d's steps of each optimizer
 CAM_INIT_STEPS = 30            # phase 9e's Adam steps
 EVAL_CHUNK = 25                # eval_prox's --chunk (its default)
+BM_FRAMES = 100                # phase 10a's batch
+RENDER_FRAMES = 4              # phase 10c's frames, at 1920 x 1080
+RENDER_STEP = 50               # ... every RENDER_STEP-th fitted frame
+SAVER_STEPS = 10               # phase 10d's Adam steps a window
+PROFILE_S2_STEPS = 3           # phase 10f's profiled Stage-2 steps
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PROX_CFG = os.path.join(ROOT, "cfg_files", "PROXD_temp_S3_all_terms.yaml")
 PROX_S3_CFG = os.path.join(ROOT, "cfg_files", "PROXD_temp_S3.yaml")
@@ -270,6 +313,7 @@ CHAMFER_OPERANDS = os.path.join(PROX_DIR, "chamfer_operands.pt")
 GMM_DIR = os.path.join(ROOT, "lemo_tpu_torch", "_build", "gmm_priors")
 EVAL_MODEL_DIR = os.path.join(ROOT, "lemo_tpu_torch", "_build", "eval_model")
 LBFGS_OUT = os.path.join(PROX_DIR, "out_lbfgs")
+RENDER_DIR = os.path.join(PROX_DIR, "render_copy")
 CHAMFER_OPS_PER_PAIR = 9.0     # csrc/chamfer.cu: 3 mul + 2 add, add, mul, sub, cmp
 # csrc/intersection.cu, f32 operations of one unordered face pair by the
 # gate it reaches. The gates are symmetric in the pair, so each is paid
@@ -3144,6 +3188,674 @@ def phase_camera_init(lb: dict, card) -> None:
                              "launches are off")
 
 
+def _eval_model_dir(model_dict) -> str:
+    """EVAL_MODEL_DIR with the full-size model as SMPLX_MALE.npz (phase 9c
+    writes it; written here when a runner skips phase 9)."""
+    path = os.path.join(EVAL_MODEL_DIR, "SMPLX_MALE.npz")
+    if not os.path.exists(path):
+        os.makedirs(EVAL_MODEL_DIR, exist_ok=True)
+        np.savez(path, **model_dict)
+    return EVAL_MODEL_DIR
+
+
+def _fitted_dir(info) -> str:
+    """Phase 6's fitted recording: results/<frame>/000.pkl of 170 frames."""
+    return os.path.join(PROX_DIR, "out_kernels", info["recording_name"])
+
+
+def _have_matplotlib() -> bool:
+    """Whether matplotlib is installed: the drawing steps run only then
+    (a test for the package, made before any call, and reported)."""
+    import importlib.util
+
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+def phase_body_model_api(model_dict, card) -> None:
+    """Phase 10a: the BodyModel API (`BodyModelWithPoser`, which is a
+    `BodyModel`) at B = BM_FRAMES on named parameters and on `poZ_body`,
+    through the kernels and the plain versions: v and Jtr within 1e-5 m,
+    the gradient of a seeded weighted sum of v with respect to pose_body
+    (poZ_body) and betas within rel 5e-5, one launch of each body entry
+    point each way a call. Then `lbs(pose2rot=False)` on aa_to_matrot of
+    the same poses through the kernels: the vertices and joints within
+    1e-5 m of the axis-angle input's, two launches the same bits, and the
+    gradient with respect to the matrices within rel 5e-5 of the plain
+    versions'."""
+    import torch
+
+    from lemo_tpu_torch.body_model import lbs
+    from lemo_tpu_torch.body_model.body_model_api import BodyModelWithPoser
+    from lemo_tpu_torch.ops.rotations import aa_to_matrot
+
+    B = BM_FRAMES
+    rng = np.random.RandomState(10)
+
+    def r(n, s):
+        return torch.as_tensor((rng.randn(B, n) * s).astype(np.float32),
+                               device="cuda")
+
+    named = {"trans": r(3, 0.5), "root_orient": r(3, 0.3),
+             "pose_body": r(63, 0.3), "pose_hand": r(90, 0.3),
+             "pose_jaw": r(3, 0.2), "pose_eye": r(6, 0.2),
+             "betas": r(10, 0.5), "expression": r(10, 0.5)}
+    poser = {**{k: v for k, v in named.items() if k != "pose_body"},
+             "poZ_body": r(32, 0.8)}
+    t0 = time.perf_counter()
+    bm = BodyModelWithPoser(model_dict, device="cuda")
+    _log(f"[body api] BodyModelWithPoser loaded in "
+         f"{time.perf_counter() - t0:.1f} s (V={bm.model.num_verts})")
+    w = torch.as_tensor(rng.randn(B, bm.model.num_verts, 3).astype(
+        np.float32), device="cuda")
+    one_each = {"chain_fwd": 1, "chain_bwd": 1, "vertex_fwd": 1,
+                "vertex_bwd": 1}
+
+    def run(params, wrt):
+        q = {k: v.clone().requires_grad_(k in wrt) for k, v in params.items()}
+        _zero_body_counts()
+        out = bm(**q)
+        (out.v * w).sum().backward()
+        torch.cuda.synchronize()
+        return out, [q[k].grad for k in wrt], _body_counts()
+
+    faults = []
+    for tag, params, wrt in (("named", named, ("pose_body", "betas")),
+                             ("poZ_body", poser, ("poZ_body", "betas"))):
+        out, grads, counts = run(params, wrt)
+        with plain_twins():
+            ref, ref_grads, _ = run(params, wrt)
+        d_v = float((out.v - ref.v).detach().abs().max())
+        d_j = float((out.Jtr - ref.Jtr).detach().abs().max())
+        rels = {k: _max_rel(g, rg) for k, g, rg in zip(wrt, grads, ref_grads)}
+        _log(f"[body api] {tag}: v max |d| {d_v:.3e} m, Jtr {d_j:.3e} m "
+             f"(tol 1e-5); grad rel {rels} (tol 5e-5); launches {counts} on "
+             f"{card}")
+        if not (d_v <= 1e-5 and d_j <= 1e-5) or \
+                not max(rels.values()) <= 5e-5 or counts != one_each:
+            faults.append(f"{tag}: v {d_v:.3e}, Jtr {d_j:.3e}, grads "
+                          f"{rels}, launches {counts}")
+
+    m = bm.model
+    c = m.consts
+    fc = {k: c[k] for k in ("fused_dirs", "lbs_w_pad", "j_ext")}
+    shape = torch.cat([named["betas"], named["expression"]], dim=1)
+
+    def lbs_call(pose, pose2rot):
+        return lbs.lbs(shape, pose, c["v_template"], c["shapedirs_flat"],
+                       c.get("posedirs"), c["J_regressor"], m.parents,
+                       c["lbs_weights"], pose2rot=pose2rot, fused_consts=fc)
+
+    with torch.no_grad():
+        full_pose = bm(**named).full_pose                    # [B, 165]
+        mats = aa_to_matrot(full_pose.reshape(B, -1, 3)).reshape(B, -1)
+        v_aa, j_aa = lbs_call(full_pose, True)
+        _zero_body_counts()
+        v_m, j_m = lbs_call(mats, False)
+        v_m2, j_m2 = lbs_call(mats, False)
+        torch.cuda.synchronize()
+        fwd_counts = _body_counts()
+
+    def grad_mats():
+        mt = mats.clone().requires_grad_(True)
+        (lbs_call(mt, False)[0] * w).sum().backward()
+        return mt.grad
+
+    _zero_body_counts()
+    g_k = grad_mats()
+    torch.cuda.synchronize()
+    grad_counts = _body_counts()
+    with plain_twins():
+        g_p = grad_mats()
+    d_v = float((v_m - v_aa).abs().max())
+    d_j = float((j_m - j_aa).abs().max())
+    same = torch.equal(v_m, v_m2) and torch.equal(j_m, j_m2)
+    rel = _max_rel(g_k, g_p)
+    _log(f"[body api] lbs(pose2rot=False) at B={B}: vertices max |d| from "
+         f"pose2rot=True {d_v:.3e} m, joints {d_j:.3e} m (tol 1e-5); two "
+         f"launches the same bits {same}; d/d(matrices) vs plain rel "
+         f"{rel:.3e} (tol 5e-5); launches {fwd_counts} (two forwards), "
+         f"{grad_counts} (forward and backward)")
+    if not (d_v <= 1e-5 and d_j <= 1e-5) or not same or not rel <= 5e-5 \
+            or fwd_counts != {**_forward_counts(2)} or \
+            grad_counts != one_each:
+        faults.append(f"pose2rot=False: vertices {d_v:.3e}, joints "
+                      f"{d_j:.3e}, same bits {same}, grad rel {rel:.3e}, "
+                      f"launches {fwd_counts} / {grad_counts}")
+    if faults:
+        raise AssertionError("body api: " + "; ".join(faults))
+
+
+def _scene_wall(markers_cam: np.ndarray, R, t) -> np.ndarray:
+    """World points of a wall 0.3 m in front of the nearest marker, 4 mm
+    apart, across the markers' x range and from their median y down
+    (camera y points down: the bodies' lower half)."""
+    m = markers_cam.reshape(-1, 3)
+    X, Y = np.meshgrid(np.arange(m[:, 0].min() - 0.3, m[:, 0].max() + 0.3,
+                                 0.004),
+                       np.arange(np.median(m[:, 1]), m[:, 1].max() + 0.3,
+                                 0.004))
+    cam = np.stack([X.ravel(), Y.ravel(),
+                    np.full(X.size, m[:, 2].min() - 0.3)], axis=1)
+    return cam @ np.asarray(R, np.float64).T + t    # x_c = R^T (x_w - t)
+
+
+def _mask_flip_distance(markers_cam, scene_cam, margin: float):
+    """[T, M] distance (m) of each marker to a change of its mask entry:
+    to the nearest pixel-bucket edge along x or y in its depth plane, or
+    to its occlusion threshold (scene depth + margin), with the CLI's
+    camera."""
+    import torch
+
+    from lemo_tpu_torch.utils.occlusion_mask import marker_buckets, \
+        scene_zbuffer
+
+    k = dict(fx=1060.53, fy=1060.38, cx=951.30, cy=536.77)
+    zbuf = scene_zbuffer(scene_cam, **k)
+    idx, _ = marker_buckets(markers_cam, **k)
+    z = markers_cam[..., 2]
+    d = (z - (zbuf[idx] + margin)).abs()
+    for c, f, cc, size in ((0, k["fx"], k["cx"], 1920),
+                           (1, k["fy"], k["cy"], 1080)):
+        b = (markers_cam[..., c] / z * f + cc) / size * 256
+        d_px = (b - torch.round(b)).abs() * size / 256
+        d = torch.minimum(d, d_px / f * z)
+    return d
+
+
+def phase_occlusion(model_dict, info, card) -> dict:
+    """Phase 10b: get_occlusion_mask through its `main` on phase 6's
+    fitted recording (one body forward at B = 170, Bp 256), with the SDF's
+    zero-crossing points and with `--scene_points`, a wall of points in
+    front of the fitted bodies' lower half; each run through the kernels
+    (launch counts zeroed before, read after: one chain and one vertex
+    forward) and the plain versions. The masks must be equal, or a
+    differing entry's marker lie within 2e-5 m of a bucket edge or the
+    margin. Returns the kernel runs' launches."""
+    import torch
+
+    from lemo_tpu_torch.cli import get_occlusion_mask as gom
+    from lemo_tpu_torch.data.prox import ProxRecording
+
+    models = _eval_model_dir(model_dict)
+    fitting = _fitted_dir(info)
+    rec = ProxRecording.from_recording_dir(info["recording_dir"])
+    R, t = rec.load_cam2world()
+    markers, _ = gom.fitted_markers(fitting, models, "male", "cuda")
+    wall = os.path.join(PROX_DIR, "occlusion_wall.npy")
+    np.save(wall, _scene_wall(markers.cpu().numpy(), R, t))
+    sdf, lo, hi, _ = rec.load_sdf()
+    scenes = {"sdf": gom.scene_points_from_sdf(sdf, lo, hi),
+              "wall": np.load(wall)}
+    total = {"chain_fwd": 0, "vertex_fwd": 0}
+    faults = []
+    for scene, pts in scenes.items():
+        argv = ["--fitting_dir", fitting, "--recording_dir",
+                info["recording_dir"], "--model_folder", models]
+        if scene == "wall":
+            argv += ["--scene_points", wall]
+        got_m, ref_m = [], []
+        _zero_body_counts()
+        t0 = time.perf_counter()
+        with call_spy(gom, "fitted_markers", got_m):
+            got = gom.main(argv + ["--out_dir", os.path.join(
+                PROX_DIR, f"occlusion_{scene}_kernels")],
+                device="cuda")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = _body_counts()
+        with plain_twins(), call_spy(gom, "fitted_markers", ref_m):
+            ref = gom.main(argv + ["--out_dir", os.path.join(
+                PROX_DIR, f"occlusion_{scene}_plain")], device="cuda")
+        for k in total:
+            total[k] += counts[k]
+        mk, mp = got_m[0]["out"][0], ref_m[0]["out"][0]
+        d_mk = float((mk - mp).abs().max())
+        diff = np.argwhere(got != ref)
+        _log(f"[occlusion] {scene}: {got.shape[0]} frames x {got.shape[1]} "
+             f"markers, occluded {1.0 - got.mean():.4%} (plain "
+             f"{1.0 - ref.mean():.4%}), {len(diff)} entries differ; markers "
+             f"max |d| from the plain run's {d_mk:.3e} m; {wall_s:.2f} s "
+             f"(model load included), launches {counts} on {card}")
+        if diff.size:
+            scene_cam = torch.as_tensor((pts - t) @ R, dtype=torch.float32,
+                                        device="cuda")
+            dist = _mask_flip_distance(mk, scene_cam, 0.1).cpu().numpy()
+            for f, m in diff:
+                _log(f"[occlusion] {scene}: frame {f} marker {m}: kernels "
+                     f"{got[f, m]}, plain {ref[f, m]}, distance to a bucket "
+                     f"edge or the margin {dist[f, m]:.3e} m")
+                if not dist[f, m] <= 2e-5:
+                    faults.append(f"{scene} frame {f} marker {m}")
+        if got.shape != (PROX_FRAMES, 67) or \
+                counts != _forward_counts(1) or \
+                (scene == "wall" and not 0 < got.mean() < 1):
+            faults.append(f"{scene}: mask {got.shape} (mean "
+                          f"{got.mean():.4f}), launches {counts}")
+    if faults:
+        raise AssertionError("occlusion: " + "; ".join(faults))
+    return total
+
+
+def _render_frame(k: int) -> np.ndarray:
+    """A 1920x1080 RGB Color frame, a gradient that differs left to right
+    (so that the flip shows) and from frame to frame."""
+    yy, xx = np.mgrid[0:1080, 0:1920]
+    return np.stack([xx * 255 // 1919, yy * 255 // 1079,
+                     np.full_like(xx, 60 * k)], axis=-1).astype(np.uint8)
+
+
+def _unexplained_pixels(a, b, verts, faces, fx, fy, cx, cy,
+                        tol_m: float) -> list:
+    """The pixels where renders `a` and `b` of one body (`verts` [V, 3] in
+    camera coords, the two paths' vertices within `tol_m` of each other)
+    differ for a reason other than that rounding: a pixel is explained
+    when its colours are one level apart, when its centre lies within
+    the projection of `tol_m` of a face's edge, or when the two nearest
+    faces that cover it lie within `tol_m` in depth (a z-buffer tie)."""
+    v = np.asarray(verts, np.float64)
+    z = np.maximum(v[:, 2], 1e-6)
+    uv = np.stack([v[:, 0] / z * fx + cx, v[:, 1] / z * fy + cy], -1)
+    tri = uv[faces]                                   # [F, 3, 2]
+    tz = v[faces, 2]                                  # [F, 3]
+    lo, hi = tri.min(1), tri.max(1)
+    out = []
+    for y, x in np.argwhere((a != b).any(-1)):
+        if int(np.abs(a[y, x].astype(int) - b[y, x].astype(int)).max()) <= 1:
+            continue
+        p = np.array([x + 0.5, y + 0.5])
+        near = np.nonzero((lo[:, 0] <= p[0] + 1) & (hi[:, 0] >= p[0] - 1)
+                          & (lo[:, 1] <= p[1] + 1) & (hi[:, 1] >= p[1] - 1))[0]
+        eps = 2.0 * tol_m * max(fx, fy) / tz[near].min(1)      # px a face
+        explained = False
+        for k in range(3):
+            e0, e1 = tri[near, k], tri[near, (k + 1) % 3]
+            d = e1 - e0
+            t = np.clip(((p - e0) * d).sum(-1)
+                        / np.maximum((d * d).sum(-1), 1e-24), 0.0, 1.0)
+            dist = np.linalg.norm(e0 + t[:, None] * d - p, axis=-1)
+            explained |= bool((dist <= eps).any())
+        if not explained:
+            (ax, ay), (bx, by), (qx, qy) = (tri[near, 0].T, tri[near, 1].T,
+                                            tri[near, 2].T)
+            den = (by - qy) * (ax - qx) + (qx - bx) * (ay - qy)
+            den = np.where(np.abs(den) < 1e-12, 1e-12, den)
+            w0 = ((by - qy) * (p[0] - qx) + (qx - bx) * (p[1] - qy)) / den
+            w1 = ((qy - ay) * (p[0] - qx) + (ax - qx) * (p[1] - qy)) / den
+            w2 = 1.0 - w0 - w1
+            cover = (w0 >= 0) & (w1 >= 0) & (w2 >= 0)
+            depth = 1.0 / np.maximum(w0 / tz[near, 0] + w1 / tz[near, 1]
+                                     + w2 / tz[near, 2], 1e-12)
+            dc = np.sort(depth[cover])
+            explained = len(dc) >= 2 and dc[1] - dc[0] <= 2.0 * tol_m
+        if not explained:
+            out.append((int(y), int(x)))
+    return out
+
+
+def phase_render(model_dict, info, card) -> dict:
+    """Phase 10c: render_fitting on RENDER_FRAMES of phase 6's fitted
+    frames (every RENDER_STEP-th) with `--rendering_mode both` at full
+    resolution, in a copy of the recording that holds 1920x1080 Color
+    frames for them, through the kernels and the plain versions: the
+    vertices within 1e-5 m, the output files at their sizes, body and
+    frame pixels in each overlay and body and scene pixels in each scene
+    render, the pixels that differ between the two paths at most 0.1% of
+    the body's. Without matplotlib the marker sheet is not drawn (the
+    other steps run by name, in `main`'s order). Returns the kernel run's
+    launches."""
+    import torch
+
+    from lemo_tpu_torch.cli import render_fitting as rf
+    from lemo_tpu_torch.data.png import read_png, write_png
+
+    src = os.path.dirname(os.path.dirname(info["recording_dir"]))
+    shutil.rmtree(RENDER_DIR, ignore_errors=True)
+    for sub in ("cam2world", "scenes", "calibration"):
+        shutil.copytree(os.path.join(src, sub), os.path.join(RENDER_DIR, sub))
+    rec_dir = os.path.join(RENDER_DIR, "recordings", info["recording_name"])
+    os.makedirs(os.path.join(rec_dir, "Color"))
+    frames = info["frame_names"][::RENDER_STEP][:RENDER_FRAMES]
+    images = {}
+    for k, fn in enumerate(frames):
+        images[fn] = _render_frame(k)
+        write_png(os.path.join(rec_dir, "Color", fn + ".png"), images[fn])
+    argv = ["--fitting_dir", _fitted_dir(info), "--model_folder",
+            _eval_model_dir(model_dict), "--recording_dir", rec_dir,
+            "--start", "0", "--step", str(RENDER_STEP), "--count",
+            str(RENDER_FRAMES), "--rendering_mode", "both"]
+    draw = _have_matplotlib()
+    if not draw:
+        _log("render_fitting: marker sheet not drawn: matplotlib is not "
+             "installed")
+
+    def run(tag):
+        out_dir = os.path.join(RENDER_DIR, tag)
+        a = argv + ["--out_dir", out_dir]
+        calls: dict = {"rebuild_bodies": [], "write_overlays": [],
+                       "write_scene_renders": []}
+        with call_spy(rf, "rebuild_bodies", calls["rebuild_bodies"]), \
+                call_spy(rf, "write_overlays", calls["write_overlays"]), \
+                call_spy(rf, "write_scene_renders",
+                         calls["write_scene_renders"]):
+            if draw:
+                rf.main(a, device="cuda")
+            else:
+                args = rf.build_parser().parse_args(a)
+                fr, verts, faces, _ = rf.rebuild_bodies(
+                    args, torch.device("cuda"))
+                os.makedirs(out_dir, exist_ok=True)
+                rf.write_overlays(args, fr, verts, faces, out_dir)
+                rf.write_scene_renders(args, fr, verts, faces, out_dir)
+        return out_dir, {k: v[0] for k, v in calls.items()}
+
+    _zero_body_counts()
+    t0 = time.perf_counter()
+    out_k, calls_k = run("kernels")
+    wall = time.perf_counter() - t0
+    counts = _body_counts()
+    with plain_twins():
+        out_p, calls_p = run("plain")
+    got_frames, verts_k, faces, _ = calls_k["rebuild_bodies"]["out"]
+    verts_p = calls_p["rebuild_bodies"]["out"][1]
+    d_v = float(np.abs(verts_k - verts_p).max())
+    n = len(got_frames)
+    s_over = calls_k["write_overlays"]["s"] / n
+    s_scene = calls_k["write_scene_renders"]["s"] / n
+    _log(f"[render] {n} frames {got_frames}: vertices max |d| from the plain "
+         f"run's {d_v:.3e} m (tol 1e-5); {wall:.2f} s in all (model load "
+         f"included), the host rasterizer {s_over:.3f} s a frame (overlay) "
+         f"and {s_scene:.3f} s a frame (body in scene); launches {counts} "
+         f"on {card}")
+    faults = []
+    if got_frames != frames or d_v > 1e-5 or counts != _forward_counts(1):
+        faults.append(f"frames {got_frames}, vertices {d_v:.3e}, launches "
+                      f"{counts}")
+    H, W = int(round(2 * 536.77)), int(round(2 * 951.30))
+    for fn in frames:
+        flipped = images[fn][:, ::-1]
+        for kind, shape in (("output", (1080, 1920, 3)), ("scene", (H, W, 3))):
+            a = read_png(os.path.join(out_k, f"{fn}_{kind}.png"))
+            b = read_png(os.path.join(out_p, f"{fn}_{kind}.png"))
+            if a.shape != shape or b.shape != shape:
+                faults.append(f"{fn}_{kind}.png: {a.shape} / {b.shape}")
+                continue
+            if kind == "output":
+                body = (a != flipped).any(-1)
+                other = int((~body).sum())
+                what = "frame"
+            else:
+                ai = a.astype(int)
+                body = ai[..., 0] > ai[..., 2] + 10
+                other = int(((ai[..., 0] == ai[..., 1])
+                             & (ai[..., 1] == ai[..., 2])
+                             & (ai[..., 0] < 250)).sum())
+                what = "scene"
+            n_body = int(body.sum())
+            n_diff = int((a != b).any(-1).sum())
+            bad = _unexplained_pixels(
+                a, b, verts_k[frames.index(fn)], faces, 1060.53, 1060.38,
+                951.30, 536.77, 1e-5) if n_diff > 0.001 * n_body else []
+            _log(f"[render] {fn}_{kind}.png {a.shape}: body pixels {n_body}, "
+                 f"{what} pixels {other}, pixels differing from the plain "
+                 f"run's {n_diff} ({n_diff / max(n_body, 1):.4%} of the "
+                 f"body's, limit 0.1%"
+                 + (f"; past it, {n_diff - len(bad)} of them explained by "
+                    f"the vertices' rounding (within 1e-5 m of a face edge "
+                    f"or a depth tie, or one level apart), unexplained "
+                    f"{bad}" if n_diff > 0.001 * n_body else "") + ")")
+            if n_body == 0 or other == 0 or bad:
+                faults.append(f"{fn}_{kind}.png: body {n_body}, {what} "
+                              f"{other}, differing {n_diff}, unexplained "
+                              f"{bad}")
+    if draw and not os.path.exists(os.path.join(out_k, "fitting_frames.png")):
+        faults.append("no marker sheet")
+    if faults:
+        raise AssertionError("render_fitting: " + "; ".join(faults))
+    return counts
+
+
+def _read_ply(path: str, V: int) -> tuple[str, np.ndarray, str]:
+    """(the header, the vertices [V, 3] f32, the text after them) of an
+    ascii ply as `write_ply_vertices` writes it; only the vertices are
+    parsed."""
+    with open(path) as fh:
+        head, body = fh.read().split("end_header\n", 1)
+    lines = body.split("\n", V)
+    if len(lines) != V + 1:
+        raise AssertionError(f"{path}: fewer than {V} vertex lines")
+    return head, np.fromstring(" ".join(lines[:V]), dtype=np.float32,
+                               sep=" ").reshape(V, 3), lines[V]
+
+
+def phase_saver(model, info, card) -> None:
+    """Phase 10d: `run_prox_fitting` on phase 6's recording with
+    PROXD_temp_S3.yaml, `save_meshes` and `render_results` on and
+    SAVER_STEPS steps a window, windows in sequence and window-parallel
+    (no polish): a ply for each frame with the model's vertices and faces,
+    within 1e-5 m of the plain forward of that frame's pkl, a png for each
+    frame, and one chain and one vertex forward in each call of the saver
+    (one a window)."""
+    import torch
+
+    from lemo_tpu_torch.body_model import make_forward_fn
+    from lemo_tpu_torch.data.png import read_png
+    from lemo_tpu_torch.data.prox import read_prox_pkl
+    from lemo_tpu_torch.fitting.prox import driver
+
+    real = driver._make_window_extras_saver
+    faults = []
+    for mode in ("sequential", "window-parallel"):
+        saves: list = []
+
+        def factory(*args, **kw):
+            save = real(*args, **kw)
+
+            def spied(frame_names, result):
+                before = _body_counts()
+                t0 = time.perf_counter()
+                out = save(frame_names, result)
+                torch.cuda.synchronize()
+                after = _body_counts()
+                saves.append({"frames": len(frame_names), "out": out,
+                              "s": time.perf_counter() - t0,
+                              "launches": {k: after[k] - before[k]
+                                           for k in after}})
+                return out
+            return spied
+
+        out_dir = os.path.join(PROX_DIR, f"out_saver_{mode}")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        extra = ("--save_meshes", "true", "--render_results", "true")
+        if mode == "window-parallel":
+            extra += ("--window_parallel", "true", "--window_polish_iters",
+                      "0")
+        cfg = prox_config(info, out_dir, steps=SAVER_STEPS,
+                          config=PROX_S3_CFG, extra=extra)
+        driver._make_window_extras_saver = factory
+        t0 = time.perf_counter()
+        try:
+            driver.run_prox_fitting(cfg, prox_assets(model, info, cfg),
+                                    verbose=False)
+        finally:
+            driver._make_window_extras_saver = real
+        wall = time.perf_counter() - t0
+        root = os.path.join(out_dir, info["recording_name"])
+        frames = info["frame_names"]
+        recs = [read_prox_pkl(os.path.join(root, "results", fn, "000.pkl"))
+                for fn in frames]
+        params = model.zero_params(len(frames))
+        for k in params:
+            params[k] = torch.as_tensor(np.stack([r[k] for r in recs]),
+                                        device="cuda")
+        with plain_twins(), torch.no_grad():
+            ref = make_forward_fn(model)(params, model.consts)[
+                "vertices"].cpu().numpy()
+        V, F = model.num_verts, model.faces.shape[0]
+        head_ref = ("ply\nformat ascii 1.0\n"
+                    f"element vertex {V}\nproperty float x\nproperty float "
+                    f"y\nproperty float z\nelement face {F}\nproperty list "
+                    "uchar int vertex_indices\n")
+        face_ref = "".join(f"3 {a} {b} {c}\n"
+                           for a, b, c in np.asarray(model.faces).tolist())
+        d_max, n_png = 0.0, 0
+        t_read = time.perf_counter()
+        for i, fn in enumerate(frames):
+            head, v, rest = _read_ply(os.path.join(
+                root, cfg.mesh_folder, fn, "000.ply"), V)
+            if head != head_ref or rest != face_ref:
+                faults.append(f"{mode} {fn}: the ply's header or faces are "
+                              f"not the model's")
+            d_max = max(d_max, float(np.abs(v - ref[i]).max()))
+            n_png += read_png(os.path.join(root, "images", fn + ".png")
+                              ).shape == (8, 8, 3)
+        t_read = time.perf_counter() - t_read
+        launches = [s["launches"] for s in saves]
+        _log(f"[saver] {mode}: {len(frames)} plys ({model.num_verts} "
+             f"vertices, {model.faces.shape[0]} faces) and {n_png} pngs; ply "
+             f"vertices max |d| from the plain forward of the pkls "
+             f"{d_max:.3e} m (tol 1e-5); {len(saves)} saver calls "
+             f"{[s['out'] for s in saves]} in "
+             f"{[round(s['s'], 2) for s in saves]} s, launches {launches}; "
+             f"{wall:.1f} s in all, then {t_read:.1f} s reading them back "
+             f"on {card}")
+        if d_max > 1e-5 or n_png != len(frames) or len(saves) != 2 or \
+                any(x != _forward_counts(1) for x in launches):
+            faults.append(f"{mode}: vertices {d_max:.3e}, pngs {n_png}, "
+                          f"saver calls {len(saves)}, launches {launches}")
+    if faults:
+        raise AssertionError("saver: " + "; ".join(faults))
+
+
+def phase_vis_amass(card) -> None:
+    """Phase 10e: vis_opt_amass's rebuild of clip 0 of phase 4b's Stage-2
+    output (T = 119: the VPoser decode and one body forward at B = T),
+    through the kernels and the plain versions: the markers within 1e-5 m
+    and one chain and one vertex forward. The sheet only with
+    matplotlib."""
+    import torch
+
+    from lemo_tpu_torch.cli import vis_opt_amass as vis
+
+    T = AMASS_CLIP_SECONDS * 30 - 1
+    argv = ["--res_dir", os.path.join(AMASS_DIR, "res_temp"),
+            "--body_model_path", os.path.join(AMASS_DIR, "body_models"),
+            "--clip_id", "0", "--out",
+            os.path.join(AMASS_DIR, "vis_opt_amass.png")]
+    args = vis.build_parser().parse_args(argv)
+    _zero_body_counts()
+    markers, contact = vis.rebuild_markers(args, torch.device("cuda"))
+    torch.cuda.synchronize()
+    counts = _body_counts()
+    with plain_twins():
+        ref, _ = vis.rebuild_markers(args, torch.device("cuda"))
+    d = float(np.abs(markers - ref).max())
+    _log(f"[vis_opt_amass] clip 0: markers {markers.shape}, max |d| from "
+         f"the plain run's {d:.3e} m (tol 1e-5), contact {contact.shape}; "
+         f"launches {counts} on {card}")
+    if markers.shape != (T, 67, 3) or not d <= 1e-5 or \
+            counts != _forward_counts(1):
+        raise AssertionError(f"vis_opt_amass: markers {markers.shape}, "
+                             f"{d:.3e}, launches {counts}")
+    if _have_matplotlib():
+        vis.main(argv, device="cuda")
+    else:
+        _log("vis_opt_amass: marker sheet not drawn: matplotlib is not "
+             "installed")
+
+
+def phase_profiling(model, card) -> None:
+    """Phase 10f: PROFILE_S2_STEPS steps of phase 4's Stage-2 fitter (a
+    one-step fit a call), each in `annotate("s2_step")`, inside
+    `profile_trace` and `wallclock`: the Chrome trace must name the
+    annotation and the chain and vertex kernels."""
+    from lemo_tpu_torch.utils.profiling import annotate, profile_trace, \
+        wallclock
+
+    fit, (target, contact, init72) = s2_workload(model, steps=1)
+    fit(target, contact, init72)                  # warm-up
+    logdir = os.path.join(ROOT, "lemo_tpu_torch", "_build", "profile_s2")
+    shutil.rmtree(logdir, ignore_errors=True)
+    lines: list = []
+    with profile_trace(logdir):
+        with wallclock(f"{PROFILE_S2_STEPS} S2 steps under the profiler",
+                       sink=lines.append):
+            for _ in range(PROFILE_S2_STEPS):
+                with annotate("s2_step"):
+                    fit(target, contact, init72)
+    with open(os.path.join(logdir, "trace.json")) as fh:
+        trace = fh.read()
+    need = ("s2_step", "chain_affine_fwd_kernel", "chain_affine_bwd_kernel",
+            "vertex_fwd_apply_kernel", "vertex_bwd_dvs_kernel")
+    found = {n: trace.count(n) for n in need}
+    _log(f"[profiling] {lines[0]}; trace.json {len(trace)} bytes, "
+         f"occurrences {found} on {card}")
+    if not all(found.values()):
+        raise AssertionError(f"profile trace lacks {found}")
+
+
+def phase_native(card) -> None:
+    """Phase 10g: the host C++ library built from the port's copy, and
+    `nn_distance_cpu` (brute force with the frame's mask, and the voxel
+    grid) against `nn_distance_plain` on one frame of phase 5's s2m
+    Chamfer operands (scan points against body vertices): rtol 1e-5,
+    atol 1e-6, and the brute force's indices equal."""
+    import torch
+
+    from lemo_tpu_torch import _build
+    from lemo_tpu_torch.ops import native
+
+    t0 = time.perf_counter()
+    path = _build.build_host_library()
+    build_s = time.perf_counter() - t0
+    op = torch.load(CHAMFER_OPERANDS, weights_only=False)["chamfer/s2m_pass"]
+    q = op["query"][0].numpy()
+    q = q[(q != 0).any(-1)]                   # a zero row is scan padding
+    p = op["points"][0].numpy()
+    m = op["mask"]
+    m = None if m is None else m[0].numpy()
+    faults, times = [], {}
+    for tag, mask, grid in (("brute force", m, False), ("grid", None, True)):
+        t0 = time.perf_counter()
+        d, i = native.nn_distance_cpu(q, p, mask=mask, use_grid=grid)
+        times[tag] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dp, ip = native.nn_distance_plain(q, p, mask=mask)
+        times[tag + " plain"] = time.perf_counter() - t0
+        ok = np.allclose(d, dp, rtol=1e-5, atol=1e-6) and \
+            (grid or np.array_equal(i, ip))
+        _log(f"[native] {tag}: {len(q)} scan points against {len(p)} "
+             f"vertices ({'all' if mask is None else int(mask.sum())} "
+             f"valid): max |d| {float(np.abs(d - dp).max()):.3e} m^2, "
+             f"indices equal {float((i == ip).mean()):.6f}; "
+             f"{times[tag]:.3f} s (numpy {times[tag + ' plain']:.3f} s)")
+        if not ok:
+            faults.append(tag)
+    _log(f"[native] {os.path.relpath(path)} built in {build_s:.2f} s "
+         f"(host CPU; the card {card} idle)")
+    if faults:
+        raise AssertionError(f"native library differs from numpy: {faults}")
+
+
+def phase10_kernel_rows(model, rows, launches: dict, card) -> list:
+    """Phase 10's kernel rows: the chain and vertex forwards, which the
+    occlusion masks (B = 170) and render_fitting (B = RENDER_FRAMES)
+    launch, against their plain versions at those frame counts, with the
+    launches counted in phase 10's kernel runs."""
+    base = {r["name"]: r for r in rows}
+    out = []
+    at = body_kernels_at(model, card, (PROX_FRAMES, RENDER_FRAMES),
+                         "phase-10 kernels")
+    for name in ("chain_fwd", "vertex_fwd"):
+        for row in at[name]:
+            tag = "occlusion" if row["B"] == PROX_FRAMES else "render"
+            out.append({**row, "name": f"{name} {tag} B={row['B']}",
+                        "route": "cuda", "source": base[name]["source"],
+                        "replaces": base[name]["replaces"],
+                        "launches": launches[tag][name],
+                        "library_ms": None})
+    return out
+
+
 def main() -> int:
     if os.environ.get("PYTHONHASHSEED") != "0":
         # the synthetic male/female models are seeded with Python's string
@@ -3215,6 +3927,18 @@ def main() -> int:
     rows += eval_prox_kernel_rows(model, rows, at_eval, card)
     _log(f"[lbfgs] timing {json.dumps(lb['timing'])} on {card}")
     _log(f"[phase 9] command time {time.perf_counter() - t9:.1f} s on {card}")
+    del lb
+    t10 = time.perf_counter()
+    phase_body_model_api(model_dict, card)
+    at10 = {"occlusion": phase_occlusion(model_dict, info, card),
+            "render": phase_render(model_dict, info, card)}
+    phase_saver(model, info, card)
+    phase_vis_amass(card)
+    phase_profiling(model, card)
+    phase_native(card)
+    rows += phase10_kernel_rows(model, rows, at10, card)
+    _log(f"[phase 10] command time {time.perf_counter() - t10:.1f} s on "
+         f"{card}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""Builds the port's CUDA kernels and binds them with ctypes.
+"""Builds the port's CUDA kernels and its host C++ library, and binds them
+with ctypes.
 
 `lemo_tpu_torch/csrc/*.cu` are compiled on first use with `nvcc` for
 `sm_90a` (one object per source, all compiled in parallel) and linked
@@ -7,6 +8,10 @@ into one shared library with a plain C interface. The library lands in
 the sources and flags, so a changed source rebuilds and an unchanged one
 loads at once. Nothing here runs at import time: the CPU-only tests
 import every module, and only a CUDA tensor reaches `load_library`.
+
+The host library (`csrc/chamfer_cpu.cpp`, the nearest-neighbour and
+Chamfer search on the CPU that `ops/native.py` binds) is compiled the
+same way with the host C++ compiler (`build_host_library`).
 """
 
 from __future__ import annotations
@@ -54,6 +59,52 @@ SIGNATURES = {
     "lemo_nn_select": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "lemo_cone_energy": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
 }
+
+
+HOST_SOURCE = os.path.join(CSRC, "chamfer_cpu.cpp")
+HOST_FLAGS = ["-O3", "-shared", "-fPIC"]
+
+
+def _host_cxx() -> str | None:
+    """The host C++ compiler: $CXX, else g++, else c++ (None if absent)."""
+    for cand in (os.environ.get("CXX"), "g++", "c++"):
+        path = shutil.which(cand) if cand else None
+        if path:
+            return path
+    return None
+
+
+def host_toolchain_available() -> bool:
+    return _host_cxx() is not None
+
+
+def build_host_library(source: str = HOST_SOURCE,
+                       build_dir: str = BUILD_DIR) -> str:
+    """Compile (if needed) `source` with the host C++ compiler into a
+    shared library under `build_dir`, named by the hash of the source and
+    flags; returns its path. Raises with the compiler's message when the
+    build fails, and when there is no compiler."""
+    with open(source, "rb") as fh:
+        h = hashlib.sha256(" ".join(HOST_FLAGS).encode() + fh.read())
+    stem = os.path.splitext(os.path.basename(source))[0]
+    path = os.path.join(build_dir, f"lib{stem}_{h.hexdigest()[:16]}.so")
+    if os.path.exists(path):
+        return path
+    cxx = _host_cxx()
+    if cxx is None:
+        raise RuntimeError("no host C++ compiler ($CXX, g++ or c++) found; "
+                           f"{source} cannot be built")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        so_tmp = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([cxx, *HOST_FLAGS, source, "-o", so_tmp],
+                              capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"{cxx} failed on {source} (exit "
+                               f"{proc.returncode}):\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(so_tmp, path)
+    return path
 
 
 def _nvcc() -> str:

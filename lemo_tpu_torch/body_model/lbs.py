@@ -104,7 +104,7 @@ def rigid_transform_chain_level(rot_mats, joints, parents):
 
 def lbs(
     shape_components: torch.Tensor,  # [B, S] betas (+expression)
-    pose: torch.Tensor,  # [B, J*3] axis-angle incl. root
+    pose: torch.Tensor,  # [B, J*3] axis-angle, or [B, J*9] matrices
     v_template: torch.Tensor,  # [V, 3]
     shapedirs_flat: torch.Tensor,  # [S, V*3]
     posedirs: torch.Tensor | None,  # [9*(J-1), V*3] or None
@@ -112,16 +112,21 @@ def lbs(
     parents,  # [J] numpy ints
     lbs_weights: torch.Tensor,  # [V, J]
     *,
+    pose2rot: bool = True,
     fused_consts: dict[str, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full LBS forward -> (vertices [B, V, 3], joints [B, J, 3]).
-    `fused_consts` (fused_dirs, lbs_w_pad, j_ext) selects the fused
-    kernel path; without them only CPU tensors are accepted."""
+    `pose` holds each joint's axis-angle, or with `pose2rot=False` its
+    rotation matrix (row-major, incl. root), which then goes into the
+    chain as it is and receives its own gradient. `fused_consts`
+    (fused_dirs, lbs_w_pad, j_ext) selects the fused kernel path;
+    without them only CPU tensors are accepted."""
     B = shape_components.shape[0]
     V = v_template.shape[0]
 
     if fused_consts is not None:
-        return _lbs_fused(shape_components, pose, parents, fused_consts, V)
+        return _lbs_fused(shape_components, pose, parents, fused_consts, V,
+                          pose2rot=pose2rot)
     if shape_components.device.type != "cpu":
         raise ValueError("lbs: on the card only the fused kernel path "
                          "runs; load the model with its fused constants")
@@ -129,7 +134,10 @@ def lbs(
     v_shaped = v_template[None] + blend_shapes(shape_components,
                                                shapedirs_flat)
     J = vertices2joints(J_regressor, v_shaped)  # [B, J, 3]
-    rot_mats = aa_to_matrot(pose.reshape(B, -1, 3))  # [B, J, 3, 3]
+    if pose2rot:
+        rot_mats = aa_to_matrot(pose.reshape(B, -1, 3))  # [B, J, 3, 3]
+    else:
+        rot_mats = pose.reshape(B, -1, 3, 3)
 
     if posedirs is not None:
         ident = torch.eye(3, dtype=rot_mats.dtype, device=rot_mats.device)
@@ -152,10 +160,12 @@ def lbs(
     return verts_vb.transpose(0, 1), posed_joints
 
 
-def _lbs_fused(shape_components, pose, parents, fc, num_verts):
+def _lbs_fused(shape_components, pose, parents, fc, num_verts, *,
+               pose2rot=True):
     """Fused, plane-major vertex path ([comp, J|V, B] planes, the frame
     batch padded to LANE): rest-pose joints from the shape components via
-    `j_ext`, Rodrigues on pose planes, the chain kernel (which also forms
+    `j_ext`, Rodrigues on pose planes (with `pose2rot=False` the rotation
+    planes are the given matrices), the chain kernel (which also forms
     the rel-joint translations and the bone affines as planes), and the
     fused vertex kernel. The pose-feature rows of the blend input are a
     reshape of the rotation planes (the posedirs columns were permuted to
@@ -173,9 +183,13 @@ def _lbs_fused(shape_components, pose, parents, fc, num_verts):
                       ).reshape(3, J, Bp)
     jr = F.pad(jr, (0, 0, 0, Jp - J))
 
-    # local rotation planes [9, Jp, Bp]
-    p_pl = pose.reshape(B, J, 3).permute(2, 1, 0)                    # [3, J, B]
-    rl = aa_to_matrot_planes(F.pad(p_pl, (0, Bp - B, 0, Jp - J)))
+    # local rotation planes [9, Jp, Bp] (row k = 3m+n holds R[m, n])
+    if pose2rot:
+        p_pl = pose.reshape(B, J, 3).permute(2, 1, 0)            # [3, J, B]
+        rl = aa_to_matrot_planes(F.pad(p_pl, (0, Bp - B, 0, Jp - J)))
+    else:
+        rl = F.pad(pose.reshape(B, J, 9).permute(2, 1, 0),
+                   (0, Bp - B, 0, Jp - J))
 
     # the chain with the rel-joint translations tl[j] = jr[j] - jr[parent(j)]
     # before it and the bone affines A_pl = [rg; tg - rg jr] after it

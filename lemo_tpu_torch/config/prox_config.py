@@ -3,16 +3,19 @@
 
 `ProxConfig` has every field of the JAX package's, with the same names
 and defaults. The port reads and writes YAML itself (`yaml_subset`): the
-flat subset `cfg_files/*.yaml` use. Options whose path is not ported yet
-raise when they are set (`check_ported`).
+flat subset `cfg_files/*.yaml` use. Every option has its path in the
+port; `check_ported` refuses, before any fit, what the port cannot read:
+`render_results` over JPEG Color frames.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os.path as osp
 
 from lemo_tpu_torch.config.yaml_subset import load_yaml
+from lemo_tpu_torch.data.png import check_color_frames
 
 
 @dataclasses.dataclass
@@ -327,12 +330,14 @@ class ProxConfig:
 
 
 def check_ported(cfg: ProxConfig) -> None:
-    """Raise on a set option whose path the port does not have yet."""
-    if cfg.save_meshes or cfg.render_results:
-        raise NotImplementedError(
-            "save_meshes / render_results: the per-window mesh and render "
-            "saver is not ported to lemo_tpu_torch yet (ROADMAP.md queue 1, "
-            "slice 10)")
+    """Raise on a set option that the port cannot take on this recording.
+    Every option of `lemo_tpu`'s driver has its path in the port; what
+    remains is `render_results` over `.jpg` Color frames, which the
+    port's PNG-only reader cannot decode (`data.png.check_color_frames`).
+    `run_prox_fitting` calls this first, so such a run stops before its
+    fits and not after the first window's pkls and plys."""
+    if cfg.render_results:
+        check_color_frames(osp.join(cfg.recording_dir, cfg.img_folder))
 
 
 def _coerce(value, field_type):

@@ -13,6 +13,7 @@ Writes the same types, one filter for every row (None by default).
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 
@@ -159,3 +160,37 @@ def write_png(path: str, img: np.ndarray, filter_type: int = 0,
                                             0, 0, 0)))
         fh.write(chunk(b"IDAT", zlib.compress(raw.tobytes(), level)))
         fh.write(chunk(b"IEND", b""))
+
+
+def check_color_frames(color_dir: str) -> None:
+    """Raise when `color_dir` holds `.jpg` Color frames, which
+    `read_color_frame` cannot decode: a run that renders over the Color
+    frames calls this before its work, so that it refuses them up front
+    and not after its fits. A missing folder passes (a frame without a
+    Color image is skipped)."""
+    if not os.path.isdir(color_dir):
+        return
+    jpg = sorted(f for f in os.listdir(color_dir) if f.endswith(".jpg"))
+    if jpg:
+        raise ValueError(f"{color_dir} holds {len(jpg)} JPEG Color frames "
+                         f"({jpg[0]}, ...): only PNG Color frames can be "
+                         "read without cv2 (convert the frames to PNG)")
+
+
+def read_color_frame(path: str) -> np.ndarray:
+    """A Color frame as uint8 RGB [H, W, 3]: the pixels that
+    `cv2.imread(path)[:, :, ::-1]` gives for a PNG (grayscale repeated
+    into three channels, alpha dropped, 16-bit samples divided by 256 and
+    rounded half to even). JPEG frames are not decoded: the port has no
+    JPEG codec, so they raise."""
+    if not path.lower().endswith(".png"):
+        raise ValueError(f"{path}: only PNG Color frames can be read "
+                         "without cv2 (convert the frames to PNG)")
+    img = read_png(path)
+    if img.dtype == np.uint16:
+        img = np.clip(np.rint(img / 256.0), 0, 255).astype(np.uint8)
+    if img.ndim == 2:
+        img = img[:, :, None]
+    if img.shape[2] in (1, 2):
+        img = np.repeat(img[:, :, :1], 3, axis=2)
+    return np.ascontiguousarray(img[:, :, :3])

@@ -158,8 +158,8 @@ def write_ply_vertices(path: str, verts: np.ndarray,
         for v in verts:
             fh.write(f"{v[0]} {v[1]} {v[2]}\n")
         if faces is not None:
-            for f in np.asarray(faces, np.int64):
-                fh.write("3 " + " ".join(str(i) for i in f) + "\n")
+            fh.write("".join(f"3 {a} {b} {c}\n" for a, b, c in
+                             np.asarray(faces, np.int64).tolist()))
 
 
 def read_keypoints_all(path: str, use_hands: bool = True,

@@ -6,18 +6,17 @@ Loads the priors and the body model, walks the overlapping windows in
 order, warm-starts each from the pkls on disk (its own outputs first, so
 a killed run resumes), runs the infill pre-pass and the candidate
 pre-passes, fits the window stage by stage, and writes per-frame pkls
-and a conf.yaml snapshot. With `window_parallel`, all windows are fitted
-at once (`_run_window_parallel`: one [W*T] forward a step) and a polish
-pass restores the sequential stitching. Not ported yet, and raising when
-asked for (`config.prox_config.check_ported`): the mesh/render saver
-(ROADMAP.md queue 1, slice 10); the tensorboard logger (slice 10) is
-simply absent.
+and a conf.yaml snapshot; with `save_meshes` / `render_results`, each
+window's body meshes and overlay renders after its pkls
+(`_make_window_extras_saver`). With `window_parallel`, all windows are
+fitted at once (`_run_window_parallel`: one [W*T] forward a step) and a
+polish pass restores the sequential stitching. The tensorboard logger
+is absent.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import glob
 import os
 import os.path as osp
 import time
@@ -47,6 +46,7 @@ from lemo_tpu_torch.fitting.prox.window import dispatch_chunk, \
     save_window_pkls, window_result
 from lemo_tpu_torch.ops.chamfer import nn_distance
 from lemo_tpu_torch.ops.sdf import quantize_grid, sample_sdf_world
+from lemo_tpu_torch.utils.tools import load_vposer
 
 _ASSET_DIR = osp.join(osp.dirname(osp.dirname(osp.dirname(
     osp.abspath(__file__)))), "assets")
@@ -143,19 +143,6 @@ def part_filter(cfg: ProxConfig, faces: np.ndarray) -> tuple:
     return None, None
 
 
-def _load_vposer(expr_dir: str, device) -> dict:
-    """The newest snapshot under <expr_dir>/snapshots (model_loader.py:
-    43-72) as a flat parameter dict."""
-    from lemo_tpu_torch.priors.conv_ae import load_torch_state_dict
-
-    snaps = sorted(glob.glob(osp.join(expr_dir, "snapshots", "*.pt"))
-                   + glob.glob(osp.join(expr_dir, "snapshots", "*.pkl")),
-                   key=lambda p: (osp.getmtime(p), p))
-    if not snaps:
-        raise FileNotFoundError(f"no VPoser snapshots under {expr_dir}")
-    return load_torch_state_dict(snaps[-1], device)
-
-
 def load_assets(cfg: ProxConfig, device=None) -> ProxAssets:
     from lemo_tpu_torch.priors.conv_ae import load_state_dict_npz, \
         load_torch_state_dict
@@ -165,7 +152,7 @@ def load_assets(cfg: ProxConfig, device=None) -> ProxAssets:
                        gender=cfg.gender, use_pca=cfg.use_pca,
                        num_pca_comps=cfg.num_pca_comps,
                        flat_hand_mean=cfg.flat_hand_mean, device=dev)
-    vposer_params = (_load_vposer(cfg.vposer_ckpt, dev)
+    vposer_params = (load_vposer(cfg.vposer_ckpt, dev)[0]
                      if cfg.vposer_ckpt else None)
     smooth_enc = smooth_stats = None
     if cfg.use_motion_smooth_prior and cfg.AE_Enc_path:
@@ -646,6 +633,70 @@ def _make_warm_world_markers(assets: ProxAssets, rec: ProxRecording):
     return warm_world_markers
 
 
+def _make_window_extras_saver(cfg, assets, rec, output_folder):
+    """Per-window `save_meshes` / `render_results` outputs
+    (fit_temp_loadprox_slide.py:596-704): body ply per frame under
+    <output>/<mesh_folder>/<frame>/000.ply and body-over-Color overlay
+    renders under <output>/images/<frame>.png. Returns
+    ``save(frame_names, result)`` or None when both flags are off.
+
+    The bodies are rebuilt in one forward of the window's frames on the
+    model's device; the overlay goes through the host software rasterizer
+    (the reference uses pyrender), seconds a frame at full resolution, so
+    it is opt-in like the reference's flag. Color frames must be PNG
+    (`check_ported` refuses `.jpg` ones before the fits)."""
+    if not (cfg.save_meshes or cfg.render_results):
+        return None
+    from lemo_tpu_torch.data.png import read_color_frame, write_png
+    from lemo_tpu_torch.data.prox import write_ply_vertices
+    from lemo_tpu_torch.utils.raster import render_body_overlay
+
+    model = assets.model
+    fwd = make_forward_fn(model)
+    faces = np.asarray(model.faces)
+    mesh_dir = osp.join(output_folder, cfg.mesh_folder)
+    img_dir = osp.join(output_folder, "images")
+    color_dir = osp.join(rec.recording_dir, cfg.img_folder)
+
+    def save(frame_names, result):
+        params = model.zero_params(len(frame_names))
+        for k, v in result.params.items():
+            if k in params:
+                params[k] = torch.as_tensor(v, device=model.device)
+        with torch.no_grad():
+            verts = fwd(params, model.consts)["vertices"].cpu().numpy()
+        n_mesh = n_img = 0
+        for i, fn in enumerate(frame_names):
+            if cfg.save_meshes:
+                d = osp.join(mesh_dir, fn)
+                os.makedirs(d, exist_ok=True)
+                write_ply_vertices(osp.join(d, "000.ply"), verts[i],
+                                   faces=faces)
+                n_mesh += 1
+            if cfg.render_results:
+                img_path = None
+                for ext in (".jpg", ".png"):
+                    cand = osp.join(color_dir, fn + ext)
+                    if osp.exists(cand):
+                        img_path = cand
+                        break
+                if img_path is None:
+                    continue
+                img = read_color_frame(img_path)
+                if cfg.flip:
+                    img = img[:, ::-1]
+                over = render_body_overlay(
+                    verts[i], faces, img,
+                    cfg.focal_length_x, cfg.focal_length_y,
+                    cfg.camera_center_x, cfg.camera_center_y)
+                os.makedirs(img_dir, exist_ok=True)
+                write_png(osp.join(img_dir, fn + ".png"), over)
+                n_img += 1
+        return n_mesh, n_img
+
+    return save
+
+
 def _sync(dev: torch.device) -> None:
     """Wait for the device, so that a phase's seconds hold its work."""
     if dev.type == "cuda":
@@ -668,7 +719,7 @@ LAST_PARALLEL_TIMINGS: dict = {}
 
 
 def _run_window_parallel(cfg, assets, rec, ds, jw, mapper, result_folder,
-                         n_windows, verbose):
+                         n_windows, verbose, save_extras=None):
     """All windows fitted at once (`lemo_tpu/fitting/prox/driver.py:
     777-1126`, one device): every warm start comes from the previous
     stage's pkls, so windows load in threads and the pre-passes batch;
@@ -676,7 +727,10 @@ def _run_window_parallel(cfg, assets, rec, ds, jw, mapper, result_folder,
     candidate sets rebuilt at each stage boundary; then the polish pass
     re-fits each window's head from the previous window's solution,
     Jacobi (batched rounds, heads injected before each) or sequential
-    (one window after another at the final stage's weights)."""
+    (one window after another at the final stage's weights). The pkls
+    are written in threads, a shared frame's from the later window (in
+    `lemo_tpu` the threads race for it), then `save_extras` (not
+    thread-safe) runs window by window."""
     from concurrent.futures import ThreadPoolExecutor
 
     model = assets.model
@@ -843,10 +897,19 @@ def _run_window_parallel(cfg, assets, rec, ds, jw, mapper, result_folder,
     results = [window_result(sols[i], betas[i], loss_hists[i], term_hists[i],
                              assets.vposer_params, cfg.use_vposer)
                for i in range(n_windows)]
+    # a frame two windows share gets the later window's pkl, as in the
+    # sequential driver: each thread writes only the frames no later
+    # window holds (threads writing one file from two windows would race)
+    last = {fn: i for i in range(n_windows) for fn in window_data[i]["fns"]}
     with ThreadPoolExecutor(max_workers=8) as ex:
         list(ex.map(lambda i: save_window_pkls(
             results[i], window_data[i]["fns"], result_folder,
-            camera_params=_CAMERA_PKL_PARAMS), range(n_windows)))
+            camera_params=_CAMERA_PKL_PARAMS,
+            only={fn for fn in window_data[i]["fns"] if last[fn] == i}),
+            range(n_windows)))
+    if save_extras is not None:
+        for i in range(n_windows):
+            save_extras(window_data[i]["fns"], results[i])
     timings["save_s"] = time.perf_counter() - tsec
     timings["total_s"] = time.perf_counter() - t0
     timings["polish_mode"] = polish_mode if polish > 0 else "off"
@@ -903,9 +966,11 @@ def run_prox_fitting(cfg: ProxConfig, assets: ProxAssets | None = None,
                               cfg.use_face_contour)
     n_windows = len(ds.windows) if max_windows is None else \
         min(max_windows, len(ds.windows))
+    save_extras = _make_window_extras_saver(cfg, assets, rec, output_folder)
     if cfg.window_parallel:
         return _run_window_parallel(cfg, assets, rec, ds, jw, mapper,
-                                    result_folder, n_windows, verbose)
+                                    result_folder, n_windows, verbose,
+                                    save_extras=save_extras)
 
     # host-side loading of window i+1 (PNG decoding, scan unprojection)
     # overlaps window i's fit; warm-start pkls are read only after the
@@ -918,14 +983,15 @@ def run_prox_fitting(cfg: ProxConfig, assets: ProxAssets | None = None,
     try:
         return _fit_windows_sequential(cfg, assets, rec, ds, jw, mapper,
                                        result_folder, n_windows, verbose,
-                                       prefetcher, fut)
+                                       prefetcher, fut, save_extras)
     finally:
         if prefetcher:
             prefetcher.shutdown(wait=False, cancel_futures=True)
 
 
 def _fit_windows_sequential(cfg, assets, rec, ds, jw, mapper, result_folder,
-                            n_windows, verbose, prefetcher, fut):
+                            n_windows, verbose, prefetcher, fut,
+                            save_extras=None):
     model = assets.model
     dev = model.device
     priors = build_priors(cfg, dev)
@@ -1006,6 +1072,8 @@ def _fit_windows_sequential(cfg, assets, rec, ds, jw, mapper, result_folder,
         t1 = time.perf_counter()
         save_window_pkls(result, wd["fns"], result_folder,
                          camera_params=_CAMERA_PKL_PARAMS)
+        if save_extras is not None:
+            save_extras(wd["fns"], result)
         timing["save_s"] = time.perf_counter() - t1
         timing["total_s"] = time.perf_counter() - t0
         results.append(dataclasses.replace(

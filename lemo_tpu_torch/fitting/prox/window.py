@@ -331,13 +331,17 @@ def window_result(final: dict, betas: torch.Tensor, loss_history,
 
 def save_window_pkls(result: WindowResult, frame_names: list[str],
                      result_folder: str, person_id: int = 0,
-                     camera_params: dict | None = None) -> list[str]:
+                     camera_params: dict | None = None,
+                     only: set | None = None) -> list[str]:
     """Per-frame pkl results in the reference's schema
     (fit_temp_loadprox_slide.py:577-594): each frame a dict of [1, ...]
     arrays keyed transl/global_orient/betas/body_pose/pose_embedding/
-    left_hand_pose/.../expression (+ camera_*), pickle protocol 2."""
+    left_hand_pose/.../expression (+ camera_*), pickle protocol 2. With
+    `only`, just the frames named in it."""
     paths = []
     for i, fn in enumerate(frame_names):
+        if only is not None and fn not in only:
+            continue
         rec: dict[str, Any] = {}
         if camera_params:
             for k, v in camera_params.items():

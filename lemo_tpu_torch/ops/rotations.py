@@ -153,3 +153,42 @@ def aa_to_rot6d(aa: torch.Tensor) -> torch.Tensor:
 def rot6d_to_aa(x: torch.Tensor) -> torch.Tensor:
     """6-D representation [..., 6] -> axis-angle [..., 3]."""
     return matrot_to_aa(rot6d_to_matrot(x))
+
+
+def transform_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Rotation [..., 3, 3] + translation [..., 3] -> homogeneous
+    [..., 4, 4] (smplx `transform_mat`, reference lbs.py:196-205)."""
+    batch_shape = R.shape[:-2]
+    R = R.reshape(-1, 3, 3)
+    t = t.reshape(-1, 3, 1)
+    top = torch.cat([R, t], dim=2)  # [N, 3, 4]
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
+                          device=R.device).expand(R.shape[0], 1, 4)
+    return torch.cat([top, bottom], dim=1).reshape(*batch_shape, 4, 4)
+
+
+def pack_params_6d(x72: torch.Tensor) -> torch.Tensor:
+    """[T, 72] body params (transl 3 + axis-angle rot 3 + rest) -> [T, 75]
+    with the 6-D rotation (`convert_to_6D_rot`, utils/utils.py:94-107)."""
+    xt, xr, xb = x72[:, :3], x72[:, 3:6], x72[:, 6:]
+    return torch.cat([xt, aa_to_rot6d(xr), xb], dim=-1)
+
+
+def unpack_params_6d(x75: torch.Tensor) -> torch.Tensor:
+    """[T, 75] (transl 3 + rot6d + rest) -> [T, 72] with the axis-angle
+    rotation (`convert_to_3D_rot`, utils/utils.py:111-123)."""
+    xt, xr, xb = x75[:, :3], x75[:, 3:9], x75[:, 9:]
+    return torch.cat([xt, rot6d_to_aa(xr), xb], dim=-1)
+
+
+def rotate_by_matrix(points: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """Apply a [3, 3] rotation to [..., 3] points (the right-multiply
+    convention `p @ R` the reference uses for frame-0 normalization)."""
+    return torch.matmul(points, R)
+
+
+def batched_aa_to_matrot(aa: torch.Tensor) -> torch.Tensor:
+    """[B, N, 3] -> [B, N, 3, 3]: `lemo_tpu`'s vmap of `aa_to_matrot` over
+    the leading axis, which `aa_to_matrot` already takes as a batch
+    axis."""
+    return aa_to_matrot(aa)

@@ -1,1 +1,3 @@
-"""Shared utilities: the run logger and the evaluation metrics."""
+"""Shared utilities: the run logger, the evaluation metrics, the host
+rasterizer, the occlusion masks, the matplotlib drawings, profiling and
+small helpers."""

@@ -82,23 +82,39 @@ def test_yaml_outside_subset_raises(bad):
                                          ("save_meshes", True),
                                          ("render_results", True)])
 def test_unported_options_raise(field, value):
-    """Each option whose path is not ported raises naming its ROADMAP
-    slice; interpenetration and window_parallel, ported since, pass the
-    check, as does the all-terms config that ships with the first on."""
+    """The options that once raised for want of their path
+    (interpenetration, window_parallel, and save_meshes / render_results
+    until the mesh/render saver) all pass the check now, alone and on the
+    all-terms config."""
     cfg = dataclasses.replace(ProxConfig(), **{field: value})
-    if field == "interpenetration":
+    check_ported(cfg)
+    shipped = parse_config(["--config", S3_ALL, f"--{field}", "true"])
+    assert getattr(shipped, field) is True
+    assert shipped.interpenetration and shipped.coll_candidates == 8192
+    check_ported(shipped)
+
+
+def test_render_results_refuses_jpeg_frames(tmp_path):
+    """`render_results` over `.jpg` Color frames, which the port cannot
+    decode, stops `run_prox_fitting` before it loads or fits anything;
+    with the flag off, or with the frame as PNG, the check passes."""
+    from lemo_tpu_torch.fitting.prox.driver import run_prox_fitting
+
+    color = tmp_path / "recordings" / "N0Sittingbooth_00162_01" / "Color"
+    color.mkdir(parents=True)
+    jpg = color / "s001_frame_00001__00.00.00.029.jpg"
+    jpg.write_bytes(b"\xff\xd8\xff\xd9")
+    cfg = dataclasses.replace(
+        ProxConfig(), recording_dir=str(color.parent), render_results=True,
+        output_folder=str(tmp_path / "out"))
+    with pytest.raises(ValueError, match="JPEG Color frames"):
         check_ported(cfg)
-        shipped = parse_config(["--config", S3_ALL])
-        assert shipped.interpenetration and shipped.coll_candidates == 8192
-        check_ported(shipped)
-        return
-    if field == "window_parallel":
-        check_ported(cfg)
-        check_ported(parse_config(["--config", S3_ALL, "--window_parallel",
-                                   "true"]))
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_ported(cfg)
+    with pytest.raises(ValueError, match="JPEG Color frames"):
+        run_prox_fitting(cfg, device="cpu")
+    assert not (tmp_path / "out").exists()
+    check_ported(dataclasses.replace(cfg, render_results=False))
+    jpg.rename(jpg.with_suffix(".png"))
+    check_ported(cfg)
 
 
 @pytest.mark.parametrize("sub", ["Depth", "BodyIndexColor", "Color"])

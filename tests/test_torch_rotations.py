@@ -75,3 +75,45 @@ def test_gradients_match(fn_name, kind):
     assert np.isfinite(g).all()
     scale = max(np.abs(g_ref).max(), 1.0)
     assert np.abs(g - g_ref).max() / scale < 1e-5, np.abs(g - g_ref).max()
+
+
+def _leftover_inputs(fn_name):
+    rng = np.random.RandomState(31)
+    if fn_name == "transform_mat":
+        R = np.asarray(JR.aa_to_matrot(jnp.asarray(
+            rng.randn(2, 4, 3).astype(np.float32))))
+        return R, rng.randn(2, 4, 3).astype(np.float32)
+    if fn_name == "pack_params_6d":
+        return ((rng.randn(6, 72) * 0.5).astype(np.float32),)
+    if fn_name == "unpack_params_6d":
+        x72 = (rng.randn(6, 72) * 0.5).astype(np.float32)
+        return (np.asarray(JR.pack_params_6d(jnp.asarray(x72))),)
+    if fn_name == "rotate_by_matrix":
+        R = np.asarray(JR.aa_to_matrot(jnp.asarray(
+            rng.randn(3).astype(np.float32))))
+        return rng.randn(5, 7, 3).astype(np.float32), R
+    return ((rng.randn(3, 5, 3) * 0.8).astype(np.float32),)
+
+
+LEFTOVERS = ["transform_mat", "pack_params_6d", "unpack_params_6d",
+             "rotate_by_matrix", "batched_aa_to_matrot"]
+
+
+@pytest.mark.parametrize("fn_name", LEFTOVERS)
+def test_leftovers_match(fn_name):
+    """The helpers no fit path calls (transform_mat, the 6-D packing of
+    [T, 72] rows, rotate_by_matrix, the batched Rodrigues): values and
+    the gradient of every input."""
+    xs = _leftover_inputs(fn_name)
+    ref = np.asarray(getattr(JR, fn_name)(*map(jnp.asarray, xs)))
+    xt = [torch.as_tensor(x).requires_grad_(True) for x in xs]
+    out = getattr(TR, fn_name)(*xt)
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out.detach().numpy(), ref, atol=1e-6)
+    c = np.random.RandomState(7).randn(*ref.shape).astype(np.float32)
+    g_ref = jax.grad(lambda *a: (getattr(JR, fn_name)(*a) * c).sum(),
+                     argnums=tuple(range(len(xs))))(*map(jnp.asarray, xs))
+    (out * torch.as_tensor(c)).sum().backward()
+    for x, g in zip(xt, g_ref):
+        scale = max(np.abs(np.asarray(g)).max(), 1.0)
+        assert np.abs(x.grad.numpy() - np.asarray(g)).max() / scale < 1e-5

@@ -265,7 +265,9 @@ def test_port_imports_no_jax():
     both stages, both AMASS CLIs, the optimizer family, the GMM prior,
     camera init and eval_prox among them) pulls in neither jax nor
     any lemo_tpu module, and needs neither cv2 nor yaml (both are made
-    unimportable first)."""
+    unimportable first); the slice of utilities, the BodyModel API, the
+    native library and the render/occlusion/visualization CLIs among
+    them, with matplotlib imported only inside the drawing functions."""
     code = (
         "import sys\n"
         "sys.modules['cv2'] = None\n"
@@ -289,7 +291,16 @@ def test_port_imports_no_jax():
         " 'lemo_tpu_torch.cli.eval_amass', 'lemo_tpu_torch.fitting.lbfgs',"
         " 'lemo_tpu_torch.priors.body_priors',"
         " 'lemo_tpu_torch.fitting.prox.camera_init',"
-        " 'lemo_tpu_torch.cli.eval_prox']\n"
+        " 'lemo_tpu_torch.cli.eval_prox', 'lemo_tpu_torch.utils.tools',"
+        " 'lemo_tpu_torch.utils.profiling', 'lemo_tpu_torch.utils.raster',"
+        " 'lemo_tpu_torch.utils.viz', 'lemo_tpu_torch.utils.mesh_viewer',"
+        " 'lemo_tpu_torch.utils.occlusion_mask',"
+        " 'lemo_tpu_torch.body_model.body_model_api',"
+        " 'lemo_tpu_torch.ops.native',"
+        " 'lemo_tpu_torch.cli.get_occlusion_mask',"
+        " 'lemo_tpu_torch.cli.render_fitting',"
+        " 'lemo_tpu_torch.cli.vis_opt_amass']\n"
+        "assert 'matplotlib' not in sys.modules\n"
         "assert all(m in sys.modules for m in need), need\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'optax' or m == 'lemo_tpu' or m.startswith('lemo_tpu.')]\n"

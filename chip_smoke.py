@@ -107,8 +107,8 @@ Phases (any failure raises and the script exits non-zero):
    (1) `run_prox_fitting` with the all-terms config and `window_parallel:
    true` (100 steps, the default Jacobi polish), counters zeroed before
    and read after: the 170 pkls, the histories' lengths, one launch of
-   each kernel a fold step for both windows (plus the two pre-pass
-   forwards, the depth pre-pass's selections and one final-terms
+   each kernel a fold step for both windows (plus two pre-pass
+   forwards a window, the depth pre-pass's selections and one final-terms
    evaluation a fit, counted), one coll K for both windows equal to the
    larger window's auto-K, window 2's frozen head equal to window 1's
    tail bit for bit, and the stage fit refitted through the kernels and
@@ -214,6 +214,34 @@ Phases (any failure raises and the script exits non-zero):
    against `nn_distance_plain` on one frame of phase 5's s2m operands
    (rtol 1e-5, atol 1e-6, brute-force indices equal). Prints phase 10's
    command time.
+11. Scale-out (`lemo_tpu_torch.parallel`), after phase 10, on phase 4b's
+   first Stage-2 batch and first Stage-1 clip and on every second frame
+   of phase 6's recording in two windows of 50 (`_p11_prox_cfg`; cut
+   from 170 frames in two of 100: the coll broad phase costs ~0.19 s a
+   frame swept). The one-process runs first, then ranks spawned from
+   this process (`parallel.dryrun.spawn_ranks`: a file store, inputs
+   and results through files, the kernels already built). (11a) This
+   process as one NCCL rank on cuda:0 (`initialize_multihost` from a
+   file store): the clip-sharded Stage 2 (P11_S2_STEPS steps,
+   deterministic algorithms) and the window-parallel driver on
+   PROXD_temp_S3.yaml (P11_WP_STEPS steps a window, a
+   P11_WP_POLISH-iteration Jacobi polish) through the mesh code at size
+   1: each equal to the one-process run bit for bit, candidate sets
+   included. (11b) Two gloo ranks both on cuda:0 (NCCL refuses two ranks
+   on one GPU): the clip-sharded Stage 2 (2 clips a rank; lemo_tpu's
+   fold tolerances, max |d| printed), the frame-sharded Stage 1 (T =
+   119; loss rtol 1e-4, x72 1e-4), the data-parallel smoothness step
+   (batch 60, 30 a rank, 3 steps; the summed gradient within rel 1e-5 of
+   the largest one-process gradient, the parameters within 1e-6 where
+   |g| is over 1e3 times the gradients' largest difference), and the
+   all-terms window-parallel driver (a window a rank; transl within
+   2e-5 m, the loss histories rtol 2e-4, the first step's total rel
+   1e-5, K, the per-window broad-phase counts and every candidate set
+   equal, rank 0 the only writer, both ranks the same results). Each
+   rank launches each kernel entry point once a step of each fit (and,
+   in the driver, the pre-passes' and final-terms' launches of its
+   window). Prints each rank's ms/step beside the one-process run's (two
+   processes sharing one card) and phase 11's command time.
 
 The script re-executes itself with PYTHONHASHSEED=0 (the synthetic
 male/female models are seeded with Python's string hash), and phase 4b's
@@ -295,6 +323,16 @@ BM_FRAMES = 100                # phase 10a's batch
 RENDER_FRAMES = 4              # phase 10c's frames, at 1920 x 1080
 RENDER_STEP = 50               # ... every RENDER_STEP-th fitted frame
 SAVER_STEPS = 10               # phase 10d's Adam steps a window
+# phase 11: scale-out on the one card
+P11_S2_STEPS = 20              # the clip-sharded Stage 2's steps
+P11_WP_STEPS = 10              # the window-parallel fits' steps a window
+P11_WP_POLISH = 20             # ... and their Jacobi polish: 2 rounds of 10
+P11_WP_STEP = 2                # every second frame of phase 6's recording,
+P11_WP_BATCH = 50              # in windows of 50: two windows (the broad
+                               # phase's cost goes with the frames swept)
+P11_DP_BATCH = 60              # the smoothness trainer's batch (shipped)
+P11_DP_STEPS = 3
+P11_DP_IMAGE = (243, 120)      # a batch row: 81 markers x 3, 4 s at 30 fps
 PROFILE_S2_STEPS = 3           # phase 10f's profiled Stage-2 steps
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PROX_CFG = os.path.join(ROOT, "cfg_files", "PROXD_temp_S3_all_terms.yaml")
@@ -314,6 +352,7 @@ GMM_DIR = os.path.join(ROOT, "lemo_tpu_torch", "_build", "gmm_priors")
 EVAL_MODEL_DIR = os.path.join(ROOT, "lemo_tpu_torch", "_build", "eval_model")
 LBFGS_OUT = os.path.join(PROX_DIR, "out_lbfgs")
 RENDER_DIR = os.path.join(PROX_DIR, "render_copy")
+P11_DIR = os.path.join(PROX_DIR, "p11")
 CHAMFER_OPS_PER_PAIR = 9.0     # csrc/chamfer.cu: 3 mul + 2 add, add, mul, sub, cmp
 # csrc/intersection.cu, f32 operations of one unordered face pair by the
 # gate it reaches. The gates are symmetric in the pair, so each is paid
@@ -1035,7 +1074,8 @@ def phase_amass(card) -> dict:
          f"{min(s2_last):.5f}-{max(s2_last):.5f}; one launch a step of "
          f"each body kernel in every fit, one forward a clip in each "
          f"builder")
-    return {"launches": counts, "s2_calls": s2_calls, "T": T}
+    return {"launches": counts, "s2_calls": s2_calls, "s1_call": s1_calls[0],
+            "T": T}
 
 
 def _profile_call(fit, args) -> dict:
@@ -2177,14 +2217,15 @@ def phase_wp(model, info, card) -> dict:
             raise AssertionError(f"fold call launches {c['launches']}, "
                                  f"expected {want}")
     # outside the fits: the candidate pre-pass's and the infill markers'
-    # forwards of all W*T warm-start frames, and the depth pre-pass's 4
+    # forwards of each window's warm start, and the depth pre-pass's 4
     # Chamfer selections a window
-    want = {"chain_fwd": evals + 2, "vertex_fwd": evals + 2,
+    want = {"chain_fwd": evals + 2 * W, "vertex_fwd": evals + 2 * W,
             "chain_bwd": steps, "vertex_bwd": steps, "intersection": evals,
             "chamfer": 3 * evals + 4 * W}
     _log(f"[wp] launches {counts}: {steps} fold steps ({S} stage + "
          f"{rounds} Jacobi round(s) of {R}) for both windows, "
-         f"{len(calls)} final-terms evaluations, 2 pre-pass forwards and "
+         f"{len(calls)} final-terms evaluations, {2 * W} pre-pass "
+         f"forwards (two a window) and "
          f"{4 * W} depth pre-pass selections; expected {want}")
     if counts != want:
         raise AssertionError(f"window-parallel launches {counts}, "
@@ -3856,6 +3897,361 @@ def phase10_kernel_rows(model, rows, launches: dict, card) -> list:
     return out
 
 
+def phase11_inputs(amass) -> dict:
+    """Phase 11's AMASS inputs, taken before phase 4b's records go: the
+    Stage-2 CLI's first batch (its factory's arguments, P11_S2_STEPS
+    steps) and the Stage-1 CLI's first clip (its fitter's arguments)."""
+    fargs, fkw = amass["s2_calls"][0]["factory"]
+    # make_stage1_fitter(model, vposer, ids, num_steps, weights, device=)
+    f1args, f1kw = amass["s1_call"]["factory"]
+    target, beta = amass["s1_call"]["inputs"]
+    return {"s2": {"fitter_args": fargs[:7],
+                   "fitter_kw": {"num_steps": P11_S2_STEPS,
+                                 "weights": fargs[8],
+                                 "device": fkw["device"]},
+                   "inputs": tuple(amass["s2_calls"][0]["inputs"])},
+            "s1": {"fitter_args": f1args[:3],
+                   "fitter_kw": {"num_steps": f1args[3],
+                                 "weights": f1args[4], **f1kw},
+                   "target": target, "beta": np.asarray(beta)}}
+
+
+def _max_abs(a, b) -> float:
+    import torch
+
+    return float((torch.as_tensor(a) - torch.as_tensor(b)).abs().max())
+
+
+def _fold_excess(x, ref, rtol) -> float:
+    import torch
+
+    x, ref = torch.as_tensor(x), torch.as_tensor(ref)
+    return float(((x - ref).abs() - rtol * ref.abs()).max())
+
+
+def _p11_prox_cfg(info, out_dir: str, config: str = PROX_CFG):
+    """Phase 11's window-parallel config: every P11_WP_STEP-th frame of
+    phase 6's recording in windows of P11_WP_BATCH (two windows),
+    P11_WP_STEPS steps and a P11_WP_POLISH-iteration Jacobi polish."""
+    return prox_config(info, out_dir, steps=P11_WP_STEPS, config=config,
+                       extra=("--window_parallel", "true",
+                              "--window_polish_iters", str(P11_WP_POLISH),
+                              "--step", str(P11_WP_STEP),
+                              "--batch_size", str(P11_WP_BATCH)))
+
+
+def _p11_reference(model, info, inputs, card) -> dict:
+    """Phase 11's one-process runs on the card, through the same jobs on a
+    one-rank mesh with no process group: the Stage-2 fold and the Stage-1
+    fit (deterministic algorithms), the smoothness trainer (its first
+    gradient and P11_DP_STEPS steps), the all-terms window-parallel fit
+    and the PROXD_temp_S3.yaml one (deterministic algorithms, candidate
+    sets recorded)."""
+    import torch
+
+    from lemo_tpu_torch.fitting.adam import _flatten, _unflatten, adam_init
+    from lemo_tpu_torch.parallel import dryrun, make_mesh
+    from lemo_tpu_torch.train import smooth
+
+    mesh = make_mesh()          # no group: a one-rank mesh, nothing shared
+    ref = {"s2": dryrun.job_stage2(mesh, deterministic=True, **inputs["s2"]),
+           "s1": dryrun.job_stage1(mesh, deterministic=True, **inputs["s1"])}
+    dp = inputs["dp"]
+    train_step, _ = smooth.make_train_step(dp["cfg"])
+    leaves = {k: v.detach().requires_grad_(True)
+              for k, v in _flatten(dp["params"])}
+    loss, _ = train_step.loss_fn(_unflatten(leaves), dp["batch"])
+    grads = dict(zip(leaves, torch.autograd.grad(loss,
+                                                 list(leaves.values()))))
+    params, state, walls = dp["params"], adam_init(dp["params"]), []
+    for _ in range(P11_DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, m = train_step(params, state, dp["batch"])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    ref["dp"] = {"grads": grads, "params": params,
+                 "total": float(m["total"]),
+                 "ms_step": 1e3 * float(np.mean(walls[1:]))}
+    for tag, key in (("all_terms", "prox"), ("s3", "prox_s3")):
+        run = inputs[key]
+        ref[key] = dryrun.job_prox(
+            mesh, _p11_prox_cfg(info, os.path.join(P11_DIR, f"one_{tag}"),
+                                run["config"]),
+            run["assets"], deterministic=True, capture_candidates=True)
+    return ref
+
+
+def _p11_launch_want(cfg, windows: int) -> dict:
+    """The kernels' launches of a window-parallel run that fits `windows`
+    windows in its process (phase 6b's count): one of each kernel a fold
+    step, one forward-only evaluation a fit call (its final terms), and
+    a window's two pre-pass forwards and the depth pre-pass's 4 Chamfer
+    selections."""
+    from lemo_tpu_torch.fitting.prox import driver
+    from lemo_tpu_torch.fitting.prox.window import dispatch_chunk, \
+        whole_chunks
+
+    chunk = dispatch_chunk(cfg.steps_per_dispatch, cfg.maxiters)
+    rounds, iters = driver.jacobi_rounds(cfg.window_polish_iters,
+                                         cfg.window_polish_rounds, chunk)
+    steps = whole_chunks(cfg.maxiters, chunk) * cfg.n_stages + \
+        rounds * whole_chunks(iters, chunk)
+    evals = steps + cfg.n_stages + rounds
+    return {"chain_fwd": evals + 2 * windows,
+            "vertex_fwd": evals + 2 * windows,
+            "chain_bwd": steps, "vertex_bwd": steps, "intersection": evals,
+            "chamfer": 3 * evals + 4 * windows}
+
+
+def _p11_compare_prox(tag: str, got: dict, ref: dict, exact: bool,
+                      faults: list) -> None:
+    """A sharded window-parallel run's results against the one-process
+    run's: equal bits (`exact`), or phase 6b's limits (transl within 2e-5
+    m, the loss histories within rtol 2e-4, the first step's total within
+    rel 1e-5); the broad phase's K and per-window counts and every
+    candidate set equal in both cases."""
+    res, one = got["results"], ref["results"]
+    d_tr = max(_max_abs(r.params["transl"], o.params["transl"])
+               for r, o in zip(res, one))
+    d_par = max(_max_abs(r.params[k], o.params[k])
+                for r, o in zip(res, one) for k in o.params)
+    l_exc = max(_fold_excess(r.loss_history, o.loss_history, 2e-4)
+                for r, o in zip(res, one))
+    first = max(abs(r.loss_history[0] - o.loss_history[0])
+                / abs(o.loss_history[0]) for r, o in zip(res, one))
+    bits = all(np.array_equal(r.loss_history, o.loss_history)
+               and all(np.array_equal(r.params[k], o.params[k])
+                       for k in o.params) for r, o in zip(res, one))
+    bp, bp1 = res[0].broad_phase, one[0].broad_phase
+    _log(f"[scale-out] {tag}: transl max |d| {d_tr:.3e} m, every parameter "
+         f"max |d| {d_par:.3e}, losses max |d| - 2e-4|l| {l_exc:.3e}, first "
+         f"step total rel {first:.3e}; equal bits {bits}; broad phase "
+         f"{None if bp is None else (bp['K'], bp['per_window'])} vs "
+         f"{None if bp1 is None else (bp1['K'], bp1['per_window'])}")
+    if exact and not bits:
+        faults.append(f"{tag}: not bit-equal to the one-process run")
+    if not (d_tr <= 2e-5 and l_exc <= 0.0 and first <= 1e-5):
+        faults.append(f"{tag}: outside phase 6b's limits")
+    if (bp is None) != (bp1 is None) or (bp is not None and (
+            bp["K"] != bp1["K"] or bp["per_window"] != bp1["per_window"])):
+        faults.append(f"{tag}: broad phase {bp} vs {bp1}")
+
+
+def _p11_compare_candidates(tag: str, calls: list, ref_calls: list,
+                            faults: list) -> None:
+    """Each call's candidate sets of the sharded run (the ranks' windows,
+    in rank order) equal the one-process run's."""
+    if len(calls) != len(ref_calls):
+        faults.append(f"{tag}: {len(calls)} candidate passes, one process "
+                      f"{len(ref_calls)}")
+        return
+    n_sets = 0
+    for c, rc in zip(calls, ref_calls):
+        if len(c) != len(rc):
+            faults.append(f"{tag}: {len(c)} windows' candidates, one "
+                          f"process {len(rc)}")
+            return
+        for w, (a, b) in enumerate(zip(c, rc)):
+            for f in b:
+                n_sets += 1
+                if f not in a or not np.array_equal(a[f].numpy(),
+                                                    b[f].numpy()):
+                    faults.append(f"{tag}: window {w + 1} {f} differs")
+    _log(f"[scale-out] {tag}: {n_sets} candidate sets "
+         f"({len(calls)} pass(es)) compared with the one-process run's")
+
+
+def phase_scaleout(model, info, inputs, card) -> None:
+    """Phase 11: scale-out (`lemo_tpu_torch.parallel`) on the one card.
+    The one-process runs first (`_p11_reference`), then (11a) this
+    process as one NCCL rank on cuda:0 (`initialize_multihost` from a
+    file store): the clip-sharded Stage 2 and the PROXD_temp_S3.yaml
+    window-parallel driver through the mesh code at size 1, each equal
+    to the one-process run bit for bit; then (11b) two ranks spawned with
+    gloo, both on cuda:0 (NCCL refuses two ranks on one card): the
+    clip-sharded Stage 2 (2 of the 4 clips a rank; lemo_tpu's fold
+    tolerances, max |d| printed, equal bits expected), the frame-sharded
+    Stage 1 (tests/test_parallel.py's loss rtol 1e-4, x atol 1e-4), the
+    data-parallel smoothness step (30 rows a rank; the summed gradient
+    within rel 1e-5 of the largest one-process gradient, the parameters
+    after P11_DP_STEPS steps within 1e-6 where |g| is over 1e3 times the
+    gradients' largest difference) and the all-terms window-parallel
+    driver (a window
+    a rank; `_p11_compare_prox`, the candidate sets equal, each rank's
+    launches one of each kernel a step). Each rank's ms/step is printed
+    beside the one-process run's (the Stage fits timed on a second call:
+    a spawned rank's first pays its process's set-up): two processes
+    sharing one card, measured, not a scaling claim."""
+    import torch
+
+    from lemo_tpu_torch.fitting.adam import _flatten
+    from lemo_tpu_torch.parallel import dryrun, sharding
+    from lemo_tpu_torch.train import smooth
+
+    t0 = time.perf_counter()
+    shutil.rmtree(P11_DIR, ignore_errors=True)
+    os.makedirs(P11_DIR)
+    cfg_dp = smooth.SmoothTrainConfig()
+    inputs = dict(inputs, dp={
+        "cfg": cfg_dp,
+        "params": smooth.init_params(torch.Generator().manual_seed(0),
+                                     cfg_dp, "cuda"),
+        "batch": torch.as_tensor(np.random.RandomState(11).randn(
+            P11_DP_BATCH, 1, *P11_DP_IMAGE).astype(np.float32),
+            device="cuda")})
+    for key, config in (("prox", PROX_CFG), ("prox_s3", PROX_S3_CFG)):
+        cfg = _p11_prox_cfg(info, P11_DIR, config)
+        inputs[key] = {"config": config,
+                       "assets": prox_assets(model, info, cfg)}
+    ref = _p11_reference(model, info, inputs, card)
+    t_ref = time.perf_counter() - t0
+    _log(f"[scale-out] one-process runs in {t_ref:.1f} s: Stage 2 "
+         f"{ref['s2']['ms_step']:.3f} ms/step, Stage 1 "
+         f"{ref['s1']['ms_step']:.3f}, smoothness step "
+         f"{ref['dp']['ms_step']:.3f}, all-terms fit "
+         f"{1e3 * ref['prox']['timings']['fit_s'] / P11_WP_STEPS:.3f} "
+         f"ms/stage step")
+    faults: list = []
+
+    # 11a: this process as one NCCL rank, through the mesh code
+    t1 = time.perf_counter()
+    cfg_a = _p11_prox_cfg(info, os.path.join(P11_DIR, "nccl"), PROX_S3_CFG)
+    sharding.initialize_multihost(
+        "file://" + os.path.join(P11_DIR, "nccl_store"), 1, 0,
+        backend="nccl", device="cuda:0")
+    try:
+        mesh = sharding.make_mesh()
+        a = [dryrun.job_stage2(mesh, deterministic=True, **inputs["s2"]),
+             dryrun.job_prox(mesh, cfg_a, inputs["prox_s3"]["assets"],
+                             deterministic=True, capture_candidates=True)]
+    finally:
+        torch.distributed.destroy_process_group()
+    s2_bits = torch.equal(a[0]["x72"], ref["s2"]["x72"]) and \
+        torch.equal(a[0]["losses"], ref["s2"]["losses"])
+    _log(f"[scale-out] 11a NCCL, this process one rank on cuda:0, "
+         f"{time.perf_counter() - t1:.1f} s: clip-sharded Stage 2 equal "
+         f"bits {s2_bits}")
+    if not s2_bits:
+        faults.append("11a: the clip-sharded Stage 2 is not bit-equal")
+    _p11_compare_prox("11a PROXD_temp_S3.yaml", a[1], ref["prox_s3"], True,
+                      faults)
+    _p11_compare_candidates("11a PROXD_temp_S3.yaml", a[1]["candidates"],
+                            ref["prox_s3"]["candidates"], faults)
+
+    # 11b: two gloo ranks on cuda:0
+    t1 = time.perf_counter()
+    b = dryrun.spawn_ranks(2, dryrun.job_sequence, {"jobs": [
+        (dryrun.job_stage2, dict(inputs["s2"], deterministic=True)),
+        (dryrun.job_stage1, dict(inputs["s1"], deterministic=True)),
+        (dryrun.job_dp_step, dict(inputs["dp"], steps=P11_DP_STEPS)),
+        (dryrun.job_prox, {
+            "cfg": _p11_prox_cfg(info, P11_DIR),
+            "assets": inputs["prox"]["assets"],
+            "output_folders": [os.path.join(P11_DIR, f"rank{r}")
+                               for r in range(2)],
+            "deterministic": True, "capture_candidates": True})]},
+        device="cuda:0", backend="gloo", timeout=600)
+    t_b = time.perf_counter() - t1
+    s2_steps = P11_S2_STEPS
+    s1_steps = inputs["s1"]["fitter_kw"]["num_steps"]
+    body = ("chain_fwd", "vertex_fwd", "chain_bwd", "vertex_bwd")
+    for r, out in enumerate(b):
+        s2, s1, dp, px = out
+        x_exc = _fold_excess(s2["x72"], ref["s2"]["x72"].cpu(), 6e-2)
+        l_exc = _fold_excess(s2["losses"], ref["s2"]["losses"].cpu(), 2e-3)
+        _log(f"[scale-out] 11b rank {r}: clip-sharded Stage 2 x72 max |d| "
+             f"{_max_abs(s2['x72'], ref['s2']['x72'].cpu()):.3e}, losses "
+             f"max |d| {_max_abs(s2['losses'], ref['s2']['losses'].cpu()):.3e}"
+             f" (fold tolerances: x72 excess {x_exc:.3e} <= 2e-3, losses "
+             f"excess {l_exc:.3e} <= 2e-5)")
+        if not (x_exc <= 2e-3 and l_exc <= 2e-5):
+            faults.append(f"11b rank {r}: clip-sharded Stage 2 outside "
+                          "the fold tolerances")
+        l_rel = float(((s1["losses"] - ref["s1"]["losses"].cpu()).abs()
+                       / ref["s1"]["losses"].cpu().abs()).max())
+        x_d = _max_abs(s1["x72"], ref["s1"]["x72"].cpu())
+        _log(f"[scale-out] 11b rank {r}: frame-sharded Stage 1 (T = "
+             f"{s1['x72'].shape[0]}) losses max rel {l_rel:.3e} (tol 1e-4), "
+             f"x72 max |d| {x_d:.3e} (tol 1e-4)")
+        if not (l_rel <= 1e-4 and x_d <= 1e-4):
+            faults.append(f"11b rank {r}: frame-sharded Stage 1 differs")
+        g_err = max(_max_abs(dp["grads"][k], g.cpu())
+                    for k, g in ref["dp"]["grads"].items())
+        g_max = max(float(g.abs().max()) for g in ref["dp"]["grads"].values())
+        # above rounding: |g| over 1e3 times the largest difference of the
+        # two gradients; nearer to it, Adam's m / sqrt(v) carries the
+        # rounding at over 1e-3 of an update, so a weight moves by up to
+        # lr either way (PR 12 met this in VPoser)
+        p_err, n_cmp, n_all = 0.0, 0, 0
+        flat_dp = dict(_flatten(dp["params"]))
+        for k, p1 in _flatten(ref["dp"]["params"]):
+            g = ref["dp"]["grads"][k].cpu()
+            sel = g.abs() > 1e3 * g_err
+            n_cmp += int(sel.sum())
+            n_all += g.numel()
+            if sel.any():
+                p_err = max(p_err, float((flat_dp[k] - p1.cpu())
+                                         .abs()[sel].max()))
+        _log(f"[scale-out] 11b rank {r}: data-parallel smoothness step "
+             f"(batch {P11_DP_BATCH}, {P11_DP_BATCH // 2} a rank): gradient "
+             f"max |d| {g_err:.3e} = {g_err / g_max:.3e} of its largest "
+             f"{g_max:.3e} (tol 1e-5); after {P11_DP_STEPS} steps the "
+             f"parameters max |d| {p_err:.3e} (tol 1e-6) on {n_cmp} of "
+             f"{n_all} entries with |g| > 1e3 x the gradient's max |d|; "
+             f"total {dp['metrics'][0]['total']:.7g}")
+        if not (g_err <= 1e-5 * g_max and p_err <= 1e-6):
+            faults.append(f"11b rank {r}: the data-parallel step differs")
+        for tag, run, steps in (("Stage 2", s2, s2_steps),
+                                ("Stage 1", s1, s1_steps)):
+            want = {k: steps for k in body}
+            got = {k: run["launches"][k] for k in body}
+            if got != want or run["launches"]["chamfer"] or \
+                    run["launches"]["intersection"]:
+                faults.append(f"11b rank {r}: {tag} launches "
+                              f"{run['launches']}, expected {want}")
+        want = _p11_launch_want(_p11_prox_cfg(info, P11_DIR), 1)
+        _log(f"[scale-out] 11b rank {r}: launches Stage 2 "
+             f"{ {k: s2['launches'][k] for k in body} }, Stage 1 "
+             f"{ {k: s1['launches'][k] for k in body} }, window-parallel "
+             f"{px['launches']} (expected {want}: one of each kernel a "
+             f"step for its window)")
+        if px["launches"] != want:
+            faults.append(f"11b rank {r}: window-parallel launches "
+                          f"{px['launches']}, expected {want}")
+        fit_ms = 1e3 * px["results"][0].timings["fit_s"] / P11_WP_STEPS
+        _log(f"[scale-out] 11b rank {r} ms/step (two processes sharing "
+             f"{card}) beside one process: Stage 2 {s2['ms_step']:.3f} vs "
+             f"{ref['s2']['ms_step']:.3f}, Stage 1 {s1['ms_step']:.3f} vs "
+             f"{ref['s1']['ms_step']:.3f}, smoothness step "
+             f"{dp['ms_step']:.3f} vs {ref['dp']['ms_step']:.3f}, "
+             f"window-parallel stage fit {fit_ms:.3f} vs "
+             f"{1e3 * ref['prox']['timings']['fit_s'] / P11_WP_STEPS:.3f}")
+    px = [out[3] for out in b]
+    _p11_compare_prox("11b all-terms (rank 0's results)", px[0], ref["prox"],
+                      False, faults)
+    if not all(np.array_equal(x.params[k], y.params[k])
+               for x, y in zip(px[0]["results"], px[1]["results"])
+               for k in x.params):
+        faults.append("11b: the ranks returned different results")
+    _p11_compare_candidates("11b all-terms",
+                            [c0 + c1 for c0, c1 in zip(px[0]["candidates"],
+                                                       px[1]["candidates"])],
+                            ref["prox"]["candidates"], faults)
+    fitted = dict(info, frame_names=info["frame_names"][::P11_WP_STEP])
+    n_pkls = _check_pkls(os.path.join(P11_DIR, "rank0"), fitted)
+    others = [f for _, _, fs in os.walk(os.path.join(P11_DIR, "rank1"))
+              for f in fs]
+    _log(f"[scale-out] 11b: rank 0 wrote {n_pkls} pkls, rank 1 "
+         f"{len(others)} files; the two ranks in {t_b:.1f} s")
+    if n_pkls != len(fitted["frame_names"]) or others:
+        faults.append("11b: rank 0 alone must write the pkls")
+    _log(f"[phase 11] command time {time.perf_counter() - t0:.1f} s on "
+         f"{card}")
+    if faults:
+        raise AssertionError("; ".join(faults))
+
+
 def main() -> int:
     if os.environ.get("PYTHONHASHSEED") != "0":
         # the synthetic male/female models are seeded with Python's string
@@ -3900,6 +4296,7 @@ def main() -> int:
     for row in rows:
         row["launches_amass"] = amass["launches"][row["name"]]
         row["amass_frames"] = at_frames[row["name"]]
+    p11 = phase11_inputs(amass)
     del amass
     _log(f"[amass sweep] {json.dumps(sweep)}")
     trainers, vposer = phase_train(card)
@@ -3939,6 +4336,8 @@ def main() -> int:
     rows += phase10_kernel_rows(model, rows, at10, card)
     _log(f"[phase 10] command time {time.perf_counter() - t10:.1f} s on "
          f"{card}")
+    phase_scaleout(model, info, p11, card)
+    del p11
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,12 @@ temp_prox/main_slide.py):
 
 Runs on the CUDA card. `--window_parallel true` fits all windows at once
 (`--window_polish_iters`, `--window_polish_mode jacobi|sequential` and
-`--window_polish_rounds` set its polish pass).
+`--window_polish_rounds` set its polish pass). On N cards, one process
+each, the windows are sharded over the processes and rank 0 writes the
+results:
+
+  torchrun --nproc_per_node N -m lemo_tpu_torch.cli.main_slide \
+      --config ... --recording_dir ... --window_parallel true
 """
 
 from __future__ import annotations
@@ -18,9 +23,13 @@ import sys
 
 
 def main(argv=None, device=None):
-    """`device`: where the fit runs (None: the CUDA card)."""
+    """`device`: where the fit runs (None: the CUDA card; under
+    `torchrun`, `cuda:LOCAL_RANK`)."""
     from lemo_tpu_torch.config import parse_config
     from lemo_tpu_torch.fitting.prox.driver import run_prox_fitting
+    from lemo_tpu_torch.parallel import initialize_multihost
+
+    initialize_multihost(device=device)   # a no-op in one process
 
     cfg = parse_config(sys.argv[1:] if argv is None else argv)
     if not cfg.recording_dir:

@@ -35,6 +35,22 @@ from lemo_tpu_torch.ops.rotations import aa_to_rot6d, rot6d_to_aa
 from lemo_tpu_torch.ops.select import take_rows
 
 
+# On the card the VPoser decode runs one product a block of DECODE_ROWS
+# frames (`vposer.decode(rows=...)`): cuBLAS rounds a product by its row
+# count, so a frame-sharded fit whose shards are whole blocks
+# (`parallel.sharding.frame_sharded_fit`, the fitter's `frame_block`)
+# decodes each frame as the unsharded fit does
+DECODE_ROWS = 32
+
+
+def _share_of_mean(x: torch.Tensor, frames: int) -> torch.Tensor:
+    """x [T, ...]'s sum over the mean's count for `frames` frames: the
+    mean when frames = T, a share of it for a shard of T of `frames`
+    frames. Its gradient, 1/count an entry, is the mean's over all
+    frames bit for bit."""
+    return x.sum() / (frames * (x.numel() // x.shape[0]))
+
+
 @dataclasses.dataclass
 class Stage1Weights:
     rec_markers: float = 1.0
@@ -81,22 +97,30 @@ def _params72(opt_vars, shape10):
 
 def make_stage1_loss(model: SmplxModel, vposer_params: dict, marker_ids,
                      weights: Stage1Weights = Stage1Weights()):
-    """loss(opt_vars, shape10 [T, 10], markers_target [T, 67, 3]) on the
-    model's device; `vposer_params` must already live there."""
+    """loss(opt_vars, shape10 [T, 10], markers_target [T, 67, 3],
+    frames_total=None) on the model's device; `vposer_params` must
+    already live there. Every term is a mean over the T frames; with
+    `frames_total` the T frames are one rank's share of a frame-sharded
+    fit, and each term is their share of the mean over all frames_total
+    (`_share_of_mean`), so that the ranks' losses sum to the unsharded
+    loss and each entry's gradient is the unsharded fit's."""
     fwd = make_forward_fn(model)
     ids = torch.as_tensor(np.asarray(marker_ids, np.int64),
                           device=model.device)
     num_expr = model.config.num_expressions
 
-    def loss_fn(opt_vars, shape10, markers_target):
+    def loss_fn(opt_vars, shape10, markers_target, frames_total=None):
         x72 = _params72(opt_vars, shape10)
-        out = fwd(P.smplx_params_from_72(x72, vposer_params, num_expr),
+        n = x72.shape[0] if frames_total is None else frames_total
+        out = fwd(P.smplx_params_from_72(x72, vposer_params, num_expr,
+                                         decode_rows=DECODE_ROWS),
                   model.consts)
         markers = take_rows(out["vertices"], ids)
-        return (weights.rec_markers * (markers - markers_target).abs().mean()
-                + weights.vposer * (x72[:, 16:48] ** 2).mean()
-                + weights.shape * (x72[:, 6:16] ** 2).mean()
-                + weights.hand * (x72[:, 48:] ** 2).mean())
+        return (weights.rec_markers
+                * _share_of_mean((markers - markers_target).abs(), n)
+                + weights.vposer * _share_of_mean(x72[:, 16:48] ** 2, n)
+                + weights.shape * _share_of_mean(x72[:, 6:16] ** 2, n)
+                + weights.hand * _share_of_mean(x72[:, 48:] ** 2, n))
 
     return loss_fn
 
@@ -114,9 +138,15 @@ def make_stage1_fitter(model: SmplxModel, vposer_params: dict, marker_ids,
                        weights: Stage1Weights = Stage1Weights(),
                        device=None):
     """The parallel Stage-1 fitter on `device` (None: the CUDA card;
-    raises without CUDA): fit(markers_target [T, 67, 3], beta [10]) ->
-    (x72 [T, 72], per-step losses [num_steps]). Build it once per model
-    and reuse it across clips. The model must already live on `device`.
+    raises without CUDA): fit(markers_target [T, 67, 3], beta [10],
+    frames_total=None) -> (x72 [T, 72], per-step losses [num_steps]).
+    Build it once per model and reuse it across clips. The model must
+    already live on `device`. `frames_total`: the T frames are one
+    rank's share of a frame-sharded fit of frames_total frames
+    (`parallel.sharding.frame_sharded_fit`), and the losses are their
+    share of its mean (`make_stage1_loss`). `fit.frame_block`: the
+    frames a shard must hold a whole number of (DECODE_ROWS on the card,
+    1 on the CPU, where the decode is one product whatever the rows).
     """
     dev = _on(model, device)
     vpp = {k: v.to(dev) for k, v in vposer_params.items()}
@@ -124,17 +154,18 @@ def make_stage1_fitter(model: SmplxModel, vposer_params: dict, marker_ids,
     lr_table = piecewise_lr([(0, 0.1), (int(num_steps * 0.6), 0.01),
                              (int(num_steps * 0.8), 0.003)], num_steps)
 
-    def fit(markers_target, beta):
+    def fit(markers_target, beta, frames_total=None):
         markers_target = torch.as_tensor(markers_target, dtype=torch.float32,
                                          device=dev)
         beta = torch.as_tensor(beta, dtype=torch.float32, device=dev)
         T = markers_target.shape[0]
         shape10 = beta[None].expand(T, 10)
         final, losses = run_adam(
-            lambda v: loss_fn(v, shape10, markers_target),
+            lambda v: loss_fn(v, shape10, markers_target, frames_total),
             default_init(T, dev), num_steps, lr_table)
         return _params72(final, shape10), losses
 
+    fit.frame_block = DECODE_ROWS if dev.type == "cuda" else 1
     return fit
 
 

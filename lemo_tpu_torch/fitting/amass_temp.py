@@ -259,12 +259,19 @@ def make_temporal_fitter_batched(model: SmplxModel, vposer_params: dict,
     Adam, its own freeze); torch needs no vmap for it.
 
     `fused=False` exists in `lemo_tpu` only for a clip axis sharded over a
-    device mesh, which this port does not have yet; it raises.
+    device mesh, where GSPMD would gather the fused `pallas_call`'s
+    operands to one device. The port shards clips with one process per
+    card (`parallel.clip_sharded_fit` takes this fitter as built): each
+    rank runs the kernels on its own clips, so no such gather arises and
+    `fused=False` raises.
     """
     if not fused:
         raise NotImplementedError(
-            "fused=False serves only the clip-sharded mesh fit, which the "
-            "port does not have yet (scale-out is not ported)")
+            "fused=False is not needed: lemo_tpu turns the fused kernel off "
+            "only because GSPMD gathers its operands under a device mesh; "
+            "the port shards clips one process per card "
+            "(lemo_tpu_torch.parallel.clip_sharded_fit), each rank running "
+            "the kernels on its own clips")
     if impl == "vmap":
         single = make_temporal_fitter(
             model, vposer_params, smooth_enc_params, smooth_stats,

@@ -10,8 +10,9 @@ and a conf.yaml snapshot; with `save_meshes` / `render_results`, each
 window's body meshes and overlay renders after its pkls
 (`_make_window_extras_saver`). With `window_parallel`, all windows are
 fitted at once (`_run_window_parallel`: one [W*T] forward a step) and a
-polish pass restores the sequential stitching. The tensorboard logger
-is absent.
+polish pass restores the sequential stitching; under `torch.distributed`
+with more than one process the windows are sharded over the ranks, one
+process per card. The tensorboard logger is absent.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lemo_tpu_torch import exact_f32_matmuls, resolve_device
 from lemo_tpu_torch.body_model import load_model, make_forward_fn
@@ -46,6 +48,7 @@ from lemo_tpu_torch.fitting.prox.window import dispatch_chunk, \
     save_window_pkls, window_result
 from lemo_tpu_torch.ops.chamfer import nn_distance
 from lemo_tpu_torch.ops.sdf import quantize_grid, sample_sdf_world
+from lemo_tpu_torch.parallel import sharding
 from lemo_tpu_torch.utils.tools import load_vposer
 
 _ASSET_DIR = osp.join(osp.dirname(osp.dirname(osp.dirname(
@@ -454,17 +457,24 @@ def _depth_updates(cfg: ProxConfig, verts: torch.Tensor,
 
 
 def _apply_candidates_batch(cfg: ProxConfig, assets: ProxAssets,
-                            warm: dict, statics: list) -> tuple[list, dict]:
+                            warm: dict, statics: list, mesh=None,
+                            n_windows: int | None = None
+                            ) -> tuple[list, dict]:
     """Candidate sets of W windows (`lemo_tpu/fitting/prox/driver.py:
     519-572`) from their warm starts `warm` ({name: [W, T, ...]} on the
-    device): one forward of all W*T frames feeds every pre-pass; one
-    self-intersection K for all windows, sized from the largest live
-    count over them (`_coll_pick_K`), so the [T, K] sets stack; the SDF
+    device): one forward and one self-intersection sweep a window (each
+    window's bodies and scores those of its sequential fit) feed the
+    pre-passes; one K for all windows, sized from the largest live count
+    over them (`_coll_pick_K`), so the [T, K] sets stack; the SDF
     candidates from one sample of all W bodies; the depth candidates per
     window. Returns (statics, broad_phase): the self-intersection
     pre-pass's largest per-frame counts over all windows, K, its seconds,
     and each window's own (n_active, n_within) under "per_window"
-    (None when the pre-pass did not run)."""
+    (None when the pre-pass did not run). Under a `mesh` (one process
+    per card) `warm` and `statics` are this rank's share of `n_windows`
+    windows: every pre-pass runs on them alone, and the per-window
+    counts are gathered, so that every rank picks the K of the unsharded
+    run."""
     dev = assets.model.device
     st0 = statics[0]
     W = len(statics)
@@ -476,14 +486,26 @@ def _apply_candidates_batch(cfg: ProxConfig, assets: ProxAssets,
     if not (want_sdf or want_depth or want_coll):
         return statics, None
     T = int(warm["transl"].shape[1])
-    flat = {k: v.reshape((W * T,) + v.shape[2:]) for k, v in warm.items()}
-    verts = _warm_start_vertices(cfg, assets, flat)          # [W*T, V, 3]
+    # a forward a window: products round by their row count, so a window
+    # gets the bodies, and with them the candidate sets, of its own
+    # sequential or sharded run
+    verts = torch.cat([_warm_start_vertices(cfg, assets,
+                                            {k: v[i] for k, v in warm.items()})
+                       for i in range(W)])                  # [W*T, V, 3]
     upds: list = [{} for _ in range(W)]
     broad_phase = None
     if want_coll:
         t0 = time.perf_counter()
-        scores, counts = _coll_candidate_scores(cfg, assets, verts)
-        counts = counts.reshape(W, T, 2).max(axis=1)         # [W, 2]
+        # a window at a time, so that each window's scores are its own
+        # sweep's (the sequential driver's, and a sharded rank's)
+        sweeps = [_coll_candidate_scores(cfg, assets, v)
+                  for v in verts.split(T)]
+        scores = np.concatenate([sw[0] for sw in sweeps])
+        counts = np.stack([sw[1].max(axis=0) for sw in sweeps])  # [W, 2]
+        if mesh is not None:
+            counts = sharding.gather_rows(
+                mesh, torch.as_tensor(counts, device=dev),
+                n_windows).cpu().numpy()
         n_active, n_within = (int(c) for c in counts.max(axis=0))
         K = _coll_pick_K(cfg, n_active, n_within, assets.model.faces.shape[0])
         for i in range(W):
@@ -719,25 +741,44 @@ LAST_PARALLEL_TIMINGS: dict = {}
 
 
 def _run_window_parallel(cfg, assets, rec, ds, jw, mapper, result_folder,
-                         n_windows, verbose, save_extras=None):
+                         n_windows, verbose, save_extras=None, mesh=None):
     """All windows fitted at once (`lemo_tpu/fitting/prox/driver.py:
-    777-1126`, one device): every warm start comes from the previous
-    stage's pkls, so windows load in threads and the pre-passes batch;
-    each stage is one batched fit (`make_batched_window_fitter`), its
-    candidate sets rebuilt at each stage boundary; then the polish pass
-    re-fits each window's head from the previous window's solution,
-    Jacobi (batched rounds, heads injected before each) or sequential
-    (one window after another at the final stage's weights). The pkls
-    are written in threads, a shared frame's from the later window (in
-    `lemo_tpu` the threads race for it), then `save_extras` (not
-    thread-safe) runs window by window."""
+    777-1126`): every warm start comes from the previous stage's pkls,
+    so windows load in threads and the pre-passes batch; each stage is
+    one batched fit (`make_batched_window_fitter`), its candidate sets
+    rebuilt at each stage boundary; then the polish pass re-fits each
+    window's head from the previous window's solution, Jacobi (batched
+    rounds, heads injected before each) or sequential (one window after
+    another at the final stage's weights). The pkls are written in
+    threads, a shared frame's from the later window (in `lemo_tpu` the
+    threads race for it), then `save_extras` (not thread-safe) runs
+    window by window.
+
+    With `mesh` (one process per card: `lemo_tpu`'s window axis sharded
+    over its device mesh), each rank loads its `tensor_split` share of
+    the windows and runs the infill pre-pass, the candidate pre-passes
+    (the coll broad phase among them; one K for all windows from the
+    gathered counts) and its share of every batched fit on them alone;
+    the fits' outputs are gathered, so the Jacobi rounds inject the
+    heads as without a mesh. The sequential polish stays one chain: each
+    window is re-fitted by its owner after the previous window, whose
+    result is broadcast. Every rank returns the same WindowResults (but
+    for `timings`, its own walls); rank 0 alone writes the pkls and
+    extras and sets LAST_PARALLEL_TIMINGS."""
     from concurrent.futures import ThreadPoolExecutor
 
     model = assets.model
     dev = model.device
+    dp = None if mesh is None else mesh.along("dp")
+    if dp is not None and n_windows < dp.size:
+        raise ValueError(f"{n_windows} windows on {dp.size} ranks: the "
+                         "window-parallel fit needs at least one window a "
+                         "rank; run fewer processes")
+    lo, hi = (0, n_windows) if dp is None else dp.rows(n_windows)
+    writer = dp is None or dp.rank == 0
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=8) as ex:
-        window_data = list(ex.map(ds.load_window, range(n_windows)))
+        window_data = list(ex.map(ds.load_window, range(lo, hi)))
     warm = {k: torch.as_tensor(np.stack([wd["warm_start"][k]
                                          for wd in window_data]), device=dev)
             for k in window_data[0]["warm_start"]}
@@ -745,24 +786,25 @@ def _run_window_parallel(cfg, assets, rec, ds, jw, mapper, result_folder,
     timings: dict = {"load_s": time.perf_counter() - t0}
 
     tsec = time.perf_counter()
-    infill_results = [None] * n_windows
+    infill_results = [None] * len(window_data)
     if cfg.use_motion_infill_prior and assets.infill_ae_params:
-        # one forward of all W*T warm-start frames gives the markers
-        W, T = warm["transl"].shape[:2]
-        flat = {k: v.reshape((W * T,) + v.shape[2:]) for k, v in warm.items()}
-        mv67, mj = _make_warm_world_markers(assets, rec)(flat)
+        # a forward a window gives its markers (as its sequential fit's:
+        # products round by their row count)
+        W = warm["transl"].shape[0]
+        wwm = _make_warm_world_markers(assets, rec)
+        mv67, mj = (torch.stack(x) for x in zip(*[
+            wwm({k: v[i] for k, v in warm.items()}) for i in range(W)]))
         masks = np.stack([wd["marker_mask"] for wd in window_data])
         tw, cl = make_batched_prepass(
             assets.infill_stats,
             finetune_steps=int(cfg.infill_finetune_steps))(
-            assets.infill_ae_params, mv67.reshape((W, T) + mv67.shape[1:]),
-            mj.reshape((W, T) + mj.shape[1:]),
+            assets.infill_ae_params, mv67, mj,
             torch.as_tensor(masks, device=dev))
         infill_results = [
             InfillPrepassResult(targets_world=tw[i], contact_lbl=cl[i],
                                 had_occlusion=bool(masks[i].size
                                                    > masks[i].sum()))
-            for i in range(n_windows)]
+            for i in range(W)]
     _sync(dev)
     timings["prepass_s"] = time.perf_counter() - tsec
 
@@ -770,7 +812,8 @@ def _run_window_parallel(cfg, assets, rec, ds, jw, mapper, result_folder,
     statics = [build_window_static(cfg, assets, rec, wd, jw, ir,
                                    with_candidates=False)[0]
                for wd, ir in zip(window_data, infill_results)]
-    statics, broad_phase = _apply_candidates_batch(cfg, assets, warm, statics)
+    statics, broad_phase = _apply_candidates_batch(cfg, assets, warm, statics,
+                                                   dp, n_windows)
     static_batch = stack_statics(statics)
     first_mask = np.arange(n_windows) == 0
     _sync(dev)
@@ -785,8 +828,8 @@ def _run_window_parallel(cfg, assets, rec, ds, jw, mapper, result_folder,
             # candidate sets from this stage's warm start, the previous
             # stage's solution
             tsec = time.perf_counter()
-            statics, broad_phase = _apply_candidates_batch(cfg, assets, warm,
-                                                           statics)
+            statics, broad_phase = _apply_candidates_batch(
+                cfg, assets, warm, statics, dp, n_windows)
             static_batch = stack_statics(statics)
             _sync(dev)
             timings["refresh_s"] += time.perf_counter() - tsec
@@ -795,7 +838,7 @@ def _run_window_parallel(cfg, assets, rec, ds, jw, mapper, result_folder,
                 stage_joint_weights(cfg, jw, stage), device=dev))
         fitter = make_batched_window_fitter(
             model, assets.vposer_params, mapper, statics[0], w_s,
-            maxiters=cfg.maxiters, lr=cfg.lr,
+            maxiters=cfg.maxiters, lr=cfg.lr, mesh=dp,
             steps_per_dispatch=cfg.steps_per_dispatch, priors=priors,
             use_vposer=cfg.use_vposer, optim_type=cfg.optim_type)
         tsec = time.perf_counter()
@@ -805,7 +848,8 @@ def _run_window_parallel(cfg, assets, rec, ds, jw, mapper, result_folder,
         terms_stages.append({k: v.cpu().numpy() for k, v in terms.items()})
         timings["fit_s"] += time.perf_counter() - tsec
         if stage + 1 < cfg.n_stages:
-            warm = dict(opt_vars, betas=betas)
+            warm = {k: v[lo:hi] for k, v in dict(opt_vars,
+                                                 betas=betas).items()}
     losses = np.concatenate(losses_stages, axis=1)
 
     sols = [{k: v[i] for k, v in opt_vars.items()} for i in range(n_windows)]
@@ -873,17 +917,28 @@ def _run_window_parallel(cfg, assets, rec, ds, jw, mapper, result_folder,
             steps_per_dispatch=cfg.steps_per_dispatch, priors=priors,
             use_vposer=cfg.use_vposer)
         for i in range(1, n_windows):
-            s_prev, e_prev = spans[i - 1]
-            s_cur, _ = spans[i]
-            ov_n = max(e_prev - s_cur, 0)
-            prox_params = {k: v.clone() for k, v in sols[i].items()}
-            prox_params["betas"] = betas[i]
-            if ov_n > 0:
-                off = s_cur - s_prev
-                for k in sols[i]:
-                    prox_params[k][:ov_n] = sols[i - 1][k][off:off + ov_n]
-            final, p_losses, p_terms, _ = pfitter(statics[i], prox_params,
-                                                  first_window=False)
+            owner = 0 if dp is None else \
+                sharding.shard_owner(n_windows, dp.size, i)
+            if dp is None or owner == dp.rank:
+                s_prev, e_prev = spans[i - 1]
+                s_cur, _ = spans[i]
+                ov_n = max(e_prev - s_cur, 0)
+                prox_params = {k: v.clone() for k, v in sols[i].items()}
+                prox_params["betas"] = betas[i]
+                if ov_n > 0:
+                    off = s_cur - s_prev
+                    for k in sols[i]:
+                        prox_params[k][:ov_n] = sols[i - 1][k][off:off + ov_n]
+                final, p_losses, p_terms, _ = pfitter(
+                    statics[i - lo], prox_params, first_window=False)
+            else:   # buffers of the owner's shapes, for the broadcast
+                final = {k: torch.empty_like(v) for k, v in sols[i].items()}
+                p_losses = torch.empty(polish, device=dev)
+                p_terms = {}
+            if dp is not None:
+                final, p_losses, p_terms = _broadcast_polish(
+                    dp, owner, final, p_losses, p_terms, list(term_hists[i]),
+                    polish)
             sols[i] = final
             loss_hists[i] = np.concatenate([loss_hists[i],
                                             p_losses.cpu().numpy()])
@@ -897,25 +952,29 @@ def _run_window_parallel(cfg, assets, rec, ds, jw, mapper, result_folder,
     results = [window_result(sols[i], betas[i], loss_hists[i], term_hists[i],
                              assets.vposer_params, cfg.use_vposer)
                for i in range(n_windows)]
-    # a frame two windows share gets the later window's pkl, as in the
-    # sequential driver: each thread writes only the frames no later
-    # window holds (threads writing one file from two windows would race)
-    last = {fn: i for i in range(n_windows) for fn in window_data[i]["fns"]}
-    with ThreadPoolExecutor(max_workers=8) as ex:
-        list(ex.map(lambda i: save_window_pkls(
-            results[i], window_data[i]["fns"], result_folder,
-            camera_params=_CAMERA_PKL_PARAMS,
-            only={fn for fn in window_data[i]["fns"] if last[fn] == i}),
-            range(n_windows)))
-    if save_extras is not None:
-        for i in range(n_windows):
-            save_extras(window_data[i]["fns"], results[i])
+    if writer:
+        # a frame two windows share gets the later window's pkl, as in
+        # the sequential driver: each thread writes only the frames no
+        # later window holds (threads writing one file from two windows
+        # would race)
+        fns = [ds.frame_names[s:e] for s, e in spans[:n_windows]]
+        last = {fn: i for i in range(n_windows) for fn in fns[i]}
+        with ThreadPoolExecutor(max_workers=8) as ex:
+            list(ex.map(lambda i: save_window_pkls(
+                results[i], fns[i], result_folder,
+                camera_params=_CAMERA_PKL_PARAMS,
+                only={fn for fn in fns[i] if last[fn] == i}),
+                range(n_windows)))
+        if save_extras is not None:
+            for i in range(n_windows):
+                save_extras(fns[i], results[i])
     timings["save_s"] = time.perf_counter() - tsec
     timings["total_s"] = time.perf_counter() - t0
     timings["polish_mode"] = polish_mode if polish > 0 else "off"
-    LAST_PARALLEL_TIMINGS.clear()
-    LAST_PARALLEL_TIMINGS.update(timings)
-    if verbose:
+    if writer:
+        LAST_PARALLEL_TIMINGS.clear()
+        LAST_PARALLEL_TIMINGS.update(timings)
+    if verbose and writer:
         print(f"[window-parallel] {n_windows} windows in "
               f"{timings['total_s']:.1f}s"
               f"{f' (+{polish}-iter {polish_mode} polish)' if polish else ''}"
@@ -924,6 +983,22 @@ def _run_window_parallel(cfg, assets, rec, ds, jw, mapper, result_folder,
                                    if isinstance(v, float)), flush=True)
     return [dataclasses.replace(r, timings=timings, broad_phase=broad_phase)
             for r in results]
+
+
+def _broadcast_polish(dp, owner: int, final: dict, p_losses, p_terms: dict,
+                      keys: list, polish: int):
+    """A sequential polish's result (its parameters, losses [polish] and
+    the terms of `keys`, [polish] each) from the window's owner rank to
+    every rank. A term the owner's polish does not report stays out, as
+    without a mesh."""
+    dev = p_losses.device
+    have = torch.tensor([k in p_terms for k in keys], device=dev)
+    rows = torch.stack([p_terms[k] if k in p_terms else
+                        torch.zeros(polish, device=dev) for k in keys])
+    final, p_losses, have, rows = sharding.broadcast_tree(
+        dp, (final, p_losses, have, rows), src=owner)
+    return final, p_losses, {k: rows[j] for j, k in enumerate(keys)
+                             if bool(have[j])}
 
 
 def run_prox_fitting(cfg: ProxConfig, assets: ProxAssets | None = None,
@@ -936,8 +1011,23 @@ def run_prox_fitting(cfg: ProxConfig, assets: ProxAssets | None = None,
     is synchronous) and, with interpenetration candidates, the last
     stage's self-intersection pre-pass in `broad_phase`. The fit runs on
     `assets.model.device` (or `device` when assets are loaded here: None
-    means the CUDA card)."""
+    means the CUDA card).
+
+    Under an initialised process group (`parallel.initialize_multihost`,
+    a no-op in one process; `lemo_tpu` builds its mesh when it has more
+    than one device), the window-parallel fit shards its windows over
+    `parallel.make_mesh()` (`_run_window_parallel`; one rank included)
+    and rank 0 alone writes files; the sequential fit refuses to run
+    under more than one process."""
     check_ported(cfg)
+    mesh = sharding.make_mesh() if dist.is_available() and \
+        dist.is_initialized() else None
+    if mesh is not None and mesh.size > 1 and not cfg.window_parallel:
+        raise ValueError(
+            "window_parallel: false fits the windows one after another on "
+            f"one card; under {mesh.size} processes set window_parallel: "
+            "true (the windows sharded over them) or run one process")
+    writer = mesh is None or mesh.rank == 0
     if assets is None:
         assets = load_assets(cfg, device)
     exact_f32_matmuls()
@@ -948,9 +1038,10 @@ def run_prox_fitting(cfg: ProxConfig, assets: ProxAssets | None = None,
     output_folder = osp.join(osp.expandvars(cfg.output_folder),
                              rec.recording_name)
     result_folder = osp.join(output_folder, cfg.result_folder)
-    os.makedirs(result_folder, exist_ok=True)
-    with open(osp.join(output_folder, "conf.yaml"), "w") as fh:
-        fh.write(dump_yaml(dataclasses.asdict(cfg)))
+    if writer:
+        os.makedirs(result_folder, exist_ok=True)
+        with open(osp.join(output_folder, "conf.yaml"), "w") as fh:
+            fh.write(dump_yaml(dataclasses.asdict(cfg)))
 
     ds = ProxWindowDataset(
         rec, output_params_dir=output_folder, batch_size=cfg.batch_size,
@@ -966,11 +1057,12 @@ def run_prox_fitting(cfg: ProxConfig, assets: ProxAssets | None = None,
                               cfg.use_face_contour)
     n_windows = len(ds.windows) if max_windows is None else \
         min(max_windows, len(ds.windows))
-    save_extras = _make_window_extras_saver(cfg, assets, rec, output_folder)
+    save_extras = _make_window_extras_saver(cfg, assets, rec, output_folder) \
+        if writer else None
     if cfg.window_parallel:
         return _run_window_parallel(cfg, assets, rec, ds, jw, mapper,
                                     result_folder, n_windows, verbose,
-                                    save_extras=save_extras)
+                                    save_extras=save_extras, mesh=mesh)
 
     # host-side loading of window i+1 (PNG decoding, scan unprojection)
     # overlaps window i's fit; warm-start pkls are read only after the

@@ -33,8 +33,9 @@ from lemo_tpu_torch.body_model import vposer as vp
 from lemo_tpu_torch.fitting.adam import run_adam
 from lemo_tpu_torch.fitting.lbfgs import create_optimizer, \
     make_lbfgs_stepper
-from lemo_tpu_torch.fitting.prox.losses import ProxStatic, ProxWeights, \
-    make_prox_loss
+from lemo_tpu_torch.fitting.prox.losses import PER_WINDOW_FIELDS, \
+    ProxStatic, ProxWeights, make_prox_loss
+from lemo_tpu_torch.parallel import sharding
 
 _OPT_KEYS = ("transl", "global_orient", "left_hand_pose", "right_hand_pose",
              "jaw_pose", "leye_pose", "reye_pose", "expression")
@@ -207,12 +208,16 @@ def make_batched_window_fitter(model: SmplxModel, vposer_params: dict,
     The VPoser decode runs its products a window at a time
     (`vposer.decode(rows=T)`), so that each window's decode equals its
     own fit's bit for bit, and a one-window fold is its sequential fit.
+
+    With `mesh` (`parallel.make_mesh`, one process per card), the window
+    axis is sharded over the mesh's "dp" axis: each rank folds its
+    `tensor_split` share of the W windows (no padding: `lemo_tpu` pads
+    to a multiple of the mesh with copies of window 0), through the
+    kernels as without a mesh, and every rank gets the outputs gathered
+    to [W, ...]. `first_mask` and `erase_override` hold all W windows;
+    `static_batch` and `prox_params_batch` hold all W or this rank's
+    share. Needs at least one window a rank.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_batched_window_fitter: a device mesh (the window axis "
-            "sharded over cards) is not ported to lemo_tpu_torch yet "
-            "(ROADMAP.md queue 1 item 6, scale-out); pass mesh=None")
     if impl == "vmap":
         raise ValueError(
             "impl='vmap' is lemo_tpu's TPU-only alternative (the whole "
@@ -245,8 +250,8 @@ def make_batched_window_fitter(model: SmplxModel, vposer_params: dict,
         out_w = {k: v.reshape((W, T) + v.shape[1:]) for k, v in out.items()}
         return loss_fn.terms_folded(ov, betas, out_w, st_b)
 
-    def fit(static_batch: ProxStatic, prox_params_batch, first_mask,
-            maxiters_override: int | None = None, erase_override=None):
+    def fit_local(static_batch: ProxStatic, prox_params_batch, first_mask,
+                  maxiters_override: int | None = None, erase_override=None):
         W = len(first_mask)
         n_steps = whole_chunks(maxiters_override or maxiters, chunk)
         mean_betas = prox_params_batch["betas"].mean(dim=1, keepdim=True)
@@ -277,6 +282,32 @@ def make_batched_window_fitter(model: SmplxModel, vposer_params: dict,
         with torch.no_grad():
             _, terms = loss_folded(final, betas, static_batch)
         return final, betas, losses, {k: v.detach() for k, v in terms.items()}
+
+    if mesh is None:
+        fit = fit_local
+    else:
+        dp = mesh.along("dp")
+
+        def fit(static_batch: ProxStatic, prox_params_batch, first_mask,
+                maxiters_override: int | None = None, erase_override=None):
+            W = len(first_mask)
+            if W < dp.size:
+                raise ValueError(f"{W} windows on {dp.size} ranks: at least "
+                                 "one window a rank")
+            lo, hi = dp.rows(W)
+            if static_batch.gt_joints.shape[0] != hi - lo:
+                static_batch = dataclasses.replace(static_batch, **{
+                    f: sharding.owned_rows(dp, getattr(static_batch, f), W)
+                    for f in PER_WINDOW_FIELDS
+                    if getattr(static_batch, f) is not None})
+            params = {k: sharding.owned_rows(dp, v, W)
+                      for k, v in prox_params_batch.items()}
+            erase = (None if erase_override is None
+                     else np.asarray(erase_override)[lo:hi])
+            out = fit_local(static_batch, params,
+                            np.asarray(first_mask)[lo:hi],
+                            maxiters_override, erase)
+            return sharding.gather_rows(dp, out, W)
 
     # (opt_vars, betas, static_batch) -> (totals [W], {term: [W]}): one
     # evaluation of the folded loss, for callers that check it

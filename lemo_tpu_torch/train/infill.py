@@ -113,7 +113,8 @@ def make_train_step(cfg: InfillTrainConfig):
     mask [B, d, T] on channel 0. `train_step.indexed(params, state,
     images_dev, idx, gen)` takes the batch from the device corpus
     [N, 4, d, T] by [B] indices and draws its random mask from `gen`;
-    `train_step.loss_fn(params, clip_img, mask)` is the loss."""
+    `train_step.loss_fn(params, clip_img, mask)` is the loss and
+    `train_step.lr` its Adam rate."""
 
     def loss_fn(params, clip_img, mask):
         x_in = torch.cat([clip_img[:, :1] * mask[:, None], clip_img[:, 1:]],
@@ -154,6 +155,7 @@ def make_train_step(cfg: InfillTrainConfig):
 
     train_step.indexed = train_step_indexed
     train_step.loss_fn = loss_fn
+    train_step.lr = cfg.lr
     return train_step, eval_step
 
 

@@ -44,7 +44,8 @@ def make_train_step(cfg: SmoothTrainConfig):
     """(train_step(params, state, clip_img) -> (params, metrics),
     eval_step(params, clip_img) -> metrics); clip_img [B, 1, d, T], the
     state from `fitting.adam.adam_init`. `train_step.loss_fn(params,
-    clip_img) -> (loss, metrics)` is the loss it differentiates."""
+    clip_img) -> (loss, metrics)` is the loss it differentiates and
+    `train_step.lr` its Adam rate (`parallel.data_parallel_step`)."""
 
     def loss_fn(params, clip_img):
         v = clip_img[..., 1:] - clip_img[..., :-1]   # the velocity
@@ -68,6 +69,7 @@ def make_train_step(cfg: SmoothTrainConfig):
             return loss_fn(params, clip_img)[1]
 
     train_step.loss_fn = loss_fn
+    train_step.lr = cfg.lr
     return train_step, eval_step
 
 

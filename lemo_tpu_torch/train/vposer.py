@@ -47,7 +47,8 @@ def make_train_step(cfg: VPoserTrainConfig, body_fwd=None, body_consts=None):
     model with 10 betas and 10 expressions) and its `body_consts`, the
     reconstruction term is the mesh L1; the target body does not depend
     on the parameters, so it runs under `no_grad`.
-    `train_step.loss_fn(params, pose_aa, eps)` is the loss."""
+    `train_step.loss_fn(params, pose_aa, eps)` is the loss and
+    `train_step.lr` its Adam rate."""
 
     def verts(pose):
         B = pose.shape[0]
@@ -77,6 +78,7 @@ def make_train_step(cfg: VPoserTrainConfig, body_fwd=None, body_consts=None):
         return adam_minimize(loss_fn, params, state, cfg.lr, pose_aa, eps)
 
     train_step.loss_fn = loss_fn
+    train_step.lr = cfg.lr
     return train_step
 
 

@@ -10,8 +10,9 @@ to 8 and take minutes); the numbers agree up to reassociation.
 Compared: final loss per window within rel 1e-3,
 the loss and term histories' lengths, the head hand-off (each window's
 frozen head equals the previous window's tail bit for bit), the pkls'
-keys, shapes and dtypes; and the CLI's window-parallel flags against
-`lemo_tpu`'s parser."""
+keys, shapes and dtypes; the same for the port's run sharded over two
+spawned gloo ranks (one window each, rank 0 the only writer); and the
+CLI's window-parallel flags against `lemo_tpu`'s parser."""
 
 import dataclasses
 import os
@@ -187,6 +188,54 @@ def test_result_pkls_have_the_reference_schema(fits):
     out = _tree(os.path.join(outs[1], name, "results"))
     assert len(ref) == 17
     assert out == ref
+
+
+@pytest.fixture(scope="module")
+def sharded(setup, fits):
+    """The port's run of `fits`' configuration on two spawned gloo ranks
+    (one window each), rank r writing under its own output folder."""
+    from lemo_tpu_torch.parallel.dryrun import job_prox, spawn_ranks
+
+    mode, info, _, _, _ = fits
+    outs = [tempfile.mkdtemp(), tempfile.mkdtemp()]
+    ranks = spawn_ranks(2, job_prox, {
+        "cfg": t_parse(_args(info, outs[0], mode)), "assets": setup[2],
+        "output_folders": outs}, device="cpu", threads=2, timeout=600)
+    return outs, ranks
+
+
+def test_sharded_run_matches_jax(fits, sharded):
+    """Two ranks, one window each, against lemo_tpu's 2-device run at the
+    checks above (final loss rel 1e-3, history lengths, the head hand-off
+    bit for bit, the pkls' schema); both ranks return the same results,
+    and rank 0 alone writes files."""
+    _, info, j_outs, ref, res = fits
+    outs, ranks = sharded
+    r0, r1 = (r["results"] for r in ranks)
+    for got in (r0, r1):
+        assert len(got) == 2
+        for r, j, p in zip(got, ref, res):
+            assert abs(r.final_loss - j.final_loss) <= \
+                1e-3 * abs(j.final_loss)
+            assert r.loss_history.shape == p.loss_history.shape
+            assert {k: v.shape for k, v in r.term_history.items()} == \
+                {k: v.shape for k, v in p.term_history.items()}
+    for a, b in zip(r0, r1):
+        np.testing.assert_array_equal(a.loss_history, b.loss_history)
+        for k, v in a.params.items():
+            np.testing.assert_array_equal(v, b.params[k], err_msg=k)
+    n, off = int(T * 0.15), int(T * 0.7)
+    for k in ("transl", "global_orient", "body_pose", "expression"):
+        np.testing.assert_array_equal(r0[1].params[k][:n],
+                                      r0[0].params[k][off:off + n],
+                                      err_msg=k)
+    name = info["recording_name"]
+    assert _tree(os.path.join(outs[0], name, "results")) == \
+        _tree(os.path.join(j_outs[0], name, "results"))
+    assert os.path.exists(os.path.join(outs[0], name, "conf.yaml"))
+    assert [f for _, _, fs in os.walk(outs[1]) for f in fs] == []
+    assert ranks[0]["timings"]["polish_mode"] == fits[0]
+    assert ranks[1]["timings"] == {}
 
 
 def test_cli_flags_reach_the_driver(monkeypatch):

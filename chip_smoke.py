@@ -121,8 +121,11 @@ Phases (any failure raises and the script exits non-zero):
    W = 2 / 4 / 8 sweep on one 590-frame recording (its first W windows):
    the once-per-recording seconds, peak memory, then the fold on each
    run's inputs, 20 steps x 3 calls after a warm-up and a profiled 5-step
-   call (ms/step, frame-iters/s, launches, busy share), and the
-   sequential step at T=100 beside it; (4) each kernel against its plain
+   call (ms/step, frame-iters/s, launches, busy share), each window of
+   the fold against its own one-window fold on the same inputs (10 steps
+   under deterministic algorithms, lemo_tpu's fold-against-sequential
+   tolerances; max |d| printed a W), and the sequential step at T=100
+   beside it; (4) each kernel against its plain
    version at the fold's shapes: the body pairs at B = 200 and 800, the
    Chamfer kernel at each call site of the all-terms fold, the
    intersection kernel at [200, K].
@@ -242,6 +245,20 @@ Phases (any failure raises and the script exits non-zero):
    in the driver, the pre-passes' and final-terms' launches of its
    window). Prints each rank's ms/step beside the one-process run's (two
    processes sharing one card) and phase 11's command time.
+12. The shipped PROX configs no earlier phase fits, after phase 11, on
+   phase 6's recording and assets: PROXD_temp_S2.yaml,
+   PROXD_temp_S2_multistage.yaml (two stages; also with `--window_parallel
+   true`), PROXD_temp_S2_tpu_fast.yaml and PROXD_temp_S3_tpu_fast.yaml
+   (fp8 SDF, 2048 SDF candidates, whole chunks), each through
+   `cli/main_slide.py`'s `main` with the assets written where the CLI
+   reads them, through the kernels and through their plain versions
+   under deterministic algorithms, with every launch counter at 0 before
+   each run. Checks the pkls, the histories (both stages), the launches
+   (the body kernels once a step, no Chamfer or cone-energy launch), the
+   stage fitters' weights, and the kernels against the plain versions by
+   phase 6's tolerances (`phase_configs`); prints each config's ms/step,
+   busy share and phase 12's command time. Cut to size: 20 steps a
+   stage (P12_STEPS) and the chunks with it (`phase_configs`).
 
 The script re-executes itself with PYTHONHASHSEED=0 (the synthetic
 male/female models are seeded with Python's string hash), and phase 4b's
@@ -249,9 +266,11 @@ two CLIs run under deterministic algorithms, so that phase 4b fits the
 same corpus from the same Stage-1 results and infill targets on every
 call.
 
-Prints the W sweep's JSON rows, then the kernels' JSON line (rows 1-4
-also carry their launches on the AMASS path, `launches_amass`, and their
-check at its frame counts, `amass_frames`; phase 6b adds a row for each
+Prints the W sweep's JSON rows, phase 12's rows, then the kernels' JSON
+line (rows 1-4 also carry their launches on the AMASS path,
+`launches_amass`, their check at its frame counts, `amass_frames`, and
+their launches in each phase-12 kernel run, `launches_configs`; phase
+6b adds a row for each
 kernel at each of the fold's shapes, named "... fold ..."; phase 8 a
 row for each body-model kernel at B = 256, named "... vposer-train
 ..."; phase 9 a row for the chain and vertex forwards at each of
@@ -334,6 +353,14 @@ P11_DP_BATCH = 60              # the smoothness trainer's batch (shipped)
 P11_DP_STEPS = 3
 P11_DP_IMAGE = (243, 120)      # a batch row: 81 markers x 3, 4 s at 30 fps
 PROFILE_S2_STEPS = 3           # phase 10f's profiled Stage-2 steps
+P12_CONFIGS = ("PROXD_temp_S2.yaml", "PROXD_temp_S2_multistage.yaml",
+               "PROXD_temp_S2_tpu_fast.yaml", "PROXD_temp_S3_tpu_fast.yaml")
+P12_STEPS = 20                 # phase 12's --maxiters a stage (900, or 450
+                               # a stage in the multistage config, cut)
+P12_POLISH = 20                # the multistage fold's Jacobi polish (100,
+                               # cut): one round of one chunk
+P12_PROFILE_STEPS = 5          # steps of each config's profiled call
+P12_DEVICE = "cuda"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PROX_CFG = os.path.join(ROOT, "cfg_files", "PROXD_temp_S3_all_terms.yaml")
 PROX_S3_CFG = os.path.join(ROOT, "cfg_files", "PROXD_temp_S3.yaml")
@@ -353,6 +380,7 @@ EVAL_MODEL_DIR = os.path.join(ROOT, "lemo_tpu_torch", "_build", "eval_model")
 LBFGS_OUT = os.path.join(PROX_DIR, "out_lbfgs")
 RENDER_DIR = os.path.join(PROX_DIR, "render_copy")
 P11_DIR = os.path.join(PROX_DIR, "p11")
+P12_DIR = os.path.join(PROX_DIR, "p12")
 CHAMFER_OPS_PER_PAIR = 9.0     # csrc/chamfer.cu: 3 mul + 2 add, add, mul, sub, cmp
 # csrc/intersection.cu, f32 operations of one unordered face pair by the
 # gate it reaches. The gates are symmetric in the pair, so each is paid
@@ -2115,8 +2143,8 @@ def fold_spy(calls: list):
         driver.make_batched_window_fitter = real
 
 
-def _window_static(st_b, i: int):
-    """Window i of a batched ProxStatic."""
+def _window_static(st_b, i):
+    """Window i of a batched ProxStatic (a slice of windows: a batch)."""
     import dataclasses
 
     from lemo_tpu_torch.fitting.prox.losses import PER_WINDOW_FIELDS
@@ -2317,12 +2345,9 @@ def phase_wp_vs_sequential(model, info, card) -> None:
     atol 2e-5, losses rtol 2e-4, tests/test_window_parallel.py:42-45),
     and a fold of window 1 alone (the sequential fit's frame batch) equal
     to the sequential fit bit for bit."""
-    import dataclasses
-
     import torch
 
     from lemo_tpu_torch.fitting.prox import driver
-    from lemo_tpu_torch.fitting.prox.losses import PER_WINDOW_FIELDS
     from lemo_tpu_torch.fitting.prox.window import make_window_fitter
 
     cfg = prox_config(info, os.path.join(PROX_DIR, "out_wp_s3"),
@@ -2344,11 +2369,9 @@ def phase_wp_vs_sequential(model, info, card) -> None:
             priors=fkw["priors"], use_vposer=fkw["use_vposer"])(
             _window_static(st_b, 0), {k: v[0] for k, v in warm.items()},
             True)
-        one = dataclasses.replace(st_b, **{
-            f: getattr(st_b, f)[:1] for f in PER_WINDOW_FIELDS
-            if getattr(st_b, f) is not None})
         ov1, _, l_one, _ = _fold_fitter(call, WP_CHECK_STEPS)(
-            one, {k: v[:1] for k, v in warm.items()}, first[:1])
+            _window_static(st_b, slice(0, 1)),
+            {k: v[:1] for k, v in warm.items()}, first[:1])
         torch.cuda.synchronize()
     finally:
         torch.use_deterministic_algorithms(False)
@@ -2369,6 +2392,85 @@ def phase_wp_vs_sequential(model, info, card) -> None:
             and same):
         raise AssertionError("the fold's window 1 differs from the "
                              "sequential fit")
+
+
+def _fold_vs_own_windows(call, card) -> dict:
+    """Phase 6b, check 3's rounding check: each window of a recorded
+    W-window fold against its own one-window fold (bit-equal to its
+    sequential fit, check 2) on the same inputs, WP_CHECK_STEPS steps,
+    both under deterministic algorithms, within lemo_tpu's
+    fold-against-sequential tolerances (transl atol 2e-5, losses rtol
+    2e-4). Returns the largest |d| of transl and of any parameter, the
+    losses' largest rel, and how many windows' parameters are bit-equal.
+    Each window's hand products run on its own rows in the fold
+    (`smplx_forward(rows=T)`): one product of all W x T rows rounded its
+    gradient apart from W = 8 on (transl max |d| 4.177e-4 m after 10
+    steps on an H100)."""
+    import torch
+
+    st_b, warm, first = call["inputs"]
+    W = len(first)
+    fit = _fold_fitter(call, WP_CHECK_STEPS)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ov, _, losses, _ = fit(st_b, warm, first)
+        own = [fit(_window_static(st_b, slice(i, i + 1)),
+                   {k: v[i:i + 1] for k, v in warm.items()}, first[i:i + 1])
+               for i in range(W)]
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    d = {k: max(float((ov[k][i] - o[0][k][0]).abs().max())
+                for i, o in enumerate(own)) for k in ov}
+    l_rel = max(float(((losses[i] - o[2][0]).abs() / o[2][0].abs()).max())
+                for i, o in enumerate(own))
+    equal = sum(all(torch.equal(ov[k][i], o[0][k][0]) for k in ov)
+                for i, o in enumerate(own))
+    out = {"W": W, "steps": WP_CHECK_STEPS, "transl_max_abs": d["transl"],
+           "params_max_abs": max(d.values()), "losses_max_rel": l_rel,
+           "windows_params_bit_equal": equal}
+    _log(f"[wp sweep] W={W}: each window of the fold vs its own one-window "
+         f"fold, {WP_CHECK_STEPS} steps, deterministic algorithms: transl "
+         f"max |d| {d['transl']:.3e} (tol 2e-5), every parameter max |d| "
+         f"{out['params_max_abs']:.3e}, losses max rel {l_rel:.3e} (tol "
+         f"2e-4; a loss is a sum over the window, whose order the fold "
+         f"may change), {equal} of {W} windows' parameters bit-equal; on "
+         f"{card}")
+    return out
+
+
+@contextlib.contextmanager
+def hands_over_all_rows():
+    """The body model's hand products as one product of all the fold's
+    rows (the form before the fold blocked them by window), in place of
+    one a window's rows."""
+    from lemo_tpu_torch.body_model import smplx
+
+    real = smplx.by_rows
+    smplx.by_rows = lambda product, x, rows=None: product(x)
+    try:
+        yield
+    finally:
+        smplx.by_rows = real
+
+
+def _hands_all_rows(call, row: dict, card) -> dict:
+    """The W-window fold with its hand products over all rows
+    (`hands_over_all_rows`): its windows against their own folds and its
+    ms/step, then the shipped form's ms/step again (`_fold_step_timing`
+    each, in turns: shipped (the row's), all rows, shipped)."""
+    args = call["inputs"]
+    with hands_over_all_rows():
+        out = _fold_vs_own_windows(call, card)
+        out["ms_per_step"] = _fold_step_timing(
+            lambda n: _fold_fitter(call, n), args, STEPS)["ms_per_step"]
+    out["shipped_ms_per_step"] = [row["ms_per_step"], _fold_step_timing(
+        lambda n: _fold_fitter(call, n), args, STEPS)["ms_per_step"]]
+    _log(f"[wp sweep] W={out['W']}: hand products by window (shipped) "
+         f"{out['shipped_ms_per_step'][0]:.3f} and "
+         f"{out['shipped_ms_per_step'][1]:.3f} ms/step, over all rows "
+         f"{out['ms_per_step']:.3f} ms/step, in turns, on {card}")
+    return out
 
 
 def _fold_step_timing(fit_of, args, steps: int) -> dict:
@@ -2409,8 +2511,11 @@ def phase_wp_sweep(model, model_dict, card) -> list[dict]:
     once-per-recording seconds (LAST_PARALLEL_TIMINGS), its launches and
     its peak memory; then the fold on that run's inputs, STEPS steps a
     call (`_fold_step_timing`). Last, the sequential fitter on window 1's
-    inputs at T=100, timed the same way. Returns one row a W and the
-    sequential row."""
+    inputs at T=100, timed the same way. Each W's fold is also held,
+    window by window, against the window's own one-window fold
+    (`_fold_vs_own_windows`), and at the largest W the hand products
+    over all rows are measured beside it (`_hands_all_rows`). Returns one
+    row a W and the sequential row."""
     import torch
 
     from lemo_tpu_torch.fitting.prox import driver
@@ -2460,6 +2565,13 @@ def phase_wp_sweep(model, model_dict, card) -> list[dict]:
                                      (st_b, warm, first), STEPS))
         row["frame_iters_per_s"] = W * T / row["ms_per_step"] * 1e3
         row["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        own = row["fold_vs_own_windows"] = _fold_vs_own_windows(call, card)
+        if not (own["transl_max_abs"] <= 2e-5
+                and own["losses_max_rel"] <= 2e-4):
+            raise AssertionError(f"W={W}: the fold's windows differ from "
+                                 "their own fits")
+        if W == max(WP_SWEEP_W):
+            row["hands_all_rows"] = _hands_all_rows(call, row, card)
         rows.append(row)
         _log(f"[wp sweep] W={W} ({W * T} frames a launch): "
              f"{row['ms_per_step']:.3f} ms/step, "
@@ -4252,6 +4364,408 @@ def phase_scaleout(model, info, inputs, card) -> None:
         raise AssertionError("; ".join(faults))
 
 
+_P12_SCENE_TERMS = ("sdf_penetration_loss", "loss_fric_normal",
+                    "loss_fric_tangent", "motion_infill_loss",
+                    "motion_infill_contact_loss")
+
+
+def _p12_inputs(model_dict, info) -> list:
+    """Phase 6's assets written where `main_slide` reads them, under
+    P12_DIR: the full-size model as SMPLX_MALE.npz (`_eval_model_dir`),
+    the recording's VPoser as a snapshot, the seeded smoothness encoder
+    (`prox_assets`'s) and unit statistics. Returns those flags of the
+    CLI's argv."""
+    import torch
+
+    from lemo_tpu_torch.data.stats import GlobalStats
+    from lemo_tpu_torch.priors.conv_ae import init_smooth_enc
+
+    shutil.rmtree(P12_DIR, ignore_errors=True)
+    snaps = os.path.join(P12_DIR, "vposer", "snapshots")
+    os.makedirs(snaps)
+    torch.save({k: v.detach().cpu() for k, v in
+                info["vposer_params"].items()},
+               os.path.join(snaps, "TR00_E001.pt"))
+    enc = os.path.join(P12_DIR, "smooth_enc.pt")
+    torch.save(init_smooth_enc(torch.Generator().manual_seed(1)), enc)
+    stats = os.path.join(P12_DIR, "smooth_stats.npz")
+    GlobalStats.from_numpy(np.zeros((1, 1, 243)), np.ones(243),
+                           "cpu").save(stats)
+    return ["--model_folder", _eval_model_dir(model_dict),
+            "--vposer_ckpt", os.path.dirname(snaps), "--AE_Enc_path", enc,
+            "--smooth_stats_path", stats]
+
+
+def _p12_argv(info, assets_argv, config: str, out_dir: str,
+              extra: tuple = ()) -> list:
+    """main_slide's argv for a shipped config on phase 6's recording:
+    P12_STEPS steps a stage; a steps_per_dispatch the config sets (the
+    tpu_fast pair's 450 of 900: two chunks a window) scaled with it, the
+    default's (100) kept: one chunk a stage at P12_STEPS."""
+    from lemo_tpu_torch.config import parse_config
+    from lemo_tpu_torch.config.prox_config import ProxConfig
+
+    path = os.path.join(ROOT, "cfg_files", config)
+    argv = ["--config", path, "--recording_dir", info["recording_dir"],
+            "--output_folder", out_dir, "--maxiters", str(P12_STEPS),
+            "--flip", "false", *assets_argv, *extra]
+    shipped = parse_config(["--config", path])
+    if shipped.steps_per_dispatch != ProxConfig.steps_per_dispatch:
+        argv += ["--steps_per_dispatch", str(
+            P12_STEPS * shipped.steps_per_dispatch // shipped.maxiters)]
+    return argv
+
+
+@contextlib.contextmanager
+def frame_cache():
+    """Read each recording frame's host data once: `ProxWindowDataset.
+    load_frame` memoized by (depth folder, frame, read flags), but for
+    the warm start, which is read anew at each call (it depends on the
+    run's own outputs). The PROX configs' `init_mode: scan` reads every
+    frame's depth scan, whose unprojection (the port's numpy lens model)
+    takes ~86 ms a frame on the host (and 8.4–42.5 s a run of the W
+    sweep on an H100) and is the same for every run of a recording. `main`
+    holds it from phase 6 on: phase 6 reads phase 6's recording, the
+    sweep's W = 2 run its first 170 frames, and each later run only the
+    frames no earlier run read (its `load_s` counts those)."""
+    from lemo_tpu_torch.data.prox import ProxWindowDataset
+
+    real = ProxWindowDataset.load_frame
+    cache: dict = {}
+
+    def load_frame(self, idx, with_warm_start=True):
+        key = (self.depth_folder, self.frame_names[idx], self.read_depth,
+               self.read_mask, self.flip, self.mask_on_color,
+               self.use_hands, self.use_face)
+        if key not in cache:
+            cache[key] = real(self, idx, with_warm_start=False)
+        frame = dict(cache[key])
+        if with_warm_start:
+            frame["warm_start"] = self._warm_start(frame["fn"])
+        return frame
+
+    ProxWindowDataset.load_frame = load_frame
+    try:
+        yield
+    finally:
+        ProxWindowDataset.load_frame = real
+
+
+def _p12_run(argv, plain: bool) -> dict:
+    """`main_slide.main(argv)` on P12_DEVICE under deterministic
+    algorithms, through the kernels or (`plain`) their plain versions,
+    every launch counter at 0 before it: the results, the launches, the
+    wall, and each stage fit's weights and window statics (`fit_window`
+    calls; `fold_spy` calls of the window-parallel path)."""
+    import torch
+
+    from lemo_tpu_torch.cli import main_slide
+    from lemo_tpu_torch.fitting.prox import driver
+
+    fits: list = []
+    folds: list = []
+    real = driver.fit_window
+
+    def recorded(*args, **kw):
+        fits.append((args, kw))
+        return real(*args, **kw)
+
+    _zero_all_counts()
+    driver.fit_window = recorded
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    t0 = time.perf_counter()
+    try:
+        with (plain_twins() if plain else contextlib.nullcontext()), \
+                fold_spy(folds):
+            results = main_slide.main(argv, device=P12_DEVICE)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        driver.fit_window = real
+    return {"results": results, "launches": _all_counts(),
+            "wall_s": time.perf_counter() - t0, "fits": fits,
+            "folds": folds, "timings": dict(driver.LAST_PARALLEL_TIMINGS)}
+
+
+def _p12_steps(cfg, W: int) -> tuple[int, int]:
+    """(optimizer steps, extra forwards) of one run: steps of the body
+    pairs' backward (sequential: a window a step, each stage whole chunks;
+    the fold: both windows a step, then the Jacobi rounds), and the
+    forwards beyond one a step (a candidate pre-pass forward a window a
+    stage, one a window for the infill markers, the fold's one
+    final-terms evaluation a call)."""
+    from lemo_tpu_torch.fitting.prox.driver import jacobi_rounds
+    from lemo_tpu_torch.fitting.prox.window import dispatch_chunk, \
+        whole_chunks
+
+    chunk = dispatch_chunk(cfg.steps_per_dispatch, cfg.maxiters)
+    n = whole_chunks(cfg.maxiters, chunk)
+    cand = int(bool(cfg.sdf_penetration and cfg.sdf_candidates > 0)
+               or bool(cfg.interpenetration and cfg.coll_candidates > 0))
+    infill = int(bool(cfg.use_motion_infill_prior))
+    pre = W * (cfg.n_stages * cand + infill)
+    if not cfg.window_parallel:
+        return W * cfg.n_stages * n, pre
+    steps, calls = cfg.n_stages * n, cfg.n_stages
+    if cfg.window_polish_iters and W > 1:
+        rounds, iters = jacobi_rounds(cfg.window_polish_iters,
+                                      cfg.window_polish_rounds, chunk)
+        steps += rounds * whole_chunks(iters, chunk)
+        calls += rounds
+    return steps, pre + calls
+
+
+def _p12_profile(run: dict, steps: int) -> dict:
+    """Busy share of a profiled `steps`-step fit on the run's last window
+    (sequential: window 2's last stage, its recorded inputs; the fold: its
+    last stage's inputs)."""
+    from lemo_tpu_torch.fitting.prox.window import make_window_fitter
+
+    if run["folds"]:
+        call = [c for c in run["folds"]
+                if not c["kw"].get("maxiters_override")][-1]
+        return _profile_call(_fold_fitter(call, steps), call["inputs"])
+    args, kw = run["fits"][-1]
+    model, vpp, mapper, static, weights, warm = args[:6]
+    fit = make_window_fitter(model, vpp, mapper, static, weights,
+                             maxiters=steps, lr=kw["lr"],
+                             use_vposer=kw["use_vposer"])
+    return _profile_call(fit, (static, warm, kw["first_window"]))
+
+
+def _p12_split(run: dict) -> dict:
+    """A kernel run's wall-clock split (seconds, summed over windows):
+    the PROX driver's load / pre-pass / static build / fit / save
+    phases."""
+    if run["folds"]:
+        return {k: v for k, v in run["timings"].items()
+                if isinstance(v, float)}
+    out: dict = {}
+    for r in run["results"]:
+        for k, v in r.timings.items():
+            out[k] = out.get(k, 0.0) + v
+    return out
+
+
+def _p12_weights(run: dict) -> list:
+    """Each stage fit's (sdf_penetration, friction_normal,
+    friction_tangent, hand joint weight, face joint weight), read from
+    the weights and the window static the stage fitter was given."""
+    out = []
+    if run["folds"]:
+        calls = [c for c in run["folds"]
+                 if not c["kw"].get("maxiters_override")]
+        seen = [(c["factory"][0][4], c["inputs"][0].joint_weights)
+                for c in calls]
+    else:
+        seen = [(args[4], args[3].joint_weights)
+                for args, _ in run["fits"]]
+    for w, jw in seen:
+        jw = jw.detach().cpu().numpy()
+        out.append((w.sdf_penetration, w.friction_normal, w.friction_tangent,
+                    float(jw[..., 25:76].max()), float(jw[..., 76:].max())))
+    return out
+
+
+def phase_configs(model_dict, info, card) -> dict:
+    """Phase 12: the four shipped PROX configs that no earlier phase fits
+    (P12_CONFIGS), and PROXD_temp_S2_multistage.yaml again with
+    `--window_parallel true`, each through `cli/main_slide.py`'s `main`
+    on phase 6's recording (170 frames, two windows of T=100, the 15%
+    overlap freeze) with phase 6's assets written where the CLI reads
+    them (`_p12_inputs`), once through the kernels and once through
+    their plain versions, both under deterministic algorithms. Cut to
+    size: P12_STEPS steps a stage (the configs' 900, or 450 a stage for
+    the multistage one); the tpu_fast pair's steps_per_dispatch scaled
+    with it (P12_STEPS / 2: two chunks a window, as 900 in chunks of
+    450); the multistage config and PROXD_temp_S2.yaml keep the default
+    steps_per_dispatch (100), one chunk a stage at P12_STEPS; the
+    multistage fold's Jacobi polish P12_POLISH iterations (100, cut),
+    one round. Checks for each run: 170 pkls in the reference schema,
+    finite loss histories of every stage's steps (the multistage config's
+    twice), each kernel-path run launching the chain and vertex kernels
+    once a step (and once a pre-pass or final-terms forward, counted:
+    `_p12_steps`) and the Chamfer and cone-energy kernels never (these
+    term sets have neither), the plain run launching no kernel; the
+    multistage stage fitters' weights the config's entries (stage 2:
+    SDF 0.003, friction 10 / 20, hand and face joints 2.0); the kernels
+    against the plain versions by phase 6's tolerances: window 1's first
+    step (same inputs; the fold's windows all start from the same warm
+    starts) within rel 1e-5 in total and 1e-4 a term, and every step of
+    every window's loss history within rel 1e-3, the final parameters
+    among them through their loss (phase 6's last-step tolerance). The
+    parameters' max |d| is printed, not held: at each stage's first step
+    Adam moves every entry by about lr in the sign of its gradient, so
+    an entry whose gradient is near zero goes whichever way the two
+    paths' rounding tips it (the multistage config's final transl 7.3e-3
+    m apart in the first call on the card, its histories 9.5e-5). The
+    recording's frames are read once for all runs (`frame_cache`).
+    Prints each config's ms/step (the kernel run's window 2, or the
+    fold's step for both windows), the plain run's, each run's split, a
+    profiled P12_PROFILE_STEPS-step call's busy share, and the phase's
+    command time."""
+    t0 = time.perf_counter()
+    assets_argv = _p12_inputs(model_dict, info)
+    runs = [(c, ()) for c in P12_CONFIGS] + [
+        ("PROXD_temp_S2_multistage.yaml",
+         ("--window_parallel", "true", "--window_polish_iters",
+          str(P12_POLISH)))]
+    faults: list = []
+    rows = []
+    with frame_cache():
+        _p12_runs(runs, info, assets_argv, rows, faults, card)
+    _log(f"[phase 12] command time {time.perf_counter() - t0:.1f} s on "
+         f"{card}")
+    if faults:
+        raise AssertionError("; ".join(faults))
+    return {"rows": rows}
+
+
+def _p12_runs(runs, info, assets_argv, rows: list, faults: list,
+              card) -> None:
+    """Phase 12's runs and checks (`phase_configs`), a row each."""
+    from lemo_tpu_torch.config import parse_config
+    from lemo_tpu_torch.fitting.prox.window import dispatch_chunk, \
+        whole_chunks
+
+    for config, extra in runs:
+        tag = config + (" window-parallel" if extra else "")
+        got = {}
+        for path in ("kernels", "plain"):
+            out = os.path.join(P12_DIR, f"out_{len(rows)}_{path}")
+            argv = _p12_argv(info, assets_argv, config, out, extra)
+            got[path] = _p12_run(argv, path == "plain")
+            n_pkls = _check_pkls(out, info)
+            if n_pkls != PROX_FRAMES:
+                faults.append(f"{tag} {path}: {n_pkls} pkls")
+        cfg = parse_config(argv)
+        k, p = got["kernels"], got["plain"]
+        W = len(k["results"])
+        steps, extra_fwd = _p12_steps(cfg, W)
+        want = {"chain_bwd": steps, "vertex_bwd": steps,
+                "chain_fwd": steps + extra_fwd,
+                "vertex_fwd": steps + extra_fwd,
+                "chamfer": 0, "intersection": 0}
+        launched = {n_: c for n_, c in k["launches"].items() if c}
+        if W != 2 or len(p["results"]) != 2:
+            faults.append(f"{tag}: {W} windows")
+        if k["launches"] != want:
+            faults.append(f"{tag}: launches {launched}, expected {want}")
+        if any(p["launches"].values()):
+            faults.append(f"{tag}: the plain run launched kernels "
+                          f"{p['launches']}")
+        # the fold's histories keep whole chunks and the polish steps
+        hist = steps if cfg.window_parallel else cfg.n_stages * cfg.maxiters
+        for path, run in got.items():
+            for w, r in enumerate(run["results"]):
+                if r.loss_history.shape != (hist,) or \
+                        not np.isfinite(r.loss_history).all():
+                    faults.append(f"{tag} {path} window {w + 1}: history "
+                                  f"{r.loss_history.shape}, want ({hist},)")
+        stages = _p12_weights(k)
+        want_w = [(cfg.stage_weights(s)["sdf_penetration"],
+                   cfg.stage_weights(s)["friction_normal"],
+                   cfg.stage_weights(s)["friction_tangent"],
+                   float(cfg.hand_joints_weights[
+                       min(s, len(cfg.hand_joints_weights) - 1)]),
+                   float(cfg.face_joints_weights[
+                       min(s, len(cfg.face_joints_weights) - 1)]))
+                  for s in range(cfg.n_stages)]
+        # the sequential driver fits a window's stages, then the next's
+        per_stage = stages[:cfg.n_stages]
+        if stages != per_stage * (1 if cfg.window_parallel else W) or \
+                per_stage != want_w:
+            faults.append(f"{tag}: stage weights {per_stage}, the config "
+                          f"says {want_w}")
+        if config == "PROXD_temp_S2_multistage.yaml" and \
+                per_stage[-1] != (0.003, 10.0, 20.0, 2.0, 2.0):
+            faults.append(f"{tag}: stage 2 fitted at {per_stage[-1]}")
+
+        rel_first, rel_hist, d_max = 0.0, 0.0, {}
+        for w, (rk, rp) in enumerate(zip(k["results"], p["results"])):
+            rel_hist = max(rel_hist, float(
+                (np.abs(rk.loss_history - rp.loss_history)
+                 / np.abs(rp.loss_history)).max()))
+            for n_, v in rp.params.items():
+                d_max[n_] = max(d_max.get(n_, 0.0),
+                                float(np.abs(rk.params[n_] - v).max()))
+            if cfg.window_parallel:
+                # every window starts from the same warm start: the first
+                # step's loss sees the same inputs (the term records are
+                # each stage's last)
+                a, b = float(rk.loss_history[0]), float(rp.loss_history[0])
+                r0 = abs(a - b) / abs(b)
+                rel_first = max(rel_first, r0 / 1e-5)
+                if not r0 < 1e-5:
+                    faults.append(f"{tag}: window {w + 1}'s first-step loss "
+                                  f"kernels {a:.7g} plain {b:.7g} (rel "
+                                  f"{r0:.3e}, tol 1e-5)")
+            elif w == 0:
+                # window 2's head is window 1's result, which the two
+                # paths round apart
+                for n_ in rk.term_history:
+                    a, b = (float(rk.term_history[n_][0]),
+                            float(rp.term_history[n_][0]))
+                    r0 = abs(a - b) / abs(b) if b else abs(a)
+                    tol0 = 1e-5 if n_ == "total_loss" else 1e-4
+                    rel_first = max(rel_first, r0 / tol0)
+                    if not r0 < tol0:
+                        faults.append(f"{tag}: window 1's first-step {n_} "
+                                      f"kernels {a:.7g} plain {b:.7g} (rel "
+                                      f"{r0:.3e}, tol {tol0:g})")
+        if not rel_hist < 1e-3:
+            faults.append(f"{tag}: loss histories apart by rel "
+                          f"{rel_hist:.3e} (tol 1e-3)")
+
+        chunk = dispatch_chunk(cfg.steps_per_dispatch, cfg.maxiters)
+        whole_steps = whole_chunks(cfg.maxiters, chunk)
+
+        def ms(run):
+            fit_s = run["timings"]["fit_s"] if cfg.window_parallel else \
+                run["results"][1].timings["fit_s"]
+            return 1e3 * fit_s / (cfg.n_stages * whole_steps)
+
+        prof = _p12_profile(k, P12_PROFILE_STEPS)
+        row = {"config": tag, "windows": W, "stages": cfg.n_stages,
+               "steps_a_stage": whole_steps,
+               "chunk": chunk,
+               "ms_per_step": ms(k), "plain_ms_per_step": ms(p),
+               "profiled_ms_per_step": prof["wall_us"] / P12_PROFILE_STEPS
+               / 1e3,
+               "device_busy_ms_per_step": prof["busy_us"] / P12_PROFILE_STEPS
+               / 1e3,
+               "device_busy_share": prof["busy_us"] / prof["wall_us"],
+               "kernel_launches_per_step": prof["kernels"]
+               / P12_PROFILE_STEPS,
+               "launches": launched, "stage_weights": per_stage,
+               "run_s": {"kernels": k["wall_s"], "plain": p["wall_s"]},
+               "split": _p12_split(k),
+               "first_step_rel_of_tol": rel_first,
+               "history_max_rel": rel_hist, "max_abs_d": d_max,
+               # the scene terms' first and last record, window 1 (zero
+               # where no body reaches the scene)
+               "scene_terms": {n_: [float(v[0]), float(v[-1])] for n_, v in
+                               k["results"][0].term_history.items()
+                               if n_ in _P12_SCENE_TERMS}}
+        rows.append(row)
+        _log(f"[configs] {tag}: {W} windows x {cfg.n_stages} stage(s) of "
+             f"{whole_steps} steps (chunk {row['chunk']}); kernels "
+             f"{row['ms_per_step']:.3f} ms/step, plain "
+             f"{row['plain_ms_per_step']:.3f}; profiled "
+             f"{row['profiled_ms_per_step']:.3f} ms/step, device busy "
+             f"{row['device_busy_ms_per_step']:.3f} ms/step "
+             f"({100 * row['device_busy_share']:.1f}%), "
+             f"{row['kernel_launches_per_step']:.0f} kernel launches a "
+             f"step; launches {launched} (expected {want}); stage weights "
+             f"(sdf, friction n/t, hand, face) {per_stage}; kernels vs "
+             f"plain: first step at {rel_first:.3f} of its tolerances, "
+             f"histories max rel {rel_hist:.3e}, window 1's scene terms "
+             f"first/last {row['scene_terms']}, final params max |d| "
+             + ", ".join(f"{n_} {v:.3e}" for n_, v in d_max.items())
+             + f"; runs {k['wall_s']:.1f} / {p['wall_s']:.1f} s, split "
+             f"{json.dumps(row['split'])} on {card}")
+
+
 def main() -> int:
     if os.environ.get("PYTHONHASHSEED") != "0":
         # the synthetic male/female models are seeded with Python's string
@@ -4303,6 +4817,9 @@ def main() -> int:
     rows += train_kernel_rows(rows, vposer, card)
     del vposer
     _log(f"[trainers] {json.dumps(trainers)}")
+    # from phase 6 on, a recording frame's host data is read once
+    frames = contextlib.ExitStack()
+    frames.enter_context(frame_cache())
     info, results, p_counts, fits, ops, tally, isect, isect_tally = \
         phase_prox(model, model_dict, card)
     rows += phase_chamfer(ops, tally, p_counts["chamfer"], card)
@@ -4338,6 +4855,12 @@ def main() -> int:
          f"{card}")
     phase_scaleout(model, info, p11, card)
     del p11
+    configs = phase_configs(model_dict, info, card)
+    frames.close()
+    for row in rows[:4]:
+        row["launches_configs"] = {c["config"]: c["launches"][row["name"]]
+                                   for c in configs["rows"]}
+    _log(f"[configs] {json.dumps(configs['rows'])}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

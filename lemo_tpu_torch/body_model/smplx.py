@@ -17,6 +17,7 @@ import torch
 from lemo_tpu_torch import resolve_device
 from lemo_tpu_torch.body_model import lbs as _lbs
 from lemo_tpu_torch.body_model.vertex_ids import extra_joint_vertex_ids
+from lemo_tpu_torch.body_model.vposer import by_rows
 
 _NUM_BODY_JOINTS = {"smpl": 21, "smplh": 21, "smplx": 21}
 
@@ -232,16 +233,19 @@ def load_model(
 
 def full_pose_from_params(params: dict[str, torch.Tensor],
                           consts: dict[str, torch.Tensor],
-                          config: SmplxConfig) -> torch.Tensor:
+                          config: SmplxConfig,
+                          rows: int | None = None) -> torch.Tensor:
     """The [B, J*3] axis-angle pose vector. SMPL-X order: root(3),
     body(63), jaw(3), leye(3), reye(3), left_hand(45), right_hand(45);
-    hands PCA-decoded and mean-offset when configured so."""
+    hands PCA-decoded and mean-offset when configured so (their products
+    by `rows`: `vposer.by_rows`)."""
     mt = config.model_type
 
     def hand(side: str) -> torch.Tensor:
         raw = params[f"{side}_hand_pose"]
         if config.use_pca:
-            raw = torch.matmul(raw, consts[f"hand_comps_{side[0]}"])
+            comps = consts[f"hand_comps_{side[0]}"]
+            raw = by_rows(lambda c: torch.matmul(c, comps), raw, rows)
         if f"hand_mean_{side[0]}" in consts:
             raw = raw + consts[f"hand_mean_{side[0]}"]
         return raw
@@ -272,12 +276,15 @@ def smplx_forward(params: dict[str, torch.Tensor],
                   consts: dict[str, torch.Tensor],
                   config: SmplxConfig,
                   parents: tuple,
-                  joint_mapper: torch.Tensor | None = None
-                  ) -> dict[str, torch.Tensor]:
+                  joint_mapper: torch.Tensor | None = None,
+                  rows: int | None = None) -> dict[str, torch.Tensor]:
     """Forward pass; params are [B, ...]. Returns {vertices [B, V, 3],
     joints [B, K, 3], full_pose [B, J*3]} (K = 127 for SMPL-X). Takes the
-    fused path whenever `consts` carry the fused constants."""
-    full_pose = full_pose_from_params(params, consts, config)
+    fused path whenever `consts` carry the fused constants. `rows`: the
+    frames of one fit in a batch of several (a window of the PROX fold);
+    on the card each block's hand products then round as that fit's
+    alone (`vposer.by_rows`; the kernels compute each frame alone)."""
+    full_pose = full_pose_from_params(params, consts, config, rows)
     if config.model_type == "smplx":
         shape_comp = torch.cat([params["betas"], params["expression"]], dim=1)
     else:
@@ -350,13 +357,14 @@ class _Translate(torch.autograd.Function):
 
 
 def make_forward_fn(model: SmplxModel, joint_mapper: np.ndarray | None = None):
-    """Bind a model's static pieces; returns f(params, consts) -> outputs."""
+    """Bind a model's static pieces; returns f(params, consts, rows=None)
+    -> outputs (`smplx_forward`)."""
     parents = tuple(int(p) for p in model.parents)
     config = model.config
     jm = None if joint_mapper is None else torch.as_tensor(
         np.asarray(joint_mapper, np.int64), device=model.device)
 
-    def forward(params, consts):
-        return smplx_forward(params, consts, config, parents, jm)
+    def forward(params, consts, rows=None):
+        return smplx_forward(params, consts, config, parents, jm, rows)
 
     return forward

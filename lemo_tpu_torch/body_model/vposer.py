@@ -24,18 +24,24 @@ def latent_dim(params: dict | None) -> int:
     return LATENT_DIM if w is None else int(w.shape[1])
 
 
-def _linear(p, name, x, rows=None):
-    """x @ w^T + b. On a CUDA tensor with `rows`, one product per block of
-    `rows` rows: cuBLAS picks its kernel, and with it the rounding, by
-    the row count, so a block rounds as a product of its rows alone does.
-    On the CPU one product of all rows, the order `lemo_tpu`'s fold
-    decodes in and the CPU tests hold the port to (a product a block
-    there rounds apart below 16 rows, and misses `lemo_tpu`'s all-terms
-    fold; PERF.md section 6)."""
-    w, b = p[f"{name}.weight"], p[f"{name}.bias"]
+def by_rows(product, x: torch.Tensor, rows: int | None = None):
+    """product(x) of a row-wise product. On a CUDA tensor with `rows`,
+    one product per block of `rows` rows: cuBLAS picks its kernel, and
+    with it the rounding of the product and of its gradient, by the row
+    count, so a block rounds as a product of its rows alone does. On the
+    CPU one product of all rows, the order `lemo_tpu`'s fold decodes in
+    and the CPU tests hold the port to (a product a block there rounds
+    apart below 16 rows, and misses `lemo_tpu`'s all-terms fold; PERF.md
+    section 6)."""
     if rows is None or x.shape[0] <= rows or not x.is_cuda:
-        return F.linear(x, w, b)
-    return torch.cat([F.linear(c, w, b) for c in x.split(rows)])
+        return product(x)
+    return torch.cat([product(c) for c in x.split(rows)])
+
+
+def _linear(p, name, x, rows=None):
+    """x @ w^T + b, by `rows` (`by_rows`)."""
+    w, b = p[f"{name}.weight"], p[f"{name}.bias"]
+    return by_rows(lambda c: F.linear(c, w, b), x, rows)
 
 
 def _lrelu(x):

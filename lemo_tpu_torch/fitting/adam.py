@@ -206,7 +206,9 @@ def run_adam(loss_fn: Callable[[dict], torch.Tensor],
              grad_mask: Callable[[str, torch.Tensor], torch.Tensor]
              | None = None,
              has_aux: bool = False, per_clip: bool = False,
-             spec: AdamSpec | SgdSpec | RmspropSpec = AdamSpec()):
+             spec: AdamSpec | SgdSpec | RmspropSpec = AdamSpec(),
+             reduce_dead: Callable[[torch.Tensor], torch.Tensor]
+             | None = None):
     """`num_steps` of the update `spec` at the learning rates of
     `lr_table` on a dict of tensors: by default Adam (optax's update:
     bias-corrected moments, `m_hat / (sqrt(v_hat) + eps)`), or another
@@ -227,6 +229,12 @@ def run_adam(loss_fn: Callable[[dict], torch.Tensor],
     [C, num_steps]. A clip whose loss is NaN/Inf freezes its own
     parameters and moments (a [C] mask); the others go on, and all share
     the step count, hence the bias corrections.
+
+    `reduce_dead(flag) -> flag` combines the freeze flag with the other
+    shards' of one fit each step, before the update (a sharded fit whose
+    loss is a sum over ranks: `parallel.sharding.frame_sharded_fit`
+    passes an OR over its ranks, so that a NaN/Inf on any rank freezes
+    every rank at that step, as the unsharded fit freezes).
     """
     if per_clip and has_aux:
         raise ValueError("run_adam: per_clip and has_aux exclude each other")
@@ -260,6 +268,8 @@ def run_adam(loss_fn: Callable[[dict], torch.Tensor],
             grads = {k: grad_mask(k, g) for k, g in grads.items()}
         losses[i] = watched.detach()
         dead = dead | ~torch.isfinite(watched.detach())
+        if reduce_dead is not None:
+            dead = reduce_dead(dead)
         params = spec.step(params, grads, state, lr_table[i], dead=dead)
     final = {k: v.detach() for k, v in params.items()}
     if per_clip:

@@ -139,12 +139,13 @@ def make_stage1_fitter(model: SmplxModel, vposer_params: dict, marker_ids,
                        device=None):
     """The parallel Stage-1 fitter on `device` (None: the CUDA card;
     raises without CUDA): fit(markers_target [T, 67, 3], beta [10],
-    frames_total=None) -> (x72 [T, 72], per-step losses [num_steps]).
-    Build it once per model and reuse it across clips. The model must
-    already live on `device`. `frames_total`: the T frames are one
-    rank's share of a frame-sharded fit of frames_total frames
-    (`parallel.sharding.frame_sharded_fit`), and the losses are their
-    share of its mean (`make_stage1_loss`). `fit.frame_block`: the
+    frames_total=None, reduce_dead=None) -> (x72 [T, 72], per-step
+    losses [num_steps]). Build it once per model and reuse it across
+    clips. The model must already live on `device`. `frames_total`: the
+    T frames are one rank's share of a frame-sharded fit of frames_total
+    frames (`parallel.sharding.frame_sharded_fit`), and the losses are
+    their share of its mean (`make_stage1_loss`); `reduce_dead` is then
+    the ranks' shared freeze flag (`run_adam`). `fit.frame_block`: the
     frames a shard must hold a whole number of (DECODE_ROWS on the card,
     1 on the CPU, where the decode is one product whatever the rows).
     """
@@ -154,7 +155,7 @@ def make_stage1_fitter(model: SmplxModel, vposer_params: dict, marker_ids,
     lr_table = piecewise_lr([(0, 0.1), (int(num_steps * 0.6), 0.01),
                              (int(num_steps * 0.8), 0.003)], num_steps)
 
-    def fit(markers_target, beta, frames_total=None):
+    def fit(markers_target, beta, frames_total=None, reduce_dead=None):
         markers_target = torch.as_tensor(markers_target, dtype=torch.float32,
                                          device=dev)
         beta = torch.as_tensor(beta, dtype=torch.float32, device=dev)
@@ -162,7 +163,8 @@ def make_stage1_fitter(model: SmplxModel, vposer_params: dict, marker_ids,
         shape10 = beta[None].expand(T, 10)
         final, losses = run_adam(
             lambda v: loss_fn(v, shape10, markers_target, frames_total),
-            default_init(T, dev), num_steps, lr_table)
+            default_init(T, dev), num_steps, lr_table,
+            reduce_dead=reduce_dead)
         return _params72(final, shape10), losses
 
     fit.frame_block = DECODE_ROWS if dev.type == "cuda" else 1

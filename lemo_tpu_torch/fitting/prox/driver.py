@@ -764,21 +764,27 @@ def _run_window_parallel(cfg, assets, rec, ds, jw, mapper, result_folder,
     window is re-fitted by its owner after the previous window, whose
     result is broadcast. Every rank returns the same WindowResults (but
     for `timings`, its own walls); rank 0 alone writes the pkls and
-    extras and sets LAST_PARALLEL_TIMINGS."""
+    extras and sets LAST_PARALLEL_TIMINGS. With fewer windows than
+    ranks, the window axis is padded to one window a rank with copies of
+    window 0, as `lemo_tpu` pads it to a multiple of its mesh
+    (`lemo_tpu/fitting/prox/window.py:423-450`): a pad is loaded, fitted
+    (its head frozen whole in the Jacobi rounds) and joins every
+    collective, and is dropped before any result, pkl or count a window
+    is formed."""
     from concurrent.futures import ThreadPoolExecutor
 
     model = assets.model
     dev = model.device
     dp = None if mesh is None else mesh.along("dp")
-    if dp is not None and n_windows < dp.size:
-        raise ValueError(f"{n_windows} windows on {dp.size} ranks: the "
-                         "window-parallel fit needs at least one window a "
-                         "rank; run fewer processes")
-    lo, hi = (0, n_windows) if dp is None else dp.rows(n_windows)
+    # the windows fitted: the recording's, then copies of window 0 up to
+    # one a rank (a tensor_split share needs no other padding)
+    n_fit = n_windows if dp is None else max(n_windows, dp.size)
+    src = list(range(n_windows)) + [0] * (n_fit - n_windows)
+    lo, hi = (0, n_fit) if dp is None else dp.rows(n_fit)
     writer = dp is None or dp.rank == 0
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=8) as ex:
-        window_data = list(ex.map(ds.load_window, range(lo, hi)))
+        window_data = list(ex.map(ds.load_window, src[lo:hi]))
     warm = {k: torch.as_tensor(np.stack([wd["warm_start"][k]
                                          for wd in window_data]), device=dev)
             for k in window_data[0]["warm_start"]}
@@ -813,9 +819,9 @@ def _run_window_parallel(cfg, assets, rec, ds, jw, mapper, result_folder,
                                    with_candidates=False)[0]
                for wd, ir in zip(window_data, infill_results)]
     statics, broad_phase = _apply_candidates_batch(cfg, assets, warm, statics,
-                                                   dp, n_windows)
+                                                   dp, n_fit)
     static_batch = stack_statics(statics)
-    first_mask = np.arange(n_windows) == 0
+    first_mask = np.arange(n_fit) == 0
     _sync(dev)
     timings["static_build_s"] = time.perf_counter() - tsec
 
@@ -829,7 +835,7 @@ def _run_window_parallel(cfg, assets, rec, ds, jw, mapper, result_folder,
             # stage's solution
             tsec = time.perf_counter()
             statics, broad_phase = _apply_candidates_batch(
-                cfg, assets, warm, statics, dp, n_windows)
+                cfg, assets, warm, statics, dp, n_fit)
             static_batch = stack_statics(statics)
             _sync(dev)
             timings["refresh_s"] += time.perf_counter() - tsec
@@ -870,9 +876,11 @@ def _run_window_parallel(cfg, assets, rec, ds, jw, mapper, result_folder,
             polish, cfg.window_polish_rounds,
             dispatch_chunk(cfg.steps_per_dispatch, cfg.maxiters))
         # window 0 stays frozen whole, as the sequential polish never
-        # re-fits it; the others freeze their overlap heads
-        erase = np.full((n_windows,), erase_head, np.int64)
+        # re-fits it, and so do the pads; the others freeze their overlap
+        # heads
+        erase = np.full((n_fit,), erase_head, np.int64)
         erase[0] = T
+        erase[n_windows:] = T
         cur = {k: v.clone() for k, v in opt_vars.items()}
 
         def inject_heads(arrs, n_inject_of):
@@ -918,7 +926,7 @@ def _run_window_parallel(cfg, assets, rec, ds, jw, mapper, result_folder,
             use_vposer=cfg.use_vposer)
         for i in range(1, n_windows):
             owner = 0 if dp is None else \
-                sharding.shard_owner(n_windows, dp.size, i)
+                sharding.shard_owner(n_fit, dp.size, i)
             if dp is None or owner == dp.rank:
                 s_prev, e_prev = spans[i - 1]
                 s_cur, _ = spans[i]
@@ -981,6 +989,9 @@ def _run_window_parallel(cfg, assets, rec, ds, jw, mapper, result_folder,
               f"; losses {[round(float(h[-1]), 3) for h in loss_hists]}; "
               "split " + ", ".join(f"{k}={v:.1f}s" for k, v in timings.items()
                                    if isinstance(v, float)), flush=True)
+    if broad_phase is not None:
+        broad_phase = dict(broad_phase,
+                           per_window=broad_phase["per_window"][:n_windows])
     return [dataclasses.replace(r, timings=timings, broad_phase=broad_phase)
             for r in results]
 

@@ -415,7 +415,8 @@ def make_prox_loss(forward_fn, consts, joint_mapper, vposer_params,
 
     def forward_part(opt_vars, betas, decode_rows: int | None = None):
         """SMPL-X forward on the frame batch [T, ...] (`decode_rows`:
-        `vposer.decode`'s block of rows)."""
+        the block of rows of `vposer.decode` and of the body model's
+        hand products, a window's frames in a fold)."""
         body_pose = (vp.decode(vposer_params, opt_vars["pose_embedding"],
                                "aa", rows=decode_rows)
                      if use_vposer else opt_vars["body_pose"])
@@ -424,7 +425,7 @@ def make_prox_loss(forward_fn, consts, joint_mapper, vposer_params,
             "jaw_pose", "leye_pose", "reye_pose", "expression")}
         params["betas"] = betas
         params["body_pose"] = body_pose
-        return forward_fn(params, consts)
+        return forward_fn(params, consts, rows=decode_rows)
 
     def terms_part(opt_vars, betas, out, st: ProxStatic):
         verts = out["vertices"]                          # [T, V, 3] cam

@@ -322,7 +322,7 @@ def job_mesh_checks(mesh):
         bad = str(e)
     seen = []
 
-    def fit(frames, frames_total):
+    def fit(frames, frames_total, reduce_dead):
         seen.append(frames.shape[0])
         return frames * 2, frames.sum(0) / frames_total
 
@@ -337,6 +337,34 @@ def job_mesh_checks(mesh):
             "rank": sharding.initialize_multihost(),
             "blocked": (seen[0], *blocked),
             "first": (first.size, first.rank, first_sum)}
+
+
+def poisoned_fit(frames, frames_total=None, reduce_dead=None,
+                 steps: int = 6):
+    """A per-frame fit for `frame_sharded_fit` whose loss goes NaN
+    mid-fit: frame i's parameter is pulled to frames[i, 0] by Adam (lr
+    0.1), and from step frames[i, 1] on, frame i poisons its share of
+    the loss with NaN. Returns (x [T, 1], losses [steps])."""
+    from lemo_tpu_torch.fitting.adam import run_adam
+
+    n = frames_total or frames.shape[0]
+    step = [0]
+
+    def loss(p):
+        poison = (frames[:, 1] <= step[0]).any()
+        step[0] += 1
+        val = ((p["x"] - frames[:, :1]) ** 2).sum() / n
+        return torch.where(poison, torch.full_like(val, float("nan")), val)
+
+    final, losses = run_adam(loss, {"x": torch.zeros_like(frames[:, :1])},
+                             steps, [0.1] * steps, reduce_dead=reduce_dead)
+    return final["x"], losses
+
+
+def job_nan_freeze(mesh, frames):
+    """`frame_sharded_fit(poisoned_fit)` on `frames` [T, 2]: the gathered
+    parameters and the summed losses."""
+    return sharding.frame_sharded_fit(poisoned_fit, mesh)(frames)
 
 
 def job_sequence(mesh, jobs):

@@ -286,6 +286,14 @@ def gather_rows(mesh: Mesh, tree, n: int, bounds: tuple | None = None):
     return all_reduce_sum(mesh, _rebuild(tree, iter(full)))
 
 
+def any_rank(mesh: Mesh, flag: torch.Tensor) -> torch.Tensor:
+    """A bool tensor OR-ed over the mesh's ranks (one all-reduce of its
+    f32 count, on the device; the flag itself with no process group)."""
+    if mesh.group is None:
+        return flag
+    return all_reduce_sum(mesh, flag.to(torch.float32)) > 0
+
+
 def broadcast_tree(mesh: Mesh, tree, src: int = 0):
     """`tree` as the mesh's rank `src` holds it, on every rank (new
     tensors). The other ranks pass a tree of the same structure, shapes
@@ -395,17 +403,22 @@ def shard_frames(mesh: Mesh, pytree, axis_name: str = "dp"):
 def frame_sharded_fit(fit_fn, mesh: Mesh, axis_name: str = "dp"):
     """Shard the frames of a per-frame fit (the parallel Stage 1,
     `fitting.amass_perframe.make_stage1_fitter`): `fit(frames, *rest,
-    frames_total=T) -> (per-frame [T_rank, ...], per-step losses [S])`,
-    where the losses are this rank's share of the mean over all T
-    frames. Returns `run(frames, *rest) -> ([T, ...], [S])`: the
-    per-frame rows gathered and the losses summed over the ranks, on
-    every rank. A rank's frames are its `tensor_split` share of the
-    ceil(T / b) blocks of `fit_fn.frame_block` = b frames (1 without
-    one), so that a fitter that computes in blocks (the Stage-1 decode
-    on the card) computes each frame as unsharded. Frames are
-    independent and Adam is elementwise, so each rank's frames follow
-    the unsharded fit's trajectory; a rank whose share of the loss goes
-    NaN/Inf freezes only its own frames."""
+    frames_total=T, reduce_dead=f) -> (per-frame [T_rank, ...], per-step
+    losses [S])`, where the losses are this rank's share of the mean
+    over all T frames and `f` combines the fit's freeze flag over the
+    ranks (`run_adam(reduce_dead=...)`). Returns `run(frames, *rest) ->
+    ([T, ...], [S])`: the per-frame rows gathered and the losses summed
+    over the ranks, on every rank. A rank's frames are its
+    `tensor_split` share of the ceil(T / b) blocks of
+    `fit_fn.frame_block` = b frames (1 without one), so that a fitter
+    that computes in blocks (the Stage-1 decode on the card) computes
+    each frame as unsharded. Frames are independent and Adam is
+    elementwise, so each rank's frames follow the unsharded fit's
+    trajectory. The unsharded fit freezes whole when its loss, the sum
+    of the ranks' shares, goes NaN/Inf (`lemo_tpu/fitting/adam.py:
+    66-71`); here the ranks OR their flags each step (`any_rank`, one
+    all-reduce a step), so a NaN/Inf in any rank's share freezes every
+    rank at that step."""
     m = mesh.along(axis_name)
     block = int(getattr(fit_fn, "frame_block", 1))
 
@@ -417,7 +430,8 @@ def frame_sharded_fit(fit_fn, mesh: Mesh, axis_name: str = "dp"):
                              f"on {m.size} ranks")
         b_lo, b_hi = m.rows(n_blocks)
         lo, hi = b_lo * block, min(b_hi * block, T)
-        out, losses = fit_fn(frames[lo:hi], *rest, frames_total=T)
+        out, losses = fit_fn(frames[lo:hi], *rest, frames_total=T,
+                             reduce_dead=lambda dead: any_rank(m, dead))
         return gather_rows(m, out, T, (lo, hi)), all_reduce_sum(m, losses)
 
     return run

@@ -48,10 +48,14 @@ Phases (any failure raises and the script exits non-zero):
    C = 1, 4 and 8 clips (119 / 476 / 952 frames a launch) on the Stage-2
    CLI's inputs, 20 steps a call, 3 calls after a warm-up: ms/step,
    frame-iters/s, launches a step, and the device-busy share of one
-   profiled 5-step call. Then, on the first Stage-2 batch: the fold
-   against four single-clip fits (5 steps under
-   `torch.use_deterministic_algorithms`, lemo_tpu's tolerances: x72
-   rtol 6e-2 / atol 2e-3, losses rtol 2e-3 / atol 2e-5); the fold
+   profiled 5-step call. Then the fold against its clips fitted alone
+   (5 steps under `torch.use_deterministic_algorithms`), at C = 4 on the
+   first Stage-2 batch and at C = 8 on the sweep's batch (both genders'
+   clips on the male model): every clip's x72 bit-equal, and within
+   lemo_tpu's tolerances (x72 rtol 6e-2 / atol 2e-3, losses rtol 2e-3 /
+   atol 2e-5); at C = 8 the form before (the hand products over all
+   rows) measured beside it and timed in turns with the shipped form.
+   On the first Stage-2 batch: the fold
    through the kernels against the plain versions (20 steps, final
    per-clip loss within rel 1e-3); the per-clip NaN freeze (one clip's
    targets NaN: the others bit-equal to the healthy batch's under
@@ -197,12 +201,15 @@ Phases (any failure raises and the script exits non-zero):
    plain versions: equal masks, or a differing entry's marker within
    2e-5 m of a bucket edge or the margin; the occluded shares. (10c)
    render_fitting with `--rendering_mode both` on 4 of phase 6's fitted
-   frames in a copy of the recording with 1920x1080 Color frames, through
+   frames in a copy of the recording with 1920x1080 JPEG Color frames
+   (the port's encoder; the overlays keep them as the port decodes them),
+   through
    the kernels and the plain versions: vertices within 1e-5 m, the
    overlays and scene renders at their sizes with body and frame (scene)
    pixels, at most 0.1% of the body's pixels differing; without
    matplotlib its steps but the marker sheet run by name, and a line
-   says so. (10d) `run_prox_fitting` on phase 6's recording with
+   says so. (10d) `run_prox_fitting` on a copy of phase 6's recording
+   whose Color frames are JPEG with
    PROXD_temp_S3.yaml, `save_meshes` and `render_results` on, 10 steps a
    window, windows in sequence and window-parallel: a ply (10,475
    vertices, 20,080 faces) and a png for each of the 170 frames, each
@@ -215,8 +222,13 @@ Phases (any failure raises and the script exits non-zero):
    chain and vertex kernels; `wallclock` prints the wall. (10g) The host
    C++ library built from the port's copy, brute force and grid held
    against `nn_distance_plain` on one frame of phase 5's s2m operands
-   (rtol 1e-5, atol 1e-6, brute-force indices equal). Prints phase 10's
-   command time.
+   (rtol 1e-5, atol 1e-6, brute-force indices equal). (10h) The JPEG
+   decoder (`data/jpeg.py`, the host library `csrc/jpeg_cpu.cpp` built
+   there): every fixture of tests/data/jpeg/ decoded to the cv2 digest
+   stored beside it, the library bit-equal to its numpy twin on the
+   small fixtures and a 64x48 encoder frame, the progressive fixture
+   refused by name, and the median ms of 10 decodes of the 1920x1080
+   fixture with the host CPU's name. Prints phase 10's command time.
 11. Scale-out (`lemo_tpu_torch.parallel`), after phase 10, on phase 4b's
    first Stage-2 batch and first Stage-1 clip and on every second frame
    of phase 6's recording in two windows of 50 (`_p11_prox_cfg`; cut
@@ -276,7 +288,7 @@ row for each body-model kernel at B = 256, named "... vposer-train
 ..."; phase 9 a row for the chain and vertex forwards at each of
 eval_prox's chunk sizes, named "... eval-prox ..."; phase 10 one for
 them at B = 170, "... occlusion ...", and at B = 4, "... render ..."),
-then as the last line
+the whole command time, then as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Exits non-zero without printing a result when CUDA is absent.
 """
@@ -297,6 +309,7 @@ import time
 
 import numpy as np
 
+T_START = time.perf_counter()
 T_FRAMES = 100
 STEPS = 20
 N_CALLS = 3
@@ -1147,10 +1160,8 @@ def phase_amass_sweep(amass, card) -> list[dict]:
 
     from lemo_tpu_torch.fitting import amass_temp as s2
 
-    calls = amass["s2_calls"]
-    fargs, fkw = calls[0]["factory"]
-    inputs = [torch.cat([c["inputs"][k] for c in calls])
-              for k in range(3)]
+    fargs, fkw = amass["s2_calls"][0]["factory"]
+    inputs = _sweep_inputs(amass)
     T = amass["T"]
     rows = []
     for C in AMASS_SWEEP_C:
@@ -1214,26 +1225,110 @@ def phase_amass_sweep(amass, card) -> list[dict]:
     return rows
 
 
-def phase_amass_checks(amass, card) -> None:
-    """Phase 4b's checks on the card, on the Stage-2 CLI's first batch
-    (C=AMASS_CLIP_BATCH clips of one gender, with their infill targets,
-    contact labels and Stage-1 solutions):
+def _sweep_inputs(amass) -> list:
+    """The Stage-2 CLI's batches joined (both genders' clips, in the
+    CLI's order): the targets, contact labels and Stage-1 solutions that
+    the sweep takes its first C clips of."""
+    import torch
 
-    - the folded fit against C single-clip fits (AMASS_CHECK_STEPS steps,
-      as lemo_tpu's own fold test): x72 within rtol 6e-2 / atol 2e-3 and
-      the per-step losses within rtol 2e-3 / atol 2e-5
-      (tests/test_fitting_stage2.py:165-170), both under
-      torch.use_deterministic_algorithms: without it two runs of the
-      same single-clip fit differed by as much as the two forms do (a
-      few weakly determined hand-PCA and VPoser-latent entries by ~1e-2
-      in 5 steps; PERF.md section 6, PR 10);
+    calls = amass["s2_calls"]
+    return [torch.cat([c["inputs"][k] for c in calls]) for k in range(3)]
+
+
+def _fold_vs_single(fitter, make_fold, make_single, args) -> dict:
+    """The folded fit of C clips against each clip fitted alone
+    (AMASS_CHECK_STEPS steps, deterministic algorithms): lemo_tpu's
+    excesses (x72 max |d| - 6e-2 |x|, losses max |d| - 2e-3 |l|), x72's
+    max |d| a clip, and how many clips' x72 are bit-equal."""
+    import torch
+
+    target, contact, init72 = args
+    C = target.shape[0]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        xf, lf = fitter(make_fold, AMASS_CHECK_STEPS)(target, contact, init72)
+        single = fitter(make_single, AMASS_CHECK_STEPS)
+        outs = [single(target[c], contact[c], init72[c]) for c in range(C)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    xs = torch.stack([o[0] for o in outs])
+    ls = torch.stack([o[1] for o in outs])
+    return {"C": C,
+            "x72_excess": float(((xf - xs).abs() - 6e-2 * xs.abs()).max()),
+            "loss_excess": float(((lf - ls).abs() - 2e-3 * ls.abs()).max()),
+            "x72_max_abs_by_clip": [float((xf[c] - xs[c]).abs().max())
+                                    for c in range(C)],
+            "clips_bit_equal": sum(bool(torch.equal(xf[c], xs[c]))
+                                   for c in range(C))}
+
+
+@contextlib.contextmanager
+def amass_fold_unblocked(joints: bool = True):
+    """The AMASS fold's products that round by their row count as one
+    product of all C x T rows, the forms before they ran a clip's rows
+    at a time: the hand-PCA products (`smplx.by_rows`) and, with
+    `joints`, the rest joints' product (`lbs.lane_matmul`); the VPoser
+    decode stays a clip's rows at a time."""
+    import torch
+
+    from lemo_tpu_torch.body_model import lbs, smplx
+
+    real = smplx.by_rows, lbs.lane_matmul
+    smplx.by_rows = lambda product, x, rows=None: product(x)
+    if joints:
+        lbs.lane_matmul = torch.matmul
+    try:
+        yield
+    finally:
+        smplx.by_rows, lbs.lane_matmul = real
+
+
+def _amass_fold_ms(fitter, make_fold, args) -> float:
+    """ms/step of the folded fitter over N_CALLS calls of STEPS steps
+    after a warm-up."""
+    import torch
+
+    fit = fitter(make_fold, STEPS)
+    fit(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(N_CALLS):
+        fit(*args)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / (N_CALLS * STEPS) * 1e3
+
+
+def phase_amass_checks(amass, sweep, card) -> dict:
+    """Phase 4b's checks on the card:
+
+    - the folded fit against its clips fitted alone (AMASS_CHECK_STEPS
+      steps under torch.use_deterministic_algorithms: without it two
+      runs of the same single-clip fit differed by as much as the two
+      forms do, a few weakly determined hand-PCA and VPoser-latent
+      entries by ~1e-2 in 5 steps; PERF.md section 6), at C = 4
+      on the Stage-2 CLI's first batch (one gender's clips with their
+      infill targets, contact labels and Stage-1 solutions) and at C = 8
+      on the sweep's batch (both genders' clips on the male model): every
+      clip's x72 bit-equal to its own fit's, and within lemo_tpu's
+      tolerances (x72 rtol 6e-2 / atol 2e-3, losses rtol 2e-3 / atol
+      2e-5; tests/test_fitting_stage2.py:165-170). The fold runs a clip's
+      rows at a time through the VPoser decode and the hand-PCA products,
+      and the rest joints a LANE of frames at a time (cuBLAS picks its
+      kernel, and with it the rounding, by the row count). At C = 8 the
+      same fold with its hand products over all rows, and with those and
+      the rest joints' product over all columns (`amass_fold_unblocked`,
+      the form before), is measured beside it, x72's max |d| a clip, and
+      the form before timed in turns with the shipped form (the sweep's
+      C = 8 row, the form before, shipped again);
     - the folded fit through the kernels against the same through the
       plain versions (STEPS steps): final per-clip loss within rel 1e-3,
       as phase 4;
     - the per-clip NaN freeze: clip 0's targets made NaN, the healthy
       clips' parameters and losses equal, bit for bit, those of the same
       batch fitted healthy, both under torch.use_deterministic_algorithms,
-      and clip 0 frozen at its start."""
+      and clip 0 frozen at its start.
+
+    Returns the fold-vs-single rows and the C = 8 timings."""
     import torch
 
     from lemo_tpu_torch.fitting import amass_temp as s2
@@ -1247,26 +1342,48 @@ def phase_amass_checks(amass, card) -> None:
         return make(*fargs[:7], num_steps=steps, weights=fargs[8],
                     device=fkw["device"], **kw)
 
-    def excess(x, ref, rtol):
-        return float(((x - ref).abs() - rtol * ref.abs()).max())
-
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        xf, lf = fitter(s2.make_temporal_fitter_batched, AMASS_CHECK_STEPS)(
-            target, contact, init72)
-        single = fitter(s2.make_temporal_fitter, AMASS_CHECK_STEPS)
-        outs = [single(target[c], contact[c], init72[c]) for c in range(C)]
-    finally:
-        torch.use_deterministic_algorithms(False)
-    xs = torch.stack([o[0] for o in outs])
-    ls = torch.stack([o[1] for o in outs])
-    x_err, l_err = excess(xf, xs, 6e-2), excess(lf, ls, 2e-3)
-    _log(f"[amass] folded C={C} vs {C} single-clip fits "
-         f"({AMASS_CHECK_STEPS} steps, deterministic algorithms): x72 max "
-         f"|d| - 6e-2|x| = {x_err:.3e} (tol 2e-3), losses max |d| - "
-         f"2e-3|l| = {l_err:.3e} (tol 2e-5)")
-    if not (x_err <= 2e-3 and l_err <= 2e-5):
-        raise AssertionError("folded fit differs from the single-clip fits")
+    fold8 = [x[:8] for x in _sweep_inputs(amass)]
+    out: dict = {"fold_vs_single": []}
+    for args in ((target, contact, init72), fold8):
+        row = _fold_vs_single(fitter, s2.make_temporal_fitter_batched,
+                              s2.make_temporal_fitter, args)
+        out["fold_vs_single"].append(row)
+        _log(f"[amass] folded C={row['C']} vs {row['C']} single-clip fits "
+             f"({AMASS_CHECK_STEPS} steps, deterministic algorithms): "
+             f"{row['clips_bit_equal']} of {row['C']} clips' x72 bit-equal, "
+             f"x72 max |d| by clip {row['x72_max_abs_by_clip']}; x72 max "
+             f"|d| - 6e-2|x| = {row['x72_excess']:.3e} (tol 2e-3), losses "
+             f"max |d| - 2e-3|l| = {row['loss_excess']:.3e} (tol 2e-5) on "
+             f"{card}")
+        if not (row["clips_bit_equal"] == row["C"]
+                and row["x72_excess"] <= 2e-3 and row["loss_excess"] <= 2e-5):
+            raise AssertionError(f"folded fit at C={row['C']} differs from "
+                                 "the single-clip fits")
+    with amass_fold_unblocked(joints=False):
+        hands = _fold_vs_single(fitter, s2.make_temporal_fitter_batched,
+                                s2.make_temporal_fitter, fold8)
+    with amass_fold_unblocked():
+        before = _fold_vs_single(fitter, s2.make_temporal_fitter_batched,
+                                 s2.make_temporal_fitter, fold8)
+        before_ms = _amass_fold_ms(fitter, s2.make_temporal_fitter_batched,
+                                   fold8)
+    shipped_ms = [next(r["ms_per_step"] for r in sweep if r["C"] == 8),
+                  _amass_fold_ms(fitter, s2.make_temporal_fitter_batched,
+                                 fold8)]
+    out["c8_hands_over_all_rows"] = hands
+    out["c8_before"] = dict(before, ms_per_step=before_ms)
+    out["c8_shipped_ms_per_step"] = shipped_ms
+    for tag, row in (("the hand products over all 8 x T rows",
+                      hands),
+                     ("the form before (the hand products over all rows, "
+                      "the rest joints one product of all 1,024 columns)",
+                      before)):
+        _log(f"[amass] C=8 with {tag}: {row['clips_bit_equal']} of 8 clips' "
+             f"x72 bit-equal to their own fits, x72 max |d| by clip "
+             f"{row['x72_max_abs_by_clip']} on {card}")
+    _log(f"[amass] C=8 ms/step in turns: shipped {shipped_ms[0]:.3f}, the "
+         f"form before {before_ms:.3f}, shipped {shipped_ms[1]:.3f} "
+         f"({STEPS} steps x {N_CALLS} calls after a warm-up) on {card}")
 
     fold = fitter(s2.make_temporal_fitter_batched, STEPS)
     _, lk = fold(target, contact, init72)
@@ -1297,6 +1414,7 @@ def phase_amass_checks(amass, card) -> None:
     if not (same and frozen == 0.0 and bool(torch.isnan(lb[0]).all())
             and bool(torch.isfinite(lb[1:]).all())):
         raise AssertionError("the per-clip NaN freeze leaked")
+    return out
 
 
 def phase_amass_kernels(model, card) -> dict:
@@ -3648,8 +3766,9 @@ def _unexplained_pixels(a, b, verts, faces, fx, fy, cx, cy,
 def phase_render(model_dict, info, card) -> dict:
     """Phase 10c: render_fitting on RENDER_FRAMES of phase 6's fitted
     frames (every RENDER_STEP-th) with `--rendering_mode both` at full
-    resolution, in a copy of the recording that holds 1920x1080 Color
-    frames for them, through the kernels and the plain versions: the
+    resolution, in a copy of the recording that holds 1920x1080 JPEG
+    Color frames for them (`<frame>.jpg`, as PROX ships them; written by
+    the port's encoder), through the kernels and the plain versions: the
     vertices within 1e-5 m, the output files at their sizes, body and
     frame pixels in each overlay and body and scene pixels in each scene
     render, the pixels that differ between the two paths at most 0.1% of
@@ -3659,7 +3778,9 @@ def phase_render(model_dict, info, card) -> dict:
     import torch
 
     from lemo_tpu_torch.cli import render_fitting as rf
-    from lemo_tpu_torch.data.png import read_png, write_png
+    from lemo_tpu_torch.data.jpeg import read_jpeg
+    from lemo_tpu_torch.data.png import read_png
+    from lemo_tpu_torch.testing.jpeg_encode import write_jpeg
 
     src = os.path.dirname(os.path.dirname(info["recording_dir"]))
     shutil.rmtree(RENDER_DIR, ignore_errors=True)
@@ -3669,9 +3790,16 @@ def phase_render(model_dict, info, card) -> dict:
     os.makedirs(os.path.join(rec_dir, "Color"))
     frames = info["frame_names"][::RENDER_STEP][:RENDER_FRAMES]
     images = {}
+    t0 = time.perf_counter()
     for k, fn in enumerate(frames):
-        images[fn] = _render_frame(k)
-        write_png(os.path.join(rec_dir, "Color", fn + ".png"), images[fn])
+        # JPEG Color frames, as PROX ships them (baseline, q95, 4:2:0):
+        # the overlay keeps the frame as the port decodes it
+        path = os.path.join(rec_dir, "Color", fn + ".jpg")
+        write_jpeg(path, _render_frame(k), quality=95)
+        images[fn] = read_jpeg(path)
+    _log(f"[render] {len(frames)} 1920x1080 Color frames written as JPEG "
+         f"by the port's encoder and decoded in "
+         f"{time.perf_counter() - t0:.2f} s")
     argv = ["--fitting_dir", _fitted_dir(info), "--model_folder",
             _eval_model_dir(model_dict), "--recording_dir", rec_dir,
             "--start", "0", "--step", str(RENDER_STEP), "--count",
@@ -3780,8 +3908,39 @@ def _read_ply(path: str, V: int) -> tuple[str, np.ndarray, str]:
                                sep=" ").reshape(V, 3), lines[V]
 
 
+def jpeg_recording_copy(info) -> dict:
+    """A copy of phase 6's recording whose Color frames are JPEG, as real
+    PROX recordings ship them: `<frame>.jpg` from each `<frame>.png` by
+    the port's encoder (quality 95, 4:2:0); every other entry of the
+    recording and of its base folder a link to phase 6's. Returns `info`
+    with the copy's recording_dir."""
+    from lemo_tpu_torch.data.png import read_png
+    from lemo_tpu_torch.testing.jpeg_encode import write_jpeg
+
+    src_rec = info["recording_dir"]
+    src_base = os.path.dirname(os.path.dirname(src_rec))
+    base = os.path.join(PROX_DIR, "jpeg_copy")
+    shutil.rmtree(base, ignore_errors=True)
+    rec = os.path.join(base, "recordings", info["recording_name"])
+    os.makedirs(os.path.join(rec, "Color"))
+    for entry in os.listdir(src_base):
+        if entry != "recordings":
+            os.symlink(os.path.join(src_base, entry),
+                       os.path.join(base, entry))
+    for entry in os.listdir(src_rec):
+        if entry != "Color":
+            os.symlink(os.path.join(src_rec, entry), os.path.join(rec, entry))
+    for f in sorted(os.listdir(os.path.join(src_rec, "Color"))):
+        stem, ext = os.path.splitext(f)
+        if ext == ".png":
+            write_jpeg(os.path.join(rec, "Color", stem + ".jpg"),
+                       read_png(os.path.join(src_rec, "Color", f)))
+    return dict(info, recording_dir=rec)
+
+
 def phase_saver(model, info, card) -> None:
-    """Phase 10d: `run_prox_fitting` on phase 6's recording with
+    """Phase 10d: `run_prox_fitting` on a copy of phase 6's recording
+    whose Color frames are JPEG (`jpeg_recording_copy`) with
     PROXD_temp_S3.yaml, `save_meshes` and `render_results` on and
     SAVER_STEPS steps a window, windows in sequence and window-parallel
     (no polish): a ply for each frame with the model's vertices and faces,
@@ -3797,6 +3956,14 @@ def phase_saver(model, info, card) -> None:
 
     real = driver._make_window_extras_saver
     faults = []
+    t0 = time.perf_counter()
+    info = jpeg_recording_copy(info)
+    n_jpg = len(glob.glob(os.path.join(info["recording_dir"], "Color",
+                                       "*.jpg")))
+    _log(f"[saver] a copy of phase 6's recording with {n_jpg} JPEG Color "
+         f"frames written in {time.perf_counter() - t0:.2f} s")
+    if n_jpg != len(info["frame_names"]):
+        faults.append(f"{n_jpg} JPEG Color frames")
     for mode in ("sequential", "window-parallel"):
         saves: list = []
 
@@ -3864,7 +4031,8 @@ def phase_saver(model, info, card) -> None:
         t_read = time.perf_counter() - t_read
         launches = [s["launches"] for s in saves]
         _log(f"[saver] {mode}: {len(frames)} plys ({model.num_verts} "
-             f"vertices, {model.faces.shape[0]} faces) and {n_png} pngs; ply "
+             f"vertices, {model.faces.shape[0]} faces) and {n_png} pngs "
+             f"rendered over the JPEG Color frames; ply "
              f"vertices max |d| from the plain forward of the pkls "
              f"{d_max:.3e} m (tol 1e-5); {len(saves)} saver calls "
              f"{[s['out'] for s in saves]} in "
@@ -3987,6 +4155,109 @@ def phase_native(card) -> None:
          f"(host CPU; the card {card} idle)")
     if faults:
         raise AssertionError(f"native library differs from numpy: {faults}")
+
+
+JPEG_FIXTURES = os.path.join(ROOT, "tests", "data", "jpeg")
+JPEG_TIMED_CALLS = 10          # phase 10h's timed 1920x1080 decodes
+
+
+def _host_cpu() -> str:
+    """The host CPU's model name (/proc/cpuinfo's "model name", with the
+    vendor where the name reads "unknown", else lscpu's "Model name") and
+    machine type, and the count of CPUs."""
+    import platform
+
+    name = None
+    try:
+        with open("/proc/cpuinfo") as fh:
+            info = {ln.split(":", 1)[0].strip().lower():
+                    ln.split(":", 1)[1].strip() for ln in fh if ":" in ln}
+        name = info.get("model name")
+        if name == "unknown" and info.get("vendor_id"):
+            name = f"model unknown, {info['vendor_id']}"
+    except OSError:
+        pass
+    if not name:
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=30).stdout
+            name = next((ln.split(":", 1)[1].strip()
+                         for ln in out.splitlines()
+                         if ln.lower().startswith("model name")), None)
+        except (OSError, subprocess.SubprocessError):
+            pass
+    return f"{name or 'model not reported'} ({platform.machine()}) x " \
+        f"{os.cpu_count()}"
+
+
+def phase_jpeg(card) -> dict:
+    """Phase 10h: the port's JPEG decoder (`data/jpeg.py`, the host
+    library `csrc/jpeg_cpu.cpp`) on the card's host. Builds the library;
+    decodes every fixture of tests/data/jpeg/ (written by cv2) and holds
+    the sha256 of its pixels to the cv2 digest stored beside it; holds
+    the library to its numpy twin `read_jpeg_plain` on the small fixtures
+    and on a 64x48 frame of the port's encoder (bit-equal); requires the
+    progressive fixture refused with its marker named; times the
+    1920x1080 fixture's decode (median of JPEG_TIMED_CALLS, file read
+    included) beside the host CPU's name."""
+    import hashlib
+
+    from lemo_tpu_torch import _build
+    from lemo_tpu_torch.data import jpeg
+    from lemo_tpu_torch.testing.jpeg_encode import write_jpeg
+
+    t0 = time.perf_counter()
+    path = _build.build_host_library(source=jpeg.JPEG_SOURCE)
+    build_s = time.perf_counter() - t0
+    with open(os.path.join(JPEG_FIXTURES, "digests.json")) as fh:
+        digests = json.load(fh)["files"]
+    faults, plain_checked = [], []
+    for name, want in sorted(digests.items()):
+        f = os.path.join(JPEG_FIXTURES, name)
+        if "progressive" in name:
+            what = jpeg.jpeg_header(f).unsupported
+            try:
+                jpeg.read_jpeg(f)
+                refused = False
+            except ValueError as e:
+                refused = "SOF2 (progressive)" in str(e)
+            _log(f"[jpeg] {name}: refused {refused} ({what})")
+            if not refused or what != "SOF2 (progressive)":
+                faults.append(f"{name} not refused by name")
+            continue
+        img = jpeg.read_jpeg(f)
+        ok = hashlib.sha256(img.tobytes()).hexdigest() == want["sha256"] \
+            and list(img.shape) == want["shape"]
+        if not ok:
+            faults.append(f"{name}: digest differs from cv2's")
+        if img.size <= 64 * 48 * 3:
+            plain_checked.append(name)
+            if not np.array_equal(jpeg.read_jpeg_plain(f), img):
+                faults.append(f"{name}: library differs from read_jpeg_plain")
+    enc = os.path.join(PROX_DIR, "jpeg_64x48.jpg")
+    os.makedirs(PROX_DIR, exist_ok=True)
+    write_jpeg(enc, _render_frame(1)[::22, ::30][:48, :64], quality=90)
+    same = np.array_equal(jpeg.read_jpeg(enc), jpeg.read_jpeg_plain(enc))
+    if not same:
+        faults.append("encoder frame: library differs from read_jpeg_plain")
+    big = os.path.join(JPEG_FIXTURES, "frame_1920x1080_q95_420.jpg")
+    times = []
+    for _ in range(JPEG_TIMED_CALLS):
+        t0 = time.perf_counter()
+        jpeg.read_jpeg(big)
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    _log(f"[jpeg] {os.path.relpath(path)} built in {build_s:.2f} s; "
+         f"{len(digests) - 1} fixtures decoded to cv2's digests "
+         f"{not any('digest' in x for x in faults)}; library equal to "
+         f"read_jpeg_plain on {plain_checked} and a 64x48 encoder frame "
+         f"{same}; a 1920x1080 q95 4:2:0 decode (file read included) "
+         f"{ms:.2f} ms median of {JPEG_TIMED_CALLS} (min {min(times):.2f}) "
+         f"on the host, {_host_cpu()} (the card {card} idle)")
+    if faults:
+        raise AssertionError("jpeg: " + "; ".join(faults))
+    return {"decode_1920x1080_ms": ms, "build_s": build_s,
+            "host_cpu": _host_cpu()}
 
 
 def phase10_kernel_rows(model, rows, launches: dict, card) -> list:
@@ -4419,7 +4690,8 @@ def _p12_argv(info, assets_argv, config: str, out_dir: str,
 @contextlib.contextmanager
 def frame_cache():
     """Read each recording frame's host data once: `ProxWindowDataset.
-    load_frame` memoized by (depth folder, frame, read flags), but for
+    load_frame` memoized by (depth folder, resolved, so that a copy
+    whose Depth is a link shares it; frame; read flags), but for
     the warm start, which is read anew at each call (it depends on the
     run's own outputs). The PROX configs' `init_mode: scan` reads every
     frame's depth scan, whose unprojection (the port's numpy lens model)
@@ -4434,7 +4706,8 @@ def frame_cache():
     cache: dict = {}
 
     def load_frame(self, idx, with_warm_start=True):
-        key = (self.depth_folder, self.frame_names[idx], self.read_depth,
+        key = (os.path.realpath(self.depth_folder), self.frame_names[idx],
+               self.read_depth,
                self.read_mask, self.flip, self.mask_on_color,
                self.use_hands, self.use_face)
         if key not in cache:
@@ -4805,7 +5078,7 @@ def main() -> int:
         row["launches"] = counts[row["name"]]
     amass = phase_amass(card)
     sweep = phase_amass_sweep(amass, card)
-    phase_amass_checks(amass, card)
+    fold_checks = phase_amass_checks(amass, sweep, card)
     at_frames = phase_amass_kernels(model, card)
     for row in rows:
         row["launches_amass"] = amass["launches"][row["name"]]
@@ -4813,6 +5086,7 @@ def main() -> int:
     p11 = phase11_inputs(amass)
     del amass
     _log(f"[amass sweep] {json.dumps(sweep)}")
+    _log(f"[amass fold checks] {json.dumps(fold_checks)}")
     trainers, vposer = phase_train(card)
     rows += train_kernel_rows(rows, vposer, card)
     del vposer
@@ -4850,6 +5124,7 @@ def main() -> int:
     phase_vis_amass(card)
     phase_profiling(model, card)
     phase_native(card)
+    phase_jpeg(card)
     rows += phase10_kernel_rows(model, rows, at10, card)
     _log(f"[phase 10] command time {time.perf_counter() - t10:.1f} s on "
          f"{card}")
@@ -4862,6 +5137,8 @@ def main() -> int:
                                    for c in configs["rows"]}
     _log(f"[configs] {json.dumps(configs['rows'])}")
     print(json.dumps({"kernels": rows}), flush=True)
+    _log(f"[chip_smoke] command time {time.perf_counter() - T_START:.1f} s "
+         f"on {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

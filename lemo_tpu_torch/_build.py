@@ -9,9 +9,10 @@ the sources and flags, so a changed source rebuilds and an unchanged one
 loads at once. Nothing here runs at import time: the CPU-only tests
 import every module, and only a CUDA tensor reaches `load_library`.
 
-The host library (`csrc/chamfer_cpu.cpp`, the nearest-neighbour and
-Chamfer search on the CPU that `ops/native.py` binds) is compiled the
-same way with the host C++ compiler (`build_host_library`).
+The host libraries (`csrc/chamfer_cpu.cpp`, the nearest-neighbour and
+Chamfer search on the CPU that `ops/native.py` binds; `csrc/jpeg_cpu.cpp`,
+the JPEG decoder that `data/jpeg.py` binds) are compiled the same way
+with the host C++ compiler (`build_host_library(source=...)`).
 """
 
 from __future__ import annotations

@@ -29,6 +29,20 @@ from lemo_tpu_torch.body_model.vertex_cuda import (
 from lemo_tpu_torch.ops.rotations import aa_to_matrot, aa_to_matrot_planes
 
 
+def lane_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [M, K] @ b [K, Bp] (Bp a multiple of LANE). On a CUDA tensor, one
+    product a LANE columns of b: cuBLAS picks its kernel, and with it the
+    rounding of each column, by N, so every frame's column rounds as in
+    a batch of at most LANE frames (one clip, one window) alone, whatever
+    the fold around it (one product of all 1,024 columns of an 8-clip
+    AMASS fold rounded its rest joints apart). On the CPU one product,
+    `lemo_tpu`'s order."""
+    if not b.is_cuda or b.shape[1] <= LANE:
+        return torch.matmul(a, b)
+    return torch.cat([torch.matmul(a, c.contiguous())
+                      for c in b.split(LANE, dim=1)], dim=1)
+
+
 def blend_shapes(betas: torch.Tensor,
                  shape_dirs_flat: torch.Tensor) -> torch.Tensor:
     """betas [B, S] x shape_dirs_flat [S, V*3] -> [B, V, 3]."""
@@ -179,8 +193,8 @@ def _lbs_fused(shape_components, pose, parents, fc, num_verts, *,
     # rest-pose joint planes [3, Jp, Bp] from the shape components
     shape_T = F.pad(shape_components.T, (0, Bp - B))                 # [S, Bp]
     ones = torch.ones((1, Bp), dtype=shape_T.dtype, device=dev)
-    jr = torch.matmul(fc["j_ext"], torch.cat([shape_T, ones])
-                      ).reshape(3, J, Bp)
+    jr = lane_matmul(fc["j_ext"], torch.cat([shape_T, ones])
+                     ).reshape(3, J, Bp)
     jr = F.pad(jr, (0, 0, 0, Jp - J))
 
     # local rotation planes [9, Jp, Bp] (row k = 3m+n holds R[m, n])

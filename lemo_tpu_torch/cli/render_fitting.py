@@ -13,10 +13,12 @@ saves (a) a marker animation sheet (matplotlib, `fitting_frames.png`),
 (b) body-over-Color-frame overlays, the reference's `<frame>_output.png`
 (renderer.py:60-140), and (c) the body inside the scene mesh,
 `<frame>_scene.png` (rendering_mode '3d'), both through the host
-software rasterizer (`utils.raster`). Color frames must be PNG
-(`data.png.read_color_frame`): a Color folder with `.jpg` frames is
-refused before the bodies are rebuilt. Each step is a function of its own, which
-`main` calls in this order.
+software rasterizer (`utils.raster`). Color frames are read as
+`<frame>.jpg`, else `<frame>.png` (`data.png.read_color_frame`: the
+port's own PNG and JPEG decoders); a Color folder holding a JPEG that the
+decoder refuses (progressive, lossless, arithmetic-coded, 12-bit,
+4-component) is refused before the bodies are rebuilt. Each step is a
+function of its own, which `main` calls in this order.
 """
 
 from __future__ import annotations

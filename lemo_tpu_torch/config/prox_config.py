@@ -5,7 +5,8 @@
 and defaults. The port reads and writes YAML itself (`yaml_subset`): the
 flat subset `cfg_files/*.yaml` use. Every option has its path in the
 port; `check_ported` refuses, before any fit, what the port cannot read:
-`render_results` over JPEG Color frames.
+`render_results` over JPEG Color frames that its decoder does not take
+(progressive, lossless, arithmetic-coded, 12-bit, 4-component).
 """
 
 from __future__ import annotations
@@ -332,10 +333,12 @@ class ProxConfig:
 def check_ported(cfg: ProxConfig) -> None:
     """Raise on a set option that the port cannot take on this recording.
     Every option of `lemo_tpu`'s driver has its path in the port; what
-    remains is `render_results` over `.jpg` Color frames, which the
-    port's PNG-only reader cannot decode (`data.png.check_color_frames`).
-    `run_prox_fitting` calls this first, so such a run stops before its
-    fits and not after the first window's pkls and plys."""
+    remains is `render_results` over JPEG Color frames that the port's
+    decoder refuses (progressive, lossless, arithmetic-coded, 12-bit or
+    4-component ones: `data.png.check_color_frames`; baseline JPEG and
+    PNG frames pass). `run_prox_fitting` calls this first, so such a run
+    stops before its fits and not after the first window's pkls and
+    plys."""
     if cfg.render_results:
         check_color_frames(osp.join(cfg.recording_dir, cfg.img_folder))
 

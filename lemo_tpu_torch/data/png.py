@@ -1,4 +1,6 @@
-"""PNG reading and writing with `zlib` and numpy (the port needs no cv2).
+"""PNG reading and writing with `zlib` and numpy (the port needs no cv2),
+and `read_color_frame`, which reads a PROX Color frame as PNG or JPEG
+(`data.jpeg`).
 
 Reads non-interlaced grayscale (8- and 16-bit), grayscale+alpha, RGB and
 RGBA images with any of the five row filters; rows are unfiltered with
@@ -18,6 +20,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from lemo_tpu_torch.data.jpeg import is_jpeg_path, jpeg_header, read_jpeg
 
 _SIG = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
@@ -163,29 +167,40 @@ def write_png(path: str, img: np.ndarray, filter_type: int = 0,
 
 
 def check_color_frames(color_dir: str) -> None:
-    """Raise when `color_dir` holds `.jpg` Color frames, which
-    `read_color_frame` cannot decode: a run that renders over the Color
-    frames calls this before its work, so that it refuses them up front
-    and not after its fits. A missing folder passes (a frame without a
-    Color image is skipped)."""
+    """Raise when `color_dir` holds a JPEG Color frame that
+    `read_color_frame` cannot decode (progressive, lossless, arithmetic
+    coded, 12-bit, 4 components: `data.jpeg.jpeg_header`), naming the
+    frame and the marker: a run that renders over the Color frames calls
+    this before its work, so that it refuses them up front and not after
+    its fits. Each `.jpg` frame's markers up to its first scan are read
+    (the callers look for `<frame>.jpg`, then `<frame>.png`). A missing
+    folder passes (a frame without a Color image is skipped)."""
     if not os.path.isdir(color_dir):
         return
-    jpg = sorted(f for f in os.listdir(color_dir) if f.endswith(".jpg"))
-    if jpg:
-        raise ValueError(f"{color_dir} holds {len(jpg)} JPEG Color frames "
-                         f"({jpg[0]}, ...): only PNG Color frames can be "
-                         "read without cv2 (convert the frames to PNG)")
+    for f in sorted(os.listdir(color_dir)):
+        if not f.endswith(".jpg"):
+            continue
+        path = os.path.join(color_dir, f)
+        what = jpeg_header(path).unsupported
+        if what:
+            raise ValueError(f"{path}: JPEG Color frame with {what}, which "
+                             "the port's decoder does not take (baseline "
+                             "and extended sequential Huffman, 8-bit, 1 or 3 "
+                             "components); re-encode the frames as baseline "
+                             "JPEG or PNG")
 
 
 def read_color_frame(path: str) -> np.ndarray:
     """A Color frame as uint8 RGB [H, W, 3]: the pixels that
-    `cv2.imread(path)[:, :, ::-1]` gives for a PNG (grayscale repeated
-    into three channels, alpha dropped, 16-bit samples divided by 256 and
-    rounded half to even). JPEG frames are not decoded: the port has no
-    JPEG codec, so they raise."""
+    `cv2.imread(path)[:, :, ::-1]` gives. A PNG: grayscale repeated into
+    three channels, alpha dropped, 16-bit samples divided by 256 and
+    rounded half to even. A JPEG (`.jpg`, `.jpeg`): `data.jpeg.read_jpeg`,
+    the port's host decoder, bit for bit what cv2's libjpeg-turbo gives,
+    the EXIF orientation applied."""
+    if is_jpeg_path(path):
+        return read_jpeg(path)
     if not path.lower().endswith(".png"):
-        raise ValueError(f"{path}: only PNG Color frames can be read "
-                         "without cv2 (convert the frames to PNG)")
+        raise ValueError(f"{path}: a Color frame must be PNG or JPEG")
     img = read_png(path)
     if img.dtype == np.uint16:
         img = np.clip(np.rint(img / 256.0), 0, 255).astype(np.uint8)

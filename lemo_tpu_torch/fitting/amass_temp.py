@@ -246,13 +246,16 @@ def make_temporal_fitter_batched(model: SmplxModel, vposer_params: dict,
     equals its own fit's bit for bit, so each clip follows its
     single-clip trajectory exactly: Adam turns any other rounding into
     whole steps on entries with near-zero gradients. For that the VPoser
-    decode runs its products a clip at a time (`vposer.decode(rows=T)`)
-    and the smoothness prior its convolutions; the body kernels and the
-    translation's gradient sum each frame alike whatever the batch. On
-    the CPU the decode and the prior run as one batch, `lemo_tpu`'s
-    order. The NaN/Inf freeze is per clip: a diverging clip freezes
-    only its own parameters and moments (`run_adam`'s `per_clip`), so
-    the others keep fitting.
+    decode and the body model's hand-PCA products run a clip's rows at a
+    time (`vposer.decode(rows=T)`, `smplx_forward(rows=T)`: cuBLAS picks
+    its kernel, and with it the rounding, by the row count), the rest
+    joints a LANE of frames at a time (`lbs.lane_matmul`), and the
+    smoothness prior its convolutions a clip at a time; the body kernels
+    and the translation's gradient sum each frame alike whatever the
+    batch. On the CPU the decode, the products and the prior run as one
+    batch, `lemo_tpu`'s order. The NaN/Inf freeze is per clip: a
+    diverging clip freezes only its own parameters and moments
+    (`run_adam`'s `per_clip`), so the others keep fitting.
 
     impl='vmap': C independent single-clip fits, one after another. That
     is the same math as `lemo_tpu`'s vmapped core (each clip its own
@@ -299,7 +302,7 @@ def make_temporal_fitter_batched(model: SmplxModel, vposer_params: dict,
         x72 = _x72(v, shape10)                               # [C, T, 72]
         out = fwd(P.smplx_params_from_72(x72.reshape(C * T, 72), vpp,
                                          num_expr, decode_rows=T),
-                  model.consts)
+                  model.consts, rows=T)
         verts = out["vertices"]                              # [C*T, V, 3]
         mk = take_rows(verts, ids67).reshape(C, T, -1, 3)
         per_clip = weights.rec_markers * \

@@ -665,8 +665,9 @@ def _make_window_extras_saver(cfg, assets, rec, output_folder):
     The bodies are rebuilt in one forward of the window's frames on the
     model's device; the overlay goes through the host software rasterizer
     (the reference uses pyrender), seconds a frame at full resolution, so
-    it is opt-in like the reference's flag. Color frames must be PNG
-    (`check_ported` refuses `.jpg` ones before the fits)."""
+    it is opt-in like the reference's flag. A Color frame is read as
+    `<frame>.jpg`, else `<frame>.png` (`data.png.read_color_frame`; a JPEG
+    the decoder refuses is refused by `check_ported` before the fits)."""
     if not (cfg.save_meshes or cfg.render_results):
         return None
     from lemo_tpu_torch.data.png import read_color_frame, write_png

@@ -209,8 +209,16 @@ def init_smooth_dec(gen: torch.Generator, z_channel=64, device="cpu"):
 
 def load_torch_state_dict(path: str, device) -> dict[str, torch.Tensor]:
     """A torch `state_dict` checkpoint (e.g. the shipped smoothness prior
-    `runs/15217/Enc_last_model.pkl`) as the flat param dict, layout 1:1."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
+    `runs/15217/Enc_last_model.pkl`) as the flat param dict, layout 1:1.
+    A checkpoint that the safe load refuses (an old pickle, a pickled
+    module) goes through the legacy loader, as in `lemo_tpu`."""
+    try:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception:
+        # older checkpoints (e.g. torch<1.6 zip-less pickles) and ones that
+        # pickle a whole module need the legacy loader; only use on
+        # checkpoints you trust
+        sd = torch.load(path, map_location="cpu", weights_only=False)
     if hasattr(sd, "state_dict"):
         sd = sd.state_dict()
     return {k: v.to(device=device, dtype=torch.float32)

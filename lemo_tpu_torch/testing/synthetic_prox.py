@@ -1,6 +1,7 @@
 """Synthetic PROX recording writer (port of
 `lemo_tpu/testing/synthetic_prox.py`), on the port's own body model and
-VPoser, with PNGs written by `data.png` (no cv2).
+VPoser, with PNGs written by `data.png` (no cv2), and the Color frames
+as PNG or, on request, as baseline JPEG (`testing.jpeg_encode`).
 
 Writes the on-disk layout of a PROX capture (data_parser_slide.py /
 main_slide.py conventions):
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from lemo_tpu_torch.data.png import write_png
+from lemo_tpu_torch.testing.jpeg_encode import write_jpeg
 from lemo_tpu_torch.data.prox import write_ply_vertices
 
 FX, FY = 1060.53, 1060.38
@@ -105,15 +107,20 @@ def write_synthetic_prox_recording(
     write_depth: bool = True,
     pose_scale: float = 1.0,
     device="cpu",
+    color_format: str = "png",
 ) -> dict:
     """Create the recording; returns ground-truth info (the model dict
-    and VPoser parameters the body was made with, on `device`)."""
+    and VPoser parameters the body was made with, on `device`).
+    `color_format` "jpg" writes the Color frames as `<frame>.jpg`
+    (baseline 4:2:0 JPEG, quality 95) instead of `<frame>.png`."""
     from lemo_tpu_torch.body_model import load_model, make_forward_fn
     from lemo_tpu_torch.body_model import vposer as vp
     from lemo_tpu_torch.body_model.vertex_ids import smpl_to_openpose
     from lemo_tpu_torch.testing.synthetic import synthetic_smplx_npz, \
         synthetic_sdf_grid
 
+    if color_format not in ("png", "jpg"):
+        raise ValueError(f"color_format {color_format!r}: 'png' or 'jpg'")
     rng = np.random.RandomState(seed)
     scene_name = recording_name.split("_")[0]
     rec_dir = osp.join(base_dir, "recordings", recording_name)
@@ -204,7 +211,10 @@ def write_synthetic_prox_recording(
     for i in range(T):
         fn = f"s001_frame_{i + 1:05d}__00.00.{i:02d}.000"
         frame_names.append(fn)
-        write_png(osp.join(rec_dir, "Color", fn + ".png"), tiny_color)
+        if color_format == "jpg":
+            write_jpeg(osp.join(rec_dir, "Color", fn + ".jpg"), tiny_color)
+        else:
+            write_png(osp.join(rec_dir, "Color", fn + ".png"), tiny_color)
         if write_depth:
             v = verts[i]
             depth = _render_depth(v, dfx, dfy, dcx, dcy)

@@ -95,24 +95,33 @@ def test_unported_options_raise(field, value):
 
 
 def test_render_results_refuses_jpeg_frames(tmp_path):
-    """`render_results` over `.jpg` Color frames, which the port cannot
-    decode, stops `run_prox_fitting` before it loads or fits anything;
-    with the flag off, or with the frame as PNG, the check passes."""
+    """`render_results` over a progressive JPEG Color frame, which the
+    port's decoder refuses, stops `run_prox_fitting` before it loads or
+    fits anything, with the frame and the marker named; with the flag
+    off, or with the frame as baseline JPEG (which the port decodes, as
+    `lemo_tpu`'s cv2 does) or as PNG, the check passes."""
     from lemo_tpu_torch.fitting.prox.driver import run_prox_fitting
 
     color = tmp_path / "recordings" / "N0Sittingbooth_00162_01" / "Color"
     color.mkdir(parents=True)
     jpg = color / "s001_frame_00001__00.00.00.029.jpg"
-    jpg.write_bytes(b"\xff\xd8\xff\xd9")
+    img = np.random.RandomState(0).randint(0, 256, (24, 32, 3)).astype(
+        np.uint8)
+    assert cv2.imwrite(str(jpg), img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     cfg = dataclasses.replace(
         ProxConfig(), recording_dir=str(color.parent), render_results=True,
         output_folder=str(tmp_path / "out"))
-    with pytest.raises(ValueError, match="JPEG Color frames"):
+    with pytest.raises(ValueError, match=r"SOF2 \(progressive\)") as e:
         check_ported(cfg)
-    with pytest.raises(ValueError, match="JPEG Color frames"):
+    assert str(jpg) in str(e.value)
+    with pytest.raises(ValueError, match=r"SOF2 \(progressive\)"):
         run_prox_fitting(cfg, device="cpu")
     assert not (tmp_path / "out").exists()
     check_ported(dataclasses.replace(cfg, render_results=False))
+    assert cv2.imwrite(str(jpg), img)
+    check_ported(cfg)
+    np.testing.assert_array_equal(png.read_color_frame(str(jpg)),
+                                  cv2.imread(str(jpg))[:, :, ::-1])
     jpg.rename(jpg.with_suffix(".png"))
     check_ported(cfg)
 

@@ -128,13 +128,19 @@ def test_render_fitting_clis_match(tmp_path):
                                           ("3d", False)])
 def test_render_fitting_refuses_jpeg_frames(tmp_path, monkeypatch, mode,
                                             refused):
-    """A Color folder with a `.jpg` frame is refused before the bodies are
-    rebuilt when overlays are asked for; `--rendering_mode 3d` reads no
-    Color frame and goes on."""
+    """A Color folder with a progressive `.jpg` frame, which the port's
+    decoder refuses, is refused before the bodies are rebuilt when
+    overlays are asked for, with the marker named; `--rendering_mode 3d`
+    reads no Color frame and goes on. The same frame as baseline JPEG
+    passes the check in every mode."""
+    import cv2
+
     color = tmp_path / "rec" / "Color"
     color.mkdir(parents=True)
-    (color / "s001_frame_00001__00.00.00.029.jpg").write_bytes(
-        b"\xff\xd8\xff\xd9")
+    frame = color / "s001_frame_00001__00.00.00.029.jpg"
+    img = np.random.RandomState(1).randint(0, 256, (24, 32, 3)).astype(
+        np.uint8)
+    assert cv2.imwrite(str(frame), img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     rebuilt = []
     monkeypatch.setattr(t_cli, "rebuild_bodies",
                         lambda args, dev: rebuilt.append(1) or
@@ -143,9 +149,12 @@ def test_render_fitting_refuses_jpeg_frames(tmp_path, monkeypatch, mode,
             str(tmp_path), "--recording_dir", str(color.parent),
             "--rendering_mode", mode]
     if refused:
-        with pytest.raises(ValueError, match="JPEG Color frames"):
+        with pytest.raises(ValueError, match=r"SOF2 \(progressive\)"):
             t_cli.main(argv, device="cpu")
         assert rebuilt == []
     else:
         t_cli.main(argv, device="cpu")
         assert rebuilt == [1]
+    assert cv2.imwrite(str(frame), img)
+    t_cli.main(argv, device="cpu")
+    assert rebuilt == ([1] if refused else [1, 1])

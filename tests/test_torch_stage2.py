@@ -264,13 +264,15 @@ def test_port_imports_no_jax():
     """Importing the port and every submodule (the AMASS data layer,
     both stages, both AMASS CLIs, the optimizer family, the GMM prior,
     camera init and eval_prox among them) pulls in neither jax nor
-    any lemo_tpu module, and needs neither cv2 nor yaml (both are made
-    unimportable first); the slice of utilities, the BodyModel API, the
-    native library and the render/occlusion/visualization CLIs among
-    them, with matplotlib imported only inside the drawing functions."""
+    any lemo_tpu module, and needs neither cv2, PIL nor yaml (all three
+    are made unimportable first); the slice of utilities, the BodyModel
+    API, the native library, the JPEG decoder and its test encoder and
+    the render/occlusion/visualization CLIs among them, with matplotlib
+    imported only inside the drawing functions."""
     code = (
         "import sys\n"
         "sys.modules['cv2'] = None\n"
+        "sys.modules['PIL'] = None\n"
         "sys.modules['yaml'] = None\n"
         "import pkgutil, importlib, lemo_tpu_torch\n"
         "for m in pkgutil.walk_packages(lemo_tpu_torch.__path__, "
@@ -299,7 +301,8 @@ def test_port_imports_no_jax():
         " 'lemo_tpu_torch.ops.native',"
         " 'lemo_tpu_torch.cli.get_occlusion_mask',"
         " 'lemo_tpu_torch.cli.render_fitting',"
-        " 'lemo_tpu_torch.cli.vis_opt_amass']\n"
+        " 'lemo_tpu_torch.cli.vis_opt_amass',"
+        " 'lemo_tpu_torch.data.jpeg', 'lemo_tpu_torch.testing.jpeg_encode']\n"
         "assert 'matplotlib' not in sys.modules\n"
         "assert all(m in sys.modules for m in need), need\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

@@ -204,3 +204,29 @@ def test_fit_clip_temporal_is_the_single_fitter(setup):
                                        device="cpu")(target[1], contact[1],
                                                      init72[1])
     assert torch.equal(x1, x2) and torch.equal(l1, l2)
+
+
+def test_fold_hand_products_by_clip_keep_cpu_bits(setup, monkeypatch):
+    """The fold's forward passes `rows=T`, so that on the card each
+    clip's hand-PCA products run on its own rows; on the CPU
+    `vposer.by_rows` runs one product of all rows whatever `rows` says,
+    so the folded fit keeps the bits it had with the hand products over
+    all C x T rows (the form before `rows=T`), and with them its
+    agreement with lemo_tpu."""
+    from lemo_tpu_torch.body_model import smplx
+
+    md, port, ids, data, _ = setup
+    seen = []
+    real = smplx.by_rows
+
+    def spy(product, x, rows=None):
+        seen.append(rows)
+        return real(product, x, rows)
+
+    monkeypatch.setattr(smplx, "by_rows", spy)
+    x_rows, l_rows = _fitter(md, port, ids, fused=True)(*data)
+    assert seen and set(seen) == {T}
+    monkeypatch.setattr(smplx, "by_rows",
+                        lambda product, x, rows=None: product(x))
+    x_all, l_all = _fitter(md, port, ids, fused=True)(*data)
+    assert torch.equal(x_rows, x_all) and torch.equal(l_rows, l_all)

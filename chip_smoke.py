@@ -202,9 +202,10 @@ Phases (any failure raises and the script exits non-zero):
    2e-5 m of a bucket edge or the margin; the occluded shares. (10c)
    render_fitting with `--rendering_mode both` on 4 of phase 6's fitted
    frames in a copy of the recording with 1920x1080 JPEG Color frames
-   (the port's encoder; the overlays keep them as the port decodes them),
-   through
-   the kernels and the plain versions: vertices within 1e-5 m, the
+   (three baseline from the port's encoder, one progressive from cv2:
+   tests/data/jpeg/'s 1920x1080 progressive fixture; the overlays keep
+   them as the port decodes them), through the kernels and the plain
+   versions: vertices within 1e-5 m, the
    overlays and scene renders at their sizes with body and frame (scene)
    pixels, at most 0.1% of the body's pixels differing; without
    matplotlib its steps but the marker sheet run by name, and a line
@@ -222,13 +223,16 @@ Phases (any failure raises and the script exits non-zero):
    chain and vertex kernels; `wallclock` prints the wall. (10g) The host
    C++ library built from the port's copy, brute force and grid held
    against `nn_distance_plain` on one frame of phase 5's s2m operands
-   (rtol 1e-5, atol 1e-6, brute-force indices equal). (10h) The JPEG
-   decoder (`data/jpeg.py`, the host library `csrc/jpeg_cpu.cpp` built
-   there): every fixture of tests/data/jpeg/ decoded to the cv2 digest
-   stored beside it, the library bit-equal to its numpy twin on the
-   small fixtures and a 64x48 encoder frame, the progressive fixture
-   refused by name, and the median ms of 10 decodes of the 1920x1080
-   fixture with the host CPU's name. Prints phase 10's command time.
+   (rtol 1e-5, atol 1e-6, brute-force indices equal). (10h) The frame
+   readers (`data.png.imread`'s three cv2 modes; the JPEG host library
+   `csrc/jpeg_cpu.cpp` built there): every fixture of tests/data/jpeg/
+   and tests/data/png/ read in each mode to the cv2 digest stored beside
+   it, the scan-cut progressive fixture and the still refused markers
+   (lossless, arithmetic, 12-bit, 4 components) refused by name, the
+   library bit-equal to its numpy twin on the small JPEG fixtures and a
+   64x48 encoder frame, and the median ms of 10 decodes of each
+   1920x1080 fixture (sequential and progressive) with the host CPU's
+   and the card's names. Prints phase 10's command time.
 11. Scale-out (`lemo_tpu_torch.parallel`), after phase 10, on phase 4b's
    first Stage-2 batch and first Stage-1 clip and on every second frame
    of phase 6's recording in two windows of 50 (`_p11_prox_cfg`; cut
@@ -353,6 +357,7 @@ CAM_INIT_STEPS = 30            # phase 9e's Adam steps
 EVAL_CHUNK = 25                # eval_prox's --chunk (its default)
 BM_FRAMES = 100                # phase 10a's batch
 RENDER_FRAMES = 4              # phase 10c's frames, at 1920 x 1080
+RENDER_PROGRESSIVE = 1         # the one of them that is progressive
 RENDER_STEP = 50               # ... every RENDER_STEP-th fitted frame
 SAVER_STEPS = 10               # phase 10d's Adam steps a window
 # phase 11: scale-out on the one card
@@ -3778,7 +3783,7 @@ def phase_render(model_dict, info, card) -> dict:
     import torch
 
     from lemo_tpu_torch.cli import render_fitting as rf
-    from lemo_tpu_torch.data.jpeg import read_jpeg
+    from lemo_tpu_torch.data.jpeg import jpeg_header, read_jpeg
     from lemo_tpu_torch.data.png import read_png
     from lemo_tpu_torch.testing.jpeg_encode import write_jpeg
 
@@ -3792,13 +3797,20 @@ def phase_render(model_dict, info, card) -> dict:
     images = {}
     t0 = time.perf_counter()
     for k, fn in enumerate(frames):
-        # JPEG Color frames, as PROX ships them (baseline, q95, 4:2:0):
-        # the overlay keeps the frame as the port decodes it
+        # JPEG Color frames, as PROX ships them (q95, 4:2:0): baseline
+        # from the port's encoder, and one cv2 progressive frame; the
+        # overlay keeps the frame as the port decodes it
         path = os.path.join(rec_dir, "Color", fn + ".jpg")
-        write_jpeg(path, _render_frame(k), quality=95)
+        if k == RENDER_PROGRESSIVE:
+            shutil.copyfile(JPEG_PROGRESSIVE_FRAME, path)
+        else:
+            write_jpeg(path, _render_frame(k), quality=95)
         images[fn] = read_jpeg(path)
-    _log(f"[render] {len(frames)} 1920x1080 Color frames written as JPEG "
-         f"by the port's encoder and decoded in "
+    sofs = [jpeg_header(os.path.join(rec_dir, "Color", fn + ".jpg")).sof
+            for fn in frames]
+    _log(f"[render] {len(frames)} 1920x1080 JPEG Color frames ({sofs}: "
+         f"frame {RENDER_PROGRESSIVE} cv2's progressive fixture, the rest "
+         f"the port's encoder's) written and decoded in "
          f"{time.perf_counter() - t0:.2f} s")
     argv = ["--fitting_dir", _fitted_dir(info), "--model_folder",
             _eval_model_dir(model_dict), "--recording_dir", rec_dir,
@@ -3851,6 +3863,8 @@ def phase_render(model_dict, info, card) -> dict:
     if got_frames != frames or d_v > 1e-5 or counts != _forward_counts(1):
         faults.append(f"frames {got_frames}, vertices {d_v:.3e}, launches "
                       f"{counts}")
+    if sofs.count("SOF2") != 1:
+        faults.append(f"Color frames {sofs}: no progressive one")
     H, W = int(round(2 * 536.77)), int(round(2 * 951.30))
     for fn in frames:
         flipped = images[fn][:, ::-1]
@@ -4158,7 +4172,11 @@ def phase_native(card) -> None:
 
 
 JPEG_FIXTURES = os.path.join(ROOT, "tests", "data", "jpeg")
+PNG_FIXTURES = os.path.join(ROOT, "tests", "data", "png")
+JPEG_PROGRESSIVE_FRAME = os.path.join(
+    JPEG_FIXTURES, "frame_1920x1080_q95_420_progressive.jpg")
 JPEG_TIMED_CALLS = 10          # phase 10h's timed 1920x1080 decodes
+IMREAD_MODES = {"unchanged": -1, "grayscale": 0, "color": 1}
 
 
 def _host_cpu() -> str:
@@ -4190,74 +4208,131 @@ def _host_cpu() -> str:
         f"{os.cpu_count()}"
 
 
+def _still_refused(data: bytes) -> dict:
+    """A baseline JPEG's bytes with one property the port still refuses:
+    {what the refusal names: the file}."""
+    sof = data.index(b"\xff\xc0")
+
+    def marker(m):
+        return data[:sof + 1] + bytes([m]) + data[sof + 2:]
+
+    ncomp = data[sof + 9]
+    four = (data[:sof + 2] + (int.from_bytes(data[sof + 2:sof + 4], "big")
+                              + 3).to_bytes(2, "big")
+            + data[sof + 4:sof + 9] + bytes([4])
+            + data[sof + 10:sof + 10 + 3 * ncomp] + bytes([4, 0x11, 0])
+            + data[sof + 10 + 3 * ncomp:])
+    return {"SOF3 (lossless)": marker(0xC3),
+            "SOF9 (arithmetic-coded sequential)": marker(0xC9),
+            "SOF10 (arithmetic-coded progressive)": marker(0xCA),
+            "SOF7 (hierarchical lossless)": marker(0xC7),
+            "12-bit precision": data[:sof + 4] + b"\x0c" + data[sof + 5:],
+            "4 components": four}
+
+
 def phase_jpeg(card) -> dict:
-    """Phase 10h: the port's JPEG decoder (`data/jpeg.py`, the host
-    library `csrc/jpeg_cpu.cpp`) on the card's host. Builds the library;
-    decodes every fixture of tests/data/jpeg/ (written by cv2) and holds
-    the sha256 of its pixels to the cv2 digest stored beside it; holds
-    the library to its numpy twin `read_jpeg_plain` on the small fixtures
-    and on a 64x48 frame of the port's encoder (bit-equal); requires the
-    progressive fixture refused with its marker named; times the
-    1920x1080 fixture's decode (median of JPEG_TIMED_CALLS, file read
-    included) beside the host CPU's name."""
+    """Phase 10h: the port's frame readers on the card's host:
+    `data.png.imread` in cv2's three modes (IMREAD_UNCHANGED for Depth,
+    IMREAD_GRAYSCALE for masks, IMREAD_COLOR for Color frames) over PNG
+    and JPEG, the JPEG ones through the host library `csrc/jpeg_cpu.cpp`.
+    Builds the library; reads every fixture of tests/data/jpeg/ and
+    tests/data/png/ (written by cv2, PIL and the port's test encoder) in
+    each mode and holds the sha256 of what it gives to the cv2 digest
+    stored beside it; requires the scan-cut progressive fixture and
+    files with the still refused markers refused by name; holds the
+    library to its numpy twin on the small JPEG fixtures in each mode and
+    on a 64x48 frame of the port's encoder (bit-equal); times each
+    1920x1080 JPEG fixture's decode, sequential and progressive (median
+    of JPEG_TIMED_CALLS, file read included), beside the host CPU's and
+    the card's names."""
     import hashlib
 
     from lemo_tpu_torch import _build
     from lemo_tpu_torch.data import jpeg
+    from lemo_tpu_torch.data.png import imread
     from lemo_tpu_torch.testing.jpeg_encode import write_jpeg
+
+    def digest(img):
+        return {"sha256": hashlib.sha256(img.tobytes()).hexdigest(),
+                "shape": list(img.shape), "dtype": str(img.dtype)}
 
     t0 = time.perf_counter()
     path = _build.build_host_library(source=jpeg.JPEG_SOURCE)
     build_s = time.perf_counter() - t0
-    with open(os.path.join(JPEG_FIXTURES, "digests.json")) as fh:
-        digests = json.load(fh)["files"]
-    faults, plain_checked = [], []
-    for name, want in sorted(digests.items()):
-        f = os.path.join(JPEG_FIXTURES, name)
-        if "progressive" in name:
-            what = jpeg.jpeg_header(f).unsupported
-            try:
-                jpeg.read_jpeg(f)
-                refused = False
-            except ValueError as e:
-                refused = "SOF2 (progressive)" in str(e)
-            _log(f"[jpeg] {name}: refused {refused} ({what})")
-            if not refused or what != "SOF2 (progressive)":
-                faults.append(f"{name} not refused by name")
-            continue
-        img = jpeg.read_jpeg(f)
-        ok = hashlib.sha256(img.tobytes()).hexdigest() == want["sha256"] \
-            and list(img.shape) == want["shape"]
-        if not ok:
-            faults.append(f"{name}: digest differs from cv2's")
-        if img.size <= 64 * 48 * 3:
-            plain_checked.append(name)
-            if not np.array_equal(jpeg.read_jpeg_plain(f), img):
-                faults.append(f"{name}: library differs from read_jpeg_plain")
+    faults, plain_checked, n_held, refused = [], [], 0, []
+    for folder in (JPEG_FIXTURES, PNG_FIXTURES):
+        with open(os.path.join(folder, "digests.json")) as fh:
+            digests = json.load(fh)["files"]
+        for name, want in sorted(digests.items()):
+            f = os.path.join(folder, name)
+            if "port_refuses" in want:
+                for flags in IMREAD_MODES.values():
+                    try:
+                        imread(f, flags)
+                        faults.append(f"{name} decoded")
+                    except ValueError as e:
+                        if want["port_refuses"] not in str(e):
+                            faults.append(f"{name}: {e}")
+                refused.append(name)
+                continue
+            with open(f, "rb") as fh:
+                data = fh.read()
+            for mode, flags in IMREAD_MODES.items():
+                img = imread(f, flags)
+                n_held += 1
+                if digest(img) != want[mode]:
+                    faults.append(f"{name} ({mode}): digest differs from "
+                                  "cv2's")
+                if folder == JPEG_FIXTURES and len(data) < 4096:
+                    if not np.array_equal(
+                            jpeg.jpeg_imread(data, flags, plain=True), img):
+                        faults.append(f"{name} ({mode}): library differs "
+                                      "from the numpy twin")
+            if folder == JPEG_FIXTURES and len(data) < 4096:
+                plain_checked.append(name)
+    with open(os.path.join(JPEG_FIXTURES, "small_64x48_q90_422.jpg"),
+              "rb") as fh:
+        base = fh.read()
+    for what, data in _still_refused(base).items():
+        h = jpeg._header_from(data)
+        try:
+            jpeg.decode(data)
+            faults.append(f"{what}: decoded")
+        except ValueError as e:
+            if what not in str(e) or not (h.unsupported or "").startswith(
+                    what):
+                faults.append(f"{what}: refused as {e} / {h.unsupported}")
+        refused.append(what)
     enc = os.path.join(PROX_DIR, "jpeg_64x48.jpg")
     os.makedirs(PROX_DIR, exist_ok=True)
     write_jpeg(enc, _render_frame(1)[::22, ::30][:48, :64], quality=90)
     same = np.array_equal(jpeg.read_jpeg(enc), jpeg.read_jpeg_plain(enc))
     if not same:
         faults.append("encoder frame: library differs from read_jpeg_plain")
-    big = os.path.join(JPEG_FIXTURES, "frame_1920x1080_q95_420.jpg")
-    times = []
-    for _ in range(JPEG_TIMED_CALLS):
-        t0 = time.perf_counter()
-        jpeg.read_jpeg(big)
-        times.append((time.perf_counter() - t0) * 1e3)
-    ms = statistics.median(times)
+    ms = {}
+    for kind, big in (("sequential", os.path.join(
+            JPEG_FIXTURES, "frame_1920x1080_q95_420.jpg")),
+            ("progressive", JPEG_PROGRESSIVE_FRAME)):
+        times = []
+        for _ in range(JPEG_TIMED_CALLS):
+            t0 = time.perf_counter()
+            jpeg.read_jpeg(big)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[kind] = statistics.median(times)
+        _log(f"[jpeg] a 1920x1080 q95 4:2:0 {kind} decode (file read "
+             f"included): {ms[kind]:.2f} ms median of {JPEG_TIMED_CALLS} "
+             f"(min {min(times):.2f})")
     _log(f"[jpeg] {os.path.relpath(path)} built in {build_s:.2f} s; "
-         f"{len(digests) - 1} fixtures decoded to cv2's digests "
-         f"{not any('digest' in x for x in faults)}; library equal to "
-         f"read_jpeg_plain on {plain_checked} and a 64x48 encoder frame "
-         f"{same}; a 1920x1080 q95 4:2:0 decode (file read included) "
-         f"{ms:.2f} ms median of {JPEG_TIMED_CALLS} (min {min(times):.2f}) "
-         f"on the host, {_host_cpu()} (the card {card} idle)")
+         f"{n_held} fixture reads (JPEG and PNG, three modes) equal to "
+         f"cv2's digests {not any('digest' in x for x in faults)}; refused "
+         f"by name: {refused}; library equal to the numpy twin on "
+         f"{plain_checked} and a 64x48 encoder frame {same}; decodes on the "
+         f"host, {_host_cpu()}, the card {card} idle")
     if faults:
         raise AssertionError("jpeg: " + "; ".join(faults))
-    return {"decode_1920x1080_ms": ms, "build_s": build_s,
-            "host_cpu": _host_cpu()}
+    return {"decode_1920x1080_ms": ms["sequential"],
+            "decode_1920x1080_progressive_ms": ms["progressive"],
+            "build_s": build_s, "host_cpu": _host_cpu()}
 
 
 def phase10_kernel_rows(model, rows, launches: dict, card) -> list:

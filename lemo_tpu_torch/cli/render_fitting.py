@@ -15,10 +15,11 @@ saves (a) a marker animation sheet (matplotlib, `fitting_frames.png`),
 `<frame>_scene.png` (rendering_mode '3d'), both through the host
 software rasterizer (`utils.raster`). Color frames are read as
 `<frame>.jpg`, else `<frame>.png` (`data.png.read_color_frame`: the
-port's own PNG and JPEG decoders); a Color folder holding a JPEG that the
-decoder refuses (progressive, lossless, arithmetic-coded, 12-bit,
-4-component) is refused before the bodies are rebuilt. Each step is a
-function of its own, which `main` calls in this order.
+port's own PNG and JPEG decoders, cv2's colour mode bit for bit); a
+Color folder holding a JPEG that the decoder refuses (lossless,
+hierarchical, arithmetic-coded, 12-bit, 4-component, or progressive with
+its scans incomplete) is refused before the bodies are rebuilt. Each step
+is a function of its own, which `main` calls in this order.
 """
 
 from __future__ import annotations

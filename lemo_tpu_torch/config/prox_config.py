@@ -334,8 +334,9 @@ def check_ported(cfg: ProxConfig) -> None:
     """Raise on a set option that the port cannot take on this recording.
     Every option of `lemo_tpu`'s driver has its path in the port; what
     remains is `render_results` over JPEG Color frames that the port's
-    decoder refuses (progressive, lossless, arithmetic-coded, 12-bit or
-    4-component ones: `data.png.check_color_frames`; baseline JPEG and
+    decoder refuses (lossless, hierarchical, arithmetic-coded, 12-bit,
+    4-component, or progressive with their scans incomplete:
+    `data.png.check_color_frames`; sequential and progressive JPEG and
     PNG frames pass). `run_prox_fitting` calls this first, so such a run
     stops before its fits and not after the first window's pkls and
     plys."""

@@ -1,27 +1,47 @@
-// Baseline JPEG decoder for the host (the port's counterpart of the
-// `cv2.imread` call that `lemo_tpu` renders Color frames with).
+// JPEG decoder for the host (the port's counterpart of the `cv2.imread`
+// calls that `lemo_tpu` reads Color frames, and any JPEG Depth or mask
+// frame, with).
 //
-// Decodes sequential Huffman JPEG (SOF0, SOF1) at 8-bit precision with 1
-// or 3 components, any integer sampling factors up to 4, DQT/DHT anywhere
-// before a scan, restart intervals, several scans, and image sizes that
-// are no multiple of the MCU. Progressive, lossless, arithmetic-coded,
-// 12-bit and 4-component files are refused with the marker named.
+// Decodes sequential (SOF0, SOF1) and progressive (SOF2) Huffman JPEG at
+// 8-bit precision with 1 or 3 components, any integer sampling factors up
+// to 4, DQT/DHT anywhere before a scan, restart intervals, several scans,
+// and image sizes that are no multiple of the MCU. Lossless,
+// hierarchical, arithmetic-coded, 12-bit and 4-component files are
+// refused with the marker named, and so is a progressive file whose scans
+// leave AC coefficients 1-9 of a component unrefined (where libjpeg-turbo
+// would smooth the blocks: "progressive scans incomplete").
+//
+// A sequential scan's blocks go through the IDCT as they are decoded. A
+// progressive file's scans decode into a whole-image buffer of
+// coefficients per component (libjpeg's coefficient controller in
+// buffered mode): DC first and refine bits (interleaved or not), AC first
+// and refine bands of one component (spectral selection Ss..Se,
+// successive approximation Ah/Al, EOB runs, restarts; jdphuff.c), and
+// the IDCT runs over the buffer after the last scan. Either way the
+// latched quantization table of each component (the table when its first
+// scan began, jdinput.c) dequantizes its blocks.
 //
 // The pixels equal libjpeg-turbo's default decode (which cv2 bundles)
 // bit for bit: its ISLOW integer IDCT (jidctint.c), its fancy upsampling
 // (jdsample.c: the h2v1, h1v2 and h2v2 triangle filters with their
 // alternating rounding biases, edge rows and columns replicated, plain
 // replication for other ratios and for components two samples wide or
-// less), and its fixed-point YCbCr -> RGB tables (jdcolor.c). A
-// grayscale image is repeated into three channels; the colour space of a
-// 3-component file follows jdapimin.c (a JFIF marker means YCbCr, else
-// an Adobe marker's transform, else the component ids). The EXIF
-// orientation is left to the caller (`data/jpeg.py`).
+// less), and its fixed-point colour tables (jdcolor.c): YCbCr -> RGB,
+// and for grayscale output the Y component alone (YCbCr) or
+// rgb_gray_convert's weights (RGB). A grayscale image is repeated into
+// three channels for RGB output; the colour space of a 3-component file
+// follows jdapimin.c (a JFIF marker means YCbCr, else an Adobe marker's
+// transform, else the component ids). The EXIF orientation is left to
+// the caller (`data/jpeg.py`).
 //
 // C interface, bound with ctypes:
-//   int lemo_jpeg_dims(const uint8_t* data, int64_t n, int32_t* hw)
-//   int lemo_jpeg_decode_rgb(const uint8_t* data, int64_t n, uint8_t* out,
-//                            int64_t out_bytes, char* err, int32_t err_len)
+//   int lemo_jpeg_dims(const uint8_t* data, int64_t n, int32_t* hwc,
+//                      char* err, int32_t err_len)
+//     (height, width, components)
+//   int lemo_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out,
+//                        int64_t out_bytes, int32_t channels, char* err,
+//                        int32_t err_len)
+//     (channels 3: RGB [H, W, 3]; 1: grayscale [H, W])
 // Both return 0 on success and -1 on failure (`err` holds the reason).
 
 #include <algorithm>
@@ -79,14 +99,25 @@ struct Huffman {
   }
 };
 
+// zigzag positions 0-9 in natural order: the coefficients whose
+// unrefined bits make libjpeg-turbo smooth blocks (jdcoefct.c)
+const int kSmoothed[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
   int td = 0, ta = 0;
   int dw = 0, dh = 0;          // downsampled width, height
   int bw = 0, bh = 0;          // blocks across and down in the plane
   int stride = 0;
+  std::vector<int16_t> coef;   // progressive: bw x bh blocks of 64
   std::vector<uint8_t> plane;  // bw*8 x bh*8 samples
+  int q[64] = {};              // latched quantization table
+  bool latched = false;
+  int coef_bits[64];           // progressive: bits still unknown (-1: none)
   int pred = 0;
+  int16_t* block(int64_t row, int64_t col) {
+    return &coef[(size_t(row) * bw + col) * 64];
+  }
 };
 
 class Decoder {
@@ -106,7 +137,7 @@ class Decoder {
     if (!have_frame_) throw JpegError("no SOF marker before the scan");
   }
 
-  void decode(uint8_t* out) {
+  void decode(uint8_t* out, int channels) {
     for (;;) {
       if (pending_sos_) {
         scan();
@@ -117,16 +148,33 @@ class Decoder {
       if (m == 0xDA) { pending_sos_ = true; continue; }
       segment(m);
     }
-    to_rgb(out);
+    if (progressive_ && would_smooth())
+      throw JpegError("progressive scans incomplete (AC coefficients 1-9 "
+                      "of a component left unrefined, where libjpeg-turbo "
+                      "smooths the blocks)");
+    if (progressive_) {
+      for (auto& c : comps_)
+        for (int by = 0; by < c.bh; ++by)
+          for (int bx = 0; bx < c.bw; ++bx)
+            idct(c.block(by, bx), c.q,
+                 &c.plane[size_t(by) * 8 * c.stride + size_t(bx) * 8],
+                 c.stride);
+    }
+    if (channels == 1)
+      to_gray(out);
+    else
+      to_rgb(out);
   }
 
   int height = 0, width = 0;
+  int components() const { return int(comps_.size()); }
 
  private:
   const uint8_t* d_;
   int64_t n_;
   int64_t pos_ = 0;
-  bool pending_sos_ = false, have_frame_ = false;
+  bool pending_sos_ = false, have_frame_ = false, progressive_ = false;
+  int eobrun_ = 0;
   bool saw_jfif_ = false, saw_adobe_ = false;
   int adobe_transform_ = -1;
   int restart_interval_ = 0;
@@ -163,8 +211,8 @@ class Decoder {
     int len = u16();
     if (len < 2 || pos_ + len - 2 > n_) throw JpegError("bad segment length");
     int64_t end = pos_ + len - 2;
-    if (m == 0xC0 || m == 0xC1) {
-      sof(end);
+    if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+      sof(end, m == 0xC2);
     } else if ((m >= 0xC2 && m <= 0xCF) && m != 0xC4 && m != 0xC8 &&
                m != 0xCC) {
       char buf[96];
@@ -173,8 +221,10 @@ class Decoder {
                          : (m == 0xC3 || m == 0xC7 || m == 0xCB || m == 0xCF)
                              ? "lossless"
                              : "sequential";
-      std::snprintf(buf, sizeof(buf), "SOF%d (%s%s) is not supported",
-                    m - 0xC0, (m >= 0xC9) ? "arithmetic-coded " : "", what);
+      const bool hierarchical = (m >= 0xC5 && m <= 0xC7) || m >= 0xCD;
+      std::snprintf(buf, sizeof(buf), "SOF%d (%s%s%s) is not supported",
+                    m - 0xC0, (m >= 0xC9) ? "arithmetic-coded " : "",
+                    hierarchical ? "hierarchical " : "", what);
       throw JpegError(buf);
     } else if (m == 0xCC) {
       throw JpegError("DAC (arithmetic coding) is not supported");
@@ -199,8 +249,9 @@ class Decoder {
     pos_ = end;
   }
 
-  void sof(int64_t end) {
+  void sof(int64_t end, bool progressive) {
     if (have_frame_) throw JpegError("a second SOF marker");
+    progressive_ = progressive;
     int precision = u8();
     height = u16();
     width = u16();
@@ -242,6 +293,8 @@ class Decoder {
       c.bh = mcuy_ * c.v;
       c.stride = c.bw * 8;
       c.plane.assign(size_t(c.stride) * c.bh * 8, 0);
+      if (progressive) c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
+      std::fill(c.coef_bits, c.coef_bits + 64, -1);
     }
     have_frame_ = true;
   }
@@ -345,6 +398,7 @@ class Decoder {
     while (p < n_ && d_[p] == 0xFF) ++p;
     if (p < n_ && d_[p] >= 0xD0 && d_[p] <= 0xD7) pos_ = p + 1;
     for (auto& c : comps_) c.pred = 0;
+    eobrun_ = 0;
   }
 
   void block(Component& c, int16_t* coef) {
@@ -368,6 +422,103 @@ class Decoder {
         k += 16;
       }
     }
+  }
+
+  // ---- progressive scans (jdphuff.c) ----
+  void dc_first(Component& c, int16_t* coef, int al) {
+    int s = huff(dc_[c.td]);
+    int diff = s ? extend(bits(s), s) : 0;
+    c.pred += diff;
+    coef[0] = static_cast<int16_t>(unsigned(c.pred) << al);
+  }
+
+  void dc_refine(int16_t* coef, int al) {
+    if (bits(1)) coef[0] = static_cast<int16_t>(coef[0] | (1 << al));
+  }
+
+  void ac_first(const Component& c, int16_t* coef, int ss, int se, int al) {
+    if (eobrun_ > 0) {
+      --eobrun_;
+      return;
+    }
+    const Huffman& ac = ac_[c.ta];
+    for (int k = ss; k <= se; ++k) {
+      int rs = huff(ac);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        coef[kNatural[k]] =
+            static_cast<int16_t>(unsigned(extend(bits(s), s)) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun_ = 1 << r;
+        if (r) eobrun_ += bits(r);
+        --eobrun_;
+        break;
+      }
+    }
+  }
+
+  // one correction bit for an already nonzero coefficient
+  void refine(int16_t* p, int p1) {
+    if (bits(1) && (*p & p1) == 0)
+      *p = static_cast<int16_t>(*p >= 0 ? *p + p1 : *p - p1);
+  }
+
+  void ac_refine(const Component& c, int16_t* coef, int ss, int se, int al) {
+    const int p1 = 1 << al;
+    int k = ss;
+    if (eobrun_ == 0) {
+      const Huffman& ac = ac_[c.ta];
+      for (; k <= se; ++k) {
+        int rs = huff(ac);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = bits(1) ? p1 : -p1;  // the size of a new coefficient is 1
+        } else if (r != 15) {
+          eobrun_ = 1 << r;
+          if (r) eobrun_ += bits(r);
+          break;                   // the EOB run's logic below
+        }
+        // pass the nonzero coefficients (a correction bit each) and r
+        // zero ones; a new coefficient goes into the zero after them
+        do {
+          int16_t* p = coef + kNatural[k];
+          if (*p != 0) {
+            refine(p, p1);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) coef[kNatural[k]] = static_cast<int16_t>(s);
+      }
+    }
+    if (eobrun_ > 0) {
+      for (; k <= se; ++k) {
+        int16_t* p = coef + kNatural[k];
+        if (*p != 0) refine(p, p1);
+      }
+      --eobrun_;
+    }
+  }
+
+  // libjpeg-turbo's smoothing_ok (jdcoefct.c): whether the output pass
+  // would smooth the blocks (every component latched, with nonzero
+  // quantizers at zigzag 0-9 and a DC scan, and some AC coefficient 1-9
+  // of some component with bits still unknown)
+  bool would_smooth() const {
+    bool useful = false;
+    for (const auto& c : comps_) {
+      if (!c.latched) return false;
+      for (int k : kSmoothed)
+        if (c.q[k] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; ++k)
+        if (c.coef_bits[k] != 0) useful = true;
+    }
+    return useful;
   }
 
   static inline uint8_t range_limit(int64_t x) {
@@ -505,22 +656,43 @@ class Decoder {
       if (!c) throw JpegError("SOS names an unknown component");
       c->td = t >> 4;
       c->ta = t & 15;
-      if (c->td > 3 || c->ta > 3 || !dc_[c->td].defined ||
-          !ac_[c->ta].defined)
-        throw JpegError("SOS uses an undefined Huffman table");
-      if (!qt_defined_[c->tq])
-        throw JpegError("a component uses an undefined quantization table");
+      if (c->td > 3 || c->ta > 3) throw JpegError("bad SOS table id");
       sc.push_back(c);
     }
     int ss = u8(), se = u8(), ahal = u8();
-    if (ss != 0 || se != 63 || ahal != 0)
-      throw JpegError("spectral selection or successive approximation in a "
-                      "sequential scan");
+    int ah = ahal >> 4, al = ahal & 15;
+    bool need_dc, need_ac;
+    if (!progressive_) {
+      if (ss != 0 || se != 63 || ahal != 0)
+        throw JpegError("spectral selection or successive approximation in "
+                        "a sequential scan");
+      need_dc = need_ac = true;
+    } else {
+      // jdphuff.c's start_pass_phuff_decoder
+      bool dc = ss == 0;
+      bool bad = dc ? se != 0 : (ss > se || se > 63 || ns != 1);
+      if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
+      if (bad) throw JpegError("bad progression parameters in a scan");
+      need_dc = dc && ah == 0;
+      need_ac = !dc;
+      for (auto* c : sc)
+        for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
+    }
+    for (auto* c : sc) {
+      if ((need_dc && !dc_[c->td].defined) || (need_ac && !ac_[c->ta].defined))
+        throw JpegError("SOS uses an undefined Huffman table");
+      if (!c->latched) {  // jdinput.c's latch_quant_tables
+        if (!qt_defined_[c->tq])
+          throw JpegError("a component uses an undefined quantization table");
+        std::memcpy(c->q, qt_[c->tq], sizeof(c->q));
+        c->latched = true;
+      }
+    }
     bitbuf_ = 0;
     bitcnt_ = 0;
     hit_marker_ = false;
+    eobrun_ = 0;
     for (auto* c : sc) c->pred = 0;
-    int16_t coef[64];
     int64_t mcus, per_row;
     if (ns == 1) {
       Component& c = *sc[0];
@@ -530,6 +702,26 @@ class Decoder {
       per_row = mcux_;
       mcus = int64_t(mcux_) * mcuy_;
     }
+    // a sequential block goes through the IDCT at once; a progressive one
+    // stays in the coefficient buffer until the last scan
+    int16_t seq[64];
+    auto unit = [&](Component& c, int64_t row, int64_t col) {
+      if (!progressive_) {
+        block(c, seq);
+        idct(seq, c.q, &c.plane[size_t(row) * 8 * c.stride + size_t(col) * 8],
+             c.stride);
+        return;
+      }
+      int16_t* coef = c.block(row, col);
+      if (ss == 0 && ah == 0)
+        dc_first(c, coef, al);
+      else if (ss == 0)
+        dc_refine(coef, al);
+      else if (ah == 0)
+        ac_first(c, coef, ss, se, al);
+      else
+        ac_refine(c, coef, ss, se, al);
+    };
     int64_t todo = restart_interval_;
     for (int64_t m = 0; m < mcus; ++m) {
       if (restart_interval_ && todo == 0) {
@@ -538,21 +730,12 @@ class Decoder {
       }
       int64_t my = m / per_row, mx = m % per_row;
       if (ns == 1) {
-        Component& c = *sc[0];
-        block(c, coef);
-        idct(coef, qt_[c.tq], &c.plane[size_t(my) * 8 * c.stride + mx * 8],
-             c.stride);
+        unit(*sc[0], my, mx);
       } else {
-        for (auto* cp : sc) {
-          Component& c = *cp;
-          for (int by = 0; by < c.v; ++by)
-            for (int bx = 0; bx < c.h; ++bx) {
-              block(c, coef);
-              size_t row = size_t(my * c.v + by) * 8;
-              size_t col = size_t(mx * c.h + bx) * 8;
-              idct(coef, qt_[c.tq], &c.plane[row * c.stride + col], c.stride);
-            }
-        }
+        for (auto* cp : sc)
+          for (int by = 0; by < cp->v; ++by)
+            for (int bx = 0; bx < cp->h; ++bx)
+              unit(*cp, my * cp->v + by, mx * cp->h + bx);
       }
       --todo;
     }
@@ -625,12 +808,47 @@ class Decoder {
     for (int x = 0; x < width; ++x) out[x] = in[x / hr];
   }
 
+  bool rgb_colour_space() const {
+    if (saw_jfif_) return false;
+    if (saw_adobe_) return adobe_transform_ == 0;
+    return comps_[0].id == 82 && comps_[1].id == 71 && comps_[2].id == 66;
+  }
+
+  size_t scratch_size() const {
+    size_t scratch = 8;
+    for (const auto& c : comps_)
+      scratch = std::max(scratch, size_t(c.stride) * 2 + 8);
+    return scratch;
+  }
+
+  // jdcolor.c's grayscale output: the Y component of a grayscale or YCbCr
+  // file (grayscale_convert), rgb_gray_convert's weights for an RGB one
+  void to_gray(uint8_t* out) const {
+    const size_t W = width;
+    std::vector<int> tmp(scratch_size());
+    std::vector<uint8_t> o(scratch_size());
+    if (comps_.size() == 1 || !rgb_colour_space()) {
+      for (int y = 0; y < height; ++y)
+        upsample_row(comps_[0], y, tmp.data(), o.data(), out + size_t(y) * W);
+      return;
+    }
+    auto FIX = [](double x) { return int64_t(x * 65536.0 + 0.5); };
+    std::vector<uint8_t> a(W), b(W), c(W);
+    for (int y = 0; y < height; ++y) {
+      upsample_row(comps_[0], y, tmp.data(), o.data(), a.data());
+      upsample_row(comps_[1], y, tmp.data(), o.data(), b.data());
+      upsample_row(comps_[2], y, tmp.data(), o.data(), c.data());
+      uint8_t* op = out + size_t(y) * W;
+      for (size_t x = 0; x < W; ++x)
+        op[x] = uint8_t((FIX(0.29900) * a[x] + FIX(0.58700) * b[x] +
+                         FIX(0.11400) * c[x] + 32768) >> 16);
+    }
+  }
+
   void to_rgb(uint8_t* out) const {
     const size_t W = width;
-    size_t scratch = 8;
-    for (const auto& c : comps_) scratch = std::max(scratch, size_t(c.stride) * 2 + 8);
-    std::vector<int> tmp(scratch);
-    std::vector<uint8_t> o(scratch);
+    std::vector<int> tmp(scratch_size());
+    std::vector<uint8_t> o(scratch_size());
     if (comps_.size() == 1) {
       std::vector<uint8_t> g(W);
       for (int y = 0; y < height; ++y) {
@@ -640,14 +858,7 @@ class Decoder {
       }
       return;
     }
-    bool rgb;
-    if (saw_jfif_) {
-      rgb = false;
-    } else if (saw_adobe_) {
-      rgb = adobe_transform_ == 0;
-    } else {
-      rgb = comps_[0].id == 82 && comps_[1].id == 71 && comps_[2].id == 66;
-    }
+    const bool rgb = rgb_colour_space();
     // jdcolor.c's build_ycc_rgb_table
     auto FIX = [](double x) { return int64_t(x * 65536.0 + 0.5); };
     int cr_r[256], cb_b[256];
@@ -693,13 +904,14 @@ void set_err(char* err, int32_t len, const char* msg) {
 
 }  // namespace
 
-extern "C" int lemo_jpeg_dims(const uint8_t* data, int64_t n, int32_t* hw,
+extern "C" int lemo_jpeg_dims(const uint8_t* data, int64_t n, int32_t* hwc,
                               char* err, int32_t err_len) {
   try {
     Decoder dec(data, n);
     dec.read_header();
-    hw[0] = dec.height;
-    hw[1] = dec.width;
+    hwc[0] = dec.height;
+    hwc[1] = dec.width;
+    hwc[2] = dec.components();
     return 0;
   } catch (const std::exception& e) {
     set_err(err, err_len, e.what());
@@ -707,15 +919,17 @@ extern "C" int lemo_jpeg_dims(const uint8_t* data, int64_t n, int32_t* hw,
   }
 }
 
-extern "C" int lemo_jpeg_decode_rgb(const uint8_t* data, int64_t n,
-                                    uint8_t* out, int64_t out_bytes,
-                                    char* err, int32_t err_len) {
+extern "C" int lemo_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out,
+                                int64_t out_bytes, int32_t channels,
+                                char* err, int32_t err_len) {
   try {
+    if (channels != 1 && channels != 3)
+      throw JpegError("channels must be 1 or 3");
     Decoder dec(data, n);
     dec.read_header();
-    if (int64_t(dec.height) * dec.width * 3 != out_bytes)
+    if (int64_t(dec.height) * dec.width * channels != out_bytes)
       throw JpegError("output buffer size does not match the image");
-    dec.decode(out);
+    dec.decode(out, channels);
     return 0;
   } catch (const std::exception& e) {
     set_err(err, err_len, e.what());

@@ -1,4 +1,4 @@
-"""Baseline JPEG decoding on the host (the port needs no cv2).
+"""JPEG decoding on the host (the port needs no cv2).
 
 Real PROX recordings ship their Color frames as `Color/<frame>.jpg`, which
 `lemo_tpu` reads with `cv2.imread(path)[:, :, ::-1]`. The port decodes
@@ -12,20 +12,30 @@ raises with the compiler's message, and no call gives way to numpy.
   fixed-point YCbCr -> RGB tables (the library's header comment), a
   grayscale image repeated into three channels, and the EXIF orientation
   applied as cv2 applies it.
-- `read_jpeg_plain(path)`: the same function in numpy (Huffman decoding
-  in Python, the IDCT, upsampling and colour conversion vectorised): the
-  version the tests and `chip_smoke.py` hold the library to. Slow; for
-  small images.
-- `jpeg_header(path)`: the markers up to the first scan, and what the
-  decoder refuses (`JpegHeader.unsupported`): progressive (SOF2),
-  lossless (SOF3), hierarchical (SOF5-7), arithmetic coding (SOF9-15, DAC),
-  precision other than 8 bits, components other than 1 or 3, a height
-  set by DNL.
+- `jpeg_imread(data, flags)`: `cv2.imread` in each of its three modes
+  (`data.png.imread` dispatches a JPEG here): IMREAD_COLOR, BGR [H, W, 3],
+  oriented; IMREAD_GRAYSCALE, [H, W], oriented (the Y component of a
+  grayscale or YCbCr file, libjpeg's RGB -> Y weights for an RGB one);
+  IMREAD_UNCHANGED, [H, W] for one component and BGR [H, W, 3] for three,
+  in the stored orientation (cv2 applies none in that mode).
+- `read_jpeg_plain(path)`, `decode_plain(data, channels)`: the same
+  decode in numpy (Huffman decoding in Python, the IDCT, upsampling and
+  colour conversion vectorised): the version the tests and
+  `chip_smoke.py` hold the library to. Slow; for small images.
+- `jpeg_header(path)`: the markers up to the first scan (and a
+  progressive file's scan headers), and what the decoder refuses
+  (`JpegHeader.unsupported`): lossless (SOF3), hierarchical (SOF5-7),
+  arithmetic coding (SOF9-15, DAC), precision other than 8 bits,
+  components other than 1 or 3, a height set by DNL, and a progressive
+  file whose scans leave AC coefficients 1-9 of a component unrefined
+  ("progressive scans incomplete": libjpeg-turbo smooths such blocks at
+  output, which the port does not rebuild).
 
-What is decoded: sequential Huffman JPEG (SOF0, SOF1), 1 or 3 components
-with integer sampling ratios (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1), DQT and
-DHT anywhere before a scan, restart intervals, several scans, any image
-size.
+What is decoded: sequential (SOF0, SOF1) and progressive (SOF2) Huffman
+JPEG, 1 or 3 components with integer sampling ratios (4:4:4, 4:2:2,
+4:2:0, 4:4:0, 4:1:1), DQT and DHT anywhere before a scan, restart
+intervals, several scans (progressive ones with spectral selection,
+successive approximation and EOB runs), any image size.
 """
 
 from __future__ import annotations
@@ -42,6 +52,13 @@ from lemo_tpu_torch import _build
 
 JPEG_SOURCE = os.path.join(_build.CSRC, "jpeg_cpu.cpp")
 EXTENSIONS = (".jpg", ".jpeg")
+# cv2's imread flags, for `jpeg_imread` and `data.png.imread`
+IMREAD_UNCHANGED, IMREAD_GRAYSCALE, IMREAD_COLOR = -1, 0, 1
+DECODED = ("sequential and progressive Huffman, 8-bit, 1 or 3 components, "
+           "progressive scans complete")
+# zigzag positions 0-9 in natural order: the coefficients whose unrefined
+# bits make libjpeg-turbo smooth the blocks of a progressive file
+SMOOTHED = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24)
 
 # zigzag index -> natural (row-major) index
 NATURAL = np.array([
@@ -60,7 +77,7 @@ def is_jpeg_path(path: str) -> bool:
 
 def _sof_refusal(m: int) -> str | None:
     """The name of a frame marker the decoder refuses, or None."""
-    if m in (0xC0, 0xC1):
+    if m in (0xC0, 0xC1, 0xC2):
         return None
     arith = m >= 0xC9
     kind = {0: "sequential", 1: "sequential", 2: "progressive",
@@ -76,7 +93,13 @@ def _exif_orientation(body: bytes) -> int | None:
     data, or None."""
     if len(body) < 14 or body[:6] != b"Exif\x00\x00":
         return None
-    tiff = body[6:]
+    return tiff_orientation(body[6:])
+
+
+def tiff_orientation(tiff: bytes) -> int | None:
+    """Tag 274 (Orientation) of IFD0 of TIFF-structured Exif data (an
+    APP1 segment's after its "Exif" header, a PNG eXIf chunk's body), or
+    None."""
     order = {b"II": "<", b"MM": ">"}.get(tiff[:2])
     if order is None:
         return None
@@ -98,7 +121,9 @@ class JpegHeader:
     """What the markers before the first scan say. `unsupported` names
     the marker or property that the decoder refuses (None when it
     decodes the file); `orientation` is the EXIF tag's value (1 when
-    absent)."""
+    absent); `scans` the (component ids, table selectors, Ss, Se, Ah,
+    Al) of each scan header read (a progressive file's all, else its
+    first)."""
 
     width: int = 0
     height: int = 0
@@ -110,16 +135,22 @@ class JpegHeader:
     adobe_transform: int | None = None
     orientation: int = 1
     unsupported: str | None = None
+    scans: list = dataclasses.field(default_factory=list)
+
+    @property
+    def progressive(self) -> bool:
+        return self.sof == "SOF2"
 
 
 def _segments(data: bytes, start: int = 2):
-    """Yield (marker, body, end) of each segment from `start` on, up to
-    and including the first SOS (whose body is its header); standalone
-    markers yield an empty body."""
+    """Yield (marker, body, end) of each segment from `start` on (an
+    SOS's body is its header; the entropy-coded data after it is
+    skipped), up to EOI; standalone markers yield an empty body."""
     pos, n = start, len(data)
     while True:
-        while pos < n and data[pos] != 0xFF:
-            pos += 1
+        pos = data.find(b"\xff", pos)
+        if pos < 0:
+            return
         while pos < n and data[pos] == 0xFF:
             pos += 1
         if pos >= n:
@@ -141,10 +172,69 @@ def _segments(data: bytes, start: int = 2):
         yield m, body, pos
 
 
-def _header_from(data: bytes) -> JpegHeader:
+def _dqt(body: bytes) -> dict:
+    """A DQT segment's tables: {table id: [8, 8] int64, natural order}."""
+    out, k = {}, 0
+    while k < len(body):
+        pq, tq = body[k] >> 4, body[k] & 15
+        k += 1
+        if pq:
+            vals = struct.unpack(">64H", body[k:k + 128])
+            k += 128
+        else:
+            vals = list(body[k:k + 64])
+            k += 64
+        t = np.zeros(64, np.int64)
+        t[NATURAL] = np.asarray(vals, np.int64)
+        out[tq] = t.reshape(8, 8)
+    return out
+
+
+def _sos(body: bytes) -> tuple:
+    """(component ids, table selectors, Ss, Se, Ah, Al) of an SOS header."""
+    ns = body[0]
+    ids = [body[1 + 2 * i] for i in range(ns)]
+    tables = [body[2 + 2 * i] for i in range(ns)]
+    ss, se, ahal = body[1 + 2 * ns:4 + 2 * ns]
+    return ids, tables, ss, se, ahal >> 4, ahal & 15
+
+
+def _incomplete(h: JpegHeader, quant: dict, scans: list) -> str | None:
+    """libjpeg-turbo's smoothing_ok (jdcoefct.c) over a progressive
+    file's scans: where its output pass would smooth the blocks (every
+    component latched a quantization table, `quant`, with nonzero entries
+    at zigzag 0-9 and had a DC scan, and some component's AC coefficient
+    1-9 still has unknown bits), the refusal's text; else None."""
+    known = {cid: [-1] * 64 for cid, _, _ in h.components}
+    for ids, _, ss, se, _, al in scans:
+        for cid in ids:
+            if cid in known:
+                known[cid][ss:se + 1] = [al] * (se + 1 - ss)
+    short = []
+    for cid, bits in known.items():
+        q = quant.get(cid)
+        if q is None or (q.reshape(-1)[list(SMOOTHED)] == 0).any() \
+                or bits[0] < 0:
+            return None
+        if any(b != 0 for b in bits[1:10]):
+            short.append(cid)
+    if not short:
+        return None
+    return (f"progressive scans incomplete (AC coefficients 1-9 of "
+            f"component{'s' * (len(short) > 1)} "
+            f"{', '.join(map(str, short))} left unrefined, where "
+            "libjpeg-turbo smooths the blocks)")
+
+
+def _header_from(data: bytes, whole: bool = True) -> JpegHeader:
+    """The header of the JPEG `data`; `whole`: `data` is the whole file,
+    so that a progressive one's scan headers are all read (else they
+    stop at the first)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
     h = JpegHeader()
+    tables, tq, quant = {}, {}, {}
+    eoi = False
     for m, body, _ in _segments(data):
         if 0xC0 <= m <= 0xCF and m not in (0xC4, 0xC8, 0xCC):
             h.sof = f"SOF{m - 0xC0}"
@@ -155,6 +245,8 @@ def _header_from(data: bytes) -> JpegHeader:
                 h.components = [(body[6 + 3 * i], body[7 + 3 * i] >> 4,
                                  body[7 + 3 * i] & 15)
                                 for i in range(nc) if 8 + 3 * i < len(body)]
+                tq = {body[6 + 3 * i]: body[8 + 3 * i]
+                      for i in range(nc) if 8 + 3 * i < len(body)}
             if h.unsupported is None:
                 h.unsupported = _sof_refusal(m)
             if h.unsupported is None and h.precision != 8:
@@ -172,6 +264,8 @@ def _header_from(data: bytes) -> JpegHeader:
                 h.unsupported = f"fractional sampling ratios ({h.sof})"
         elif m == 0xCC and h.unsupported is None:
             h.unsupported = "DAC (arithmetic coding)"
+        elif m == 0xDB:
+            tables.update(_dqt(body))
         elif m == 0xDD and len(body) >= 2:
             (h.restart_interval,) = struct.unpack(">H", body[:2])
         elif m == 0xE0 and len(body) >= 14 and body[:5] == b"JFIF\x00":
@@ -183,11 +277,23 @@ def _header_from(data: bytes) -> JpegHeader:
             if o is not None and 1 <= o <= 8:
                 h.orientation = o
         elif m == 0xDA:
-            break
+            scan = _sos(body)
+            h.scans.append(scan)
+            for cid in scan[0]:   # the table each component latches
+                if cid not in quant and tq.get(cid) in tables:
+                    quant[cid] = tables[tq[cid]]
+            if not (whole and h.progressive and h.unsupported is None):
+                break
         elif m == 0xD9:
+            eoi = True
             break
     if not h.sof and h.unsupported is None:
         h.unsupported = "no frame (SOF) marker before the scan"
+    if whole and h.progressive and h.unsupported is None:
+        if not eoi:
+            h.unsupported = "a progressive file without its EOI marker"
+        else:
+            h.unsupported = _incomplete(h, quant, h.scans)
     return h
 
 
@@ -210,11 +316,15 @@ def _read_head(path: str) -> bytes:
 
 
 def jpeg_header(path: str) -> JpegHeader:
-    """Parse the markers of `path` up to its first scan (see
-    `JpegHeader`); raises ValueError, naming the file, on one that is no
-    JPEG."""
+    """Parse the markers of `path` up to its first scan, and a
+    progressive file's scan headers to its end (see `JpegHeader`);
+    raises ValueError, naming the file, on one that is no JPEG."""
     try:
-        return _header_from(_read_head(path))
+        h = _header_from(_read_head(path), whole=False)
+        if h.progressive and h.unsupported is None:
+            with open(path, "rb") as fh:
+                h = _header_from(fh.read())
+        return h
     except ValueError as e:
         raise ValueError(f"{path}: {e}") from None
 
@@ -222,16 +332,15 @@ def jpeg_header(path: str) -> JpegHeader:
 def _refuse(path: str, h: JpegHeader) -> JpegHeader:
     if h.unsupported:
         raise ValueError(f"{path}: {h.unsupported} is not supported by the "
-                         "port's JPEG decoder (baseline and extended "
-                         "sequential Huffman, 8-bit, 1 or 3 components)")
+                         f"port's JPEG decoder ({DECODED})")
     return h
 
 
 def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
     """The EXIF orientation applied as cv2's `imread` applies it (flips
-    and a transpose of the decoded image)."""
+    and a transpose of the decoded [H, W] or [H, W, C] image)."""
     if orientation in (5, 6, 7, 8):
-        img = img.transpose(1, 0, 2)
+        img = img.swapaxes(0, 1)
     if orientation in (2, 3, 6, 7):
         img = img[:, ::-1]
     if orientation in (3, 4, 7, 8):
@@ -248,25 +357,28 @@ def _load() -> ctypes.CDLL:
     lib.lemo_jpeg_dims.argtypes = [ctypes.c_char_p, ctypes.c_int64,
                                    ctypes.POINTER(ctypes.c_int32),
                                    ctypes.c_char_p, ctypes.c_int32]
-    lib.lemo_jpeg_decode_rgb.argtypes = [ctypes.c_char_p, ctypes.c_int64,
-                                         ctypes.c_void_p, ctypes.c_int64,
-                                         ctypes.c_char_p, ctypes.c_int32]
+    lib.lemo_jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                     ctypes.c_void_p, ctypes.c_int64,
+                                     ctypes.c_int32, ctypes.c_char_p,
+                                     ctypes.c_int32]
     lib.lemo_jpeg_dims.restype = ctypes.c_int
-    lib.lemo_jpeg_decode_rgb.restype = ctypes.c_int
+    lib.lemo_jpeg_decode.restype = ctypes.c_int
     return lib
 
 
-def decode_rgb(data: bytes) -> np.ndarray:
-    """The library's decode of a JPEG held in memory: uint8 RGB
-    [H, W, 3] in the file's stored orientation."""
+def decode(data: bytes, channels: int = 3) -> np.ndarray:
+    """The library's decode of a JPEG held in memory, in the file's
+    stored orientation: uint8 RGB [H, W, 3] (`channels` 3) or grayscale
+    [H, W] (1)."""
     lib = _load()
     err = ctypes.create_string_buffer(256)
-    hw = (ctypes.c_int32 * 2)()
-    if lib.lemo_jpeg_dims(data, len(data), hw, err, 256):
+    hwc = (ctypes.c_int32 * 3)()
+    if lib.lemo_jpeg_dims(data, len(data), hwc, err, 256):
         raise ValueError(f"JPEG: {err.value.decode()}")
-    out = np.empty((hw[0], hw[1], 3), np.uint8)
-    if lib.lemo_jpeg_decode_rgb(data, len(data), out.ctypes.data, out.size,
-                                err, 256):
+    out = np.empty((hwc[0], hwc[1], 3) if channels == 3 else
+                   (hwc[0], hwc[1]), np.uint8)
+    if lib.lemo_jpeg_decode(data, len(data), out.ctypes.data, out.size,
+                            channels, err, 256):
         raise ValueError(f"JPEG: {err.value.decode()}")
     return out
 
@@ -278,9 +390,31 @@ def read_jpeg(path: str) -> np.ndarray:
         data = fh.read()
     h = _refuse(path, _header_from(data))
     try:
-        img = decode_rgb(data)
+        img = decode(data, 3)
     except ValueError as e:
         raise ValueError(f"{path}: {e}") from None
+    return apply_orientation(img, h.orientation)
+
+
+def jpeg_imread(data: bytes, flags: int, name: str = "JPEG",
+                plain: bool = False) -> np.ndarray:
+    """`cv2.imread(path, flags)` of the JPEG `data` (see the module
+    docstring) through the library, or through the numpy twin with
+    `plain`."""
+    if flags not in (IMREAD_UNCHANGED, IMREAD_GRAYSCALE, IMREAD_COLOR):
+        raise ValueError(f"imread flags {flags}: not one of IMREAD_UNCHANGED, "
+                         "IMREAD_GRAYSCALE, IMREAD_COLOR")
+    h = _refuse(name, _header_from(data))
+    gray = flags == IMREAD_GRAYSCALE or (flags == IMREAD_UNCHANGED
+                                         and len(h.components) == 1)
+    try:
+        img = (decode_plain if plain else decode)(data, 1 if gray else 3)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+    if not gray:
+        img = img[:, :, ::-1]
+    if flags == IMREAD_UNCHANGED:
+        return np.ascontiguousarray(img)
     return apply_orientation(img, h.orientation)
 
 
@@ -357,7 +491,8 @@ def _intervals(data: bytes, pos: int) -> tuple[list, int]:
 
 
 _F = {k: int(v * 65536.0 + 0.5) for k, v in
-      (("r", 1.40200), ("b", 1.77200), ("gr", 0.71414), ("gb", 0.34414))}
+      (("r", 1.40200), ("b", 1.77200), ("gr", 0.71414), ("gb", 0.34414),
+       ("y_r", 0.29900), ("y_g", 0.58700), ("y_b", 0.11400))}
 
 
 def _idct_islow(coef: np.ndarray, q: np.ndarray) -> np.ndarray:
@@ -447,9 +582,18 @@ def read_jpeg_plain(path: str) -> np.ndarray:
     with open(path, "rb") as fh:
         data = fh.read()
     h = _refuse(path, _header_from(data))
+    return apply_orientation(decode_plain(data, 3), h.orientation)
+
+
+def decode_plain(data: bytes, channels: int = 3) -> np.ndarray:
+    """`decode` in numpy: every scan into whole-image coefficient arrays
+    (one [rows, columns, 64] array of blocks a component, natural order),
+    then the IDCT with each component's latched table, upsampling and
+    colour conversion."""
+    h = _refuse("JPEG", _header_from(data))
     qt, dc, ac = {}, {}, {}
     comps, ri = [], 0
-    hmax = vmax = mcux = mcuy = 0
+    frame = {}
     pos = 2
     while True:
         seg = next(_segments(data, pos), None)
@@ -458,34 +602,24 @@ def read_jpeg_plain(path: str) -> np.ndarray:
         m, body, pos = seg
         if m == 0xD9:
             break
-        if m in (0xC0, 0xC1):
+        if m in (0xC0, 0xC1, 0xC2):
             nc = body[5]
             comps = [{"id": body[6 + 3 * i], "h": body[7 + 3 * i] >> 4,
                       "v": body[7 + 3 * i] & 15, "tq": body[8 + 3 * i]}
                      for i in range(nc)]
             hmax = max(c["h"] for c in comps)
             vmax = max(c["v"] for c in comps)
-            mcux = -(-h.width // (8 * hmax))
-            mcuy = -(-h.height // (8 * vmax))
+            frame = {"hmax": hmax, "vmax": vmax, "progressive": m == 0xC2,
+                     "mcux": -(-h.width // (8 * hmax)),
+                     "mcuy": -(-h.height // (8 * vmax))}
             for c in comps:
                 c["dw"] = -(-h.width * c["h"] // hmax)
                 c["dh"] = -(-h.height * c["v"] // vmax)
-                c["plane"] = np.zeros((mcuy * c["v"] * 8,
-                                       mcux * c["h"] * 8), np.uint8)
+                c["coef"] = np.zeros((frame["mcuy"] * c["v"],
+                                      frame["mcux"] * c["h"], 64), np.int64)
+                c["q"] = None
         elif m == 0xDB:
-            k = 0
-            while k < len(body):
-                pq, tq = body[k] >> 4, body[k] & 15
-                k += 1
-                if pq:
-                    vals = struct.unpack(">64H", body[k:k + 128])
-                    k += 128
-                else:
-                    vals = list(body[k:k + 64])
-                    k += 64
-                t = np.zeros(64, np.int64)
-                t[NATURAL] = np.asarray(vals, np.int64)
-                qt[tq] = t.reshape(8, 8)
+            qt.update(_dqt(body))
         elif m == 0xC4:
             k = 0
             while k < len(body):
@@ -498,77 +632,155 @@ def read_jpeg_plain(path: str) -> np.ndarray:
         elif m == 0xDD:
             (ri,) = struct.unpack(">H", body[:2])
         elif m == 0xDA:
-            pos = _scan(data, body, pos, comps, qt, dc, ac, ri, mcux, mcuy)
-    return apply_orientation(_to_rgb(h, comps, hmax, vmax), h.orientation)
+            pos = _scan(data, body, pos, comps, frame, qt, dc, ac, ri)
+    for c in comps:
+        q = c["q"] if c["q"] is not None else np.zeros((8, 8), np.int64)
+        by, bx = c["coef"].shape[:2]
+        blocks = _idct_islow(c["coef"].reshape(-1, 8, 8), q)
+        c["plane"] = blocks.reshape(by, bx, 8, 8).transpose(
+            0, 2, 1, 3).reshape(by * 8, bx * 8)
+    return _to_output(h, comps, frame["hmax"], frame["vmax"], channels)
 
 
-def _scan(data, body, pos, comps, qt, dc, ac, ri, mcux, mcuy) -> int:
-    """Decode one scan into the components' planes; returns the position
-    after its entropy-coded data."""
-    ns = body[0]
+def _block_sequential(bits, c, coef, dc, ac):
+    s = bits.huff(dc[c["td"]])
+    c["pred"] += _extend(bits.get(s), s) if s else 0
+    coef[:] = 0
+    coef[0] = c["pred"]
+    k = 1
+    while k < 64:
+        rs = bits.huff(ac[c["ta"]])
+        r, s = rs >> 4, rs & 15
+        if s:
+            k += r
+            coef[NATURAL[min(k, 63)]] = _extend(bits.get(s), s)
+            k += 1
+        elif r == 15:
+            k += 16
+        else:
+            break
+
+
+def _ac_first(bits, table, coef, ss, se, al, eobrun) -> int:
+    """One block of an AC first scan; returns the EOB run left."""
+    if eobrun:
+        return eobrun - 1
+    k = ss
+    while k <= se:
+        rs = bits.huff(table)
+        r, s = rs >> 4, rs & 15
+        if s:
+            k += r
+            coef[NATURAL[min(k, 63)]] = _extend(bits.get(s), s) * (1 << al)
+        elif r == 15:
+            k += 15
+        else:
+            return (1 << r) + (bits.get(r) if r else 0) - 1
+        k += 1
+    return 0
+
+
+def _ac_refine(bits, table, coef, ss, se, al, eobrun) -> int:
+    """One block of an AC refine scan (jdphuff.c's decode_mcu_AC_refine);
+    returns the EOB run left."""
+    p1 = 1 << al
+
+    def correct(pos):
+        if bits.get(1) and not coef[pos] & p1:
+            coef[pos] += p1 if coef[pos] >= 0 else -p1
+
+    k = ss
+    if eobrun == 0:
+        while k <= se:
+            rs = bits.huff(table)
+            r, s = rs >> 4, rs & 15
+            if s:
+                s = p1 if bits.get(1) else -p1
+            elif r != 15:
+                eobrun = (1 << r) + (bits.get(r) if r else 0)
+                break
+            while k <= se:
+                pos = NATURAL[k]
+                if coef[pos]:
+                    correct(pos)
+                else:
+                    r -= 1
+                    if r < 0:
+                        break
+                k += 1
+            if s:
+                coef[NATURAL[min(k, 63)]] = s
+            k += 1
+    if eobrun:
+        for kk in range(k, se + 1):
+            if coef[NATURAL[kk]]:
+                correct(NATURAL[kk])
+        eobrun -= 1
+    return eobrun
+
+
+def _scan(data, body, pos, comps, frame, qt, dc, ac, ri) -> int:
+    """Decode one scan into the components' coefficients; returns the
+    position after its entropy-coded data."""
+    ids, sel, ss, se, ah, al = _sos(body)
     sc = []
-    for i in range(ns):
-        cid, t = body[1 + 2 * i], body[2 + 2 * i]
+    for cid, t in zip(ids, sel):
         c = next(c for c in comps if c["id"] == cid)
         c["td"], c["ta"] = t >> 4, t & 15
+        if c["q"] is None:
+            c["q"] = qt[c["tq"]]
         sc.append(c)
     intervals, end = _intervals(data, pos)
-    if ns == 1:
+    if len(sc) == 1:
         c = sc[0]
         per_row = -(-c["dw"] // 8)
         units = [[(c, 0, 0)]]
         n_mcu = per_row * -(-c["dh"] // 8)
     else:
-        per_row = mcux
+        per_row = frame["mcux"]
         units = [[(c, by, bx) for by in range(c["v"]) for bx in range(c["h"])]
                  for c in sc]
-        n_mcu = mcux * mcuy
+        n_mcu = frame["mcux"] * frame["mcuy"]
     per_interval = ri if ri else n_mcu
-    coefs = {id(c): [] for c in sc}
-    where = {id(c): [] for c in sc}
+    eobrun = 0
     for m in range(n_mcu):
         if m % per_interval == 0:
             k = m // per_interval
             bits = _Bits(intervals[k] if k < len(intervals) else b"")
+            eobrun = 0
             for c in sc:
                 c["pred"] = 0
         my, mx = divmod(m, per_row)
         for unit in units:
             for c, by, bx in unit:
-                coef = np.zeros(64, np.int64)
-                s = bits.huff(dc[c["td"]])
-                c["pred"] += _extend(bits.get(s), s) if s else 0
-                coef[0] = c["pred"]
-                k = 1
-                while k < 64:
-                    rs = bits.huff(ac[c["ta"]])
-                    r, s = rs >> 4, rs & 15
-                    if s:
-                        k += r
-                        coef[NATURAL[min(k, 63)]] = _extend(bits.get(s), s)
-                        k += 1
-                    elif r == 15:
-                        k += 16
-                    else:
-                        break
-                coefs[id(c)].append(coef)
-                if ns == 1:
-                    where[id(c)].append((my, mx))
+                if len(sc) == 1:
+                    coef = c["coef"][my, mx]
                 else:
-                    where[id(c)].append((my * c["v"] + by, mx * c["h"] + bx))
-    for c in sc:
-        blocks = _idct_islow(np.asarray(coefs[id(c)]).reshape(-1, 8, 8),
-                             qt[c["tq"]])
-        for (r, col), blk in zip(where[id(c)], blocks):
-            c["plane"][8 * r:8 * r + 8, 8 * col:8 * col + 8] = blk
+                    coef = c["coef"][my * c["v"] + by, mx * c["h"] + bx]
+                if not frame["progressive"]:
+                    _block_sequential(bits, c, coef, dc, ac)
+                elif ss == 0 and ah == 0:
+                    s = bits.huff(dc[c["td"]])
+                    c["pred"] += _extend(bits.get(s), s) if s else 0
+                    coef[0] = c["pred"] * (1 << al)
+                elif ss == 0:
+                    coef[0] |= bits.get(1) << al
+                elif ah == 0:
+                    eobrun = _ac_first(bits, ac[c["ta"]], coef, ss, se, al,
+                                       eobrun)
+                else:
+                    eobrun = _ac_refine(bits, ac[c["ta"]], coef, ss, se, al,
+                                        eobrun)
     return end
 
 
-def _to_rgb(h: JpegHeader, comps, hmax, vmax) -> np.ndarray:
+def _to_output(h: JpegHeader, comps, hmax, vmax, channels) -> np.ndarray:
     H, W = h.height, h.width
     up = [_upsample(c["plane"], c["dw"], c["dh"], hmax // c["h"],
                     vmax // c["v"], W, H).astype(np.int64) for c in comps]
     if len(comps) == 1:
+        if channels == 1:
+            return up[0].astype(np.uint8)
         return np.repeat(up[0][:, :, None], 3, axis=2).astype(np.uint8)
     if h.jfif:
         rgb = False
@@ -576,6 +788,12 @@ def _to_rgb(h: JpegHeader, comps, hmax, vmax) -> np.ndarray:
         rgb = h.adobe_transform == 0
     else:
         rgb = [c["id"] for c in comps] == [82, 71, 66]
+    if channels == 1:
+        if not rgb:
+            return up[0].astype(np.uint8)
+        r, g, b = up
+        y = (_F["y_r"] * r + _F["y_g"] * g + _F["y_b"] * b + 32768) >> 16
+        return y.astype(np.uint8)
     if rgb:
         return np.stack(up, axis=-1).astype(np.uint8)
     y, cb, cr = up

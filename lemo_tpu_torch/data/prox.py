@@ -2,8 +2,10 @@
 temp_prox/data_parser_slide.py:47-346): OpenPose keypoints, depth scans,
 marker masks, warm-start pkls and the overlapping sliding-window
 schedule. A window is assembled on the host into fixed-shape numpy
-arrays and moved to the card once. Depth and mask PNGs are decoded by
-`data.png` (zlib + numpy), so the port needs no cv2.
+arrays and moved to the card once. Depth and mask frames are read by
+`data.png.imread` in the modes `lemo_tpu` reads them with `cv2.imread`
+(IMREAD_UNCHANGED and IMREAD_GRAYSCALE), bit for bit, so the port needs
+no cv2.
 """
 
 from __future__ import annotations
@@ -16,18 +18,8 @@ import pickle
 
 import numpy as np
 
-from lemo_tpu_torch.data.png import read_png
+from lemo_tpu_torch.data.png import IMREAD_GRAYSCALE, IMREAD_UNCHANGED, imread
 from lemo_tpu_torch.data.projection import KinectProjection
-
-
-def _gray(img: np.ndarray) -> np.ndarray:
-    """A decoded PNG as 8-bit grayscale (cv2.IMREAD_GRAYSCALE's weights
-    for colour files, which PROX's masks are not)."""
-    if img.ndim == 2:
-        return img
-    rgb = img[..., :3].astype(np.float64)
-    g = rgb @ np.array([0.299, 0.587, 0.114])
-    return np.clip(np.round(g), 0, 255).astype(np.uint8)
 
 
 SCAN_MAX_POINTS = 20000  # fixed scan padding (data_parser_slide.py:317-323)
@@ -411,11 +403,11 @@ class ProxWindowDataset:
         scan = np.zeros((SCAN_MAX_POINTS, 3), np.float32)
         n_pts = 0
         if self.read_depth and self.read_mask:
-            depth = read_png(osp.join(self.depth_folder, fn + ".png")
-                             ).astype(float)
+            depth = imread(osp.join(self.depth_folder, fn + ".png"),
+                           IMREAD_UNCHANGED).astype(float)
             depth = depth / 8.0 * self.depth_scale
-            mask = _gray(read_png(osp.join(self.mask_color_folder,
-                                           fn + ".png")))
+            mask = imread(osp.join(self.mask_color_folder, fn + ".png"),
+                          IMREAD_GRAYSCALE)
             if self.flip:
                 depth = np.ascontiguousarray(depth[:, ::-1])
                 mask = np.ascontiguousarray(mask[:, ::-1])

@@ -2,14 +2,18 @@
 library `csrc/jpeg_cpu.cpp` and its numpy twin `read_jpeg_plain`) against
 cv2, which `lemo_tpu` reads Color frames with: every case must give
 exactly `cv2.imread(path)[:, :, ::-1]`, bit for bit (the decoder follows
-libjpeg-turbo's ISLOW IDCT, fancy upsampling and colour tables).
+libjpeg-turbo's ISLOW IDCT, fancy upsampling and colour tables), and
+`cv2.imread(path, flags)` in the grayscale and unchanged modes
+(`data.png.imread`, `jpeg_imread`), sequential and progressive files
+alike.
 
 Also: the port's test encoder (`testing/jpeg_encode.py`) decoded alike
-by cv2 and the port; the committed fixtures' stored cv2 digests
-recomputed with cv2 (so that they cannot drift from it); the EXIF
-orientation of a hand-spliced APP1 segment; and the frames the decoder
-refuses (progressive, arithmetic-coded, 12-bit) named up front by
-`check_color_frames`.
+by cv2 and the port; the committed fixtures' stored cv2 digests in the
+three modes recomputed with cv2 (so that they cannot drift from it); the
+EXIF orientation of a hand-spliced APP1 segment; a progressive file cut
+after some of its scans (which libjpeg-turbo would smooth) refused by
+name; and the frames the decoder refuses (lossless, arithmetic-coded,
+12-bit) named up front by `check_color_frames`.
 """
 
 import hashlib
@@ -22,11 +26,13 @@ import numpy as np
 import pytest
 
 from lemo_tpu_torch.data import jpeg as J
-from lemo_tpu_torch.data.png import check_color_frames, read_color_frame
+from lemo_tpu_torch.data.png import check_color_frames, imread, \
+    read_color_frame
 from lemo_tpu_torch.testing.jpeg_encode import encode_jpeg, write_jpeg
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                         "jpeg")
+MODES = {"unchanged": -1, "grayscale": 0, "color": 1}
 SAMPLING = {"444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
             "422": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
             "420": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420,
@@ -60,10 +66,11 @@ CASES = ([((h, w), q, s, 0, False) for h, w in ((23, 37), (48, 64))
                                                        (9, 17))])
 
 
-def _cv2_write(path, case):
+def _cv2_write(path, case, progressive=False):
     (h, w), q, s, ri, opt = case
     img = _image(h, w, seed=h * w + q)
-    flags = [cv2.IMWRITE_JPEG_QUALITY, q]
+    flags = [cv2.IMWRITE_JPEG_QUALITY, q,
+             cv2.IMWRITE_JPEG_PROGRESSIVE, int(progressive)]
     if s == "gray":
         img = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
     else:
@@ -89,6 +96,89 @@ def test_decodes_like_cv2(tmp_path, case):
     np.testing.assert_array_equal(lib, ref)
     np.testing.assert_array_equal(plain, ref)
     np.testing.assert_array_equal(read_color_frame(path), ref)
+    _modes_like_cv2(path, plain=True)
+
+
+def _modes_like_cv2(path, plain=False):
+    """`imread` (the library) and, with `plain`, the numpy twin in the
+    three modes: cv2's dtype, shape and bytes."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    for flags in MODES.values():
+        ref = cv2.imread(path, flags)
+        for got in [imread(path, flags)] + (
+                [J.jpeg_imread(data, flags, plain=True)] if plain else []):
+            assert got.dtype == ref.dtype and got.shape == ref.shape, flags
+            np.testing.assert_array_equal(got, ref)
+
+
+# progressive: (size (h, w), quality, sampling or "gray", restart interval,
+# optimized; cv2 writes a progressive file's Huffman tables optimized)
+PROGRESSIVE = ([((h, w), q, s, 0, False) for h, w in ((23, 37), (48, 64))
+                for q in (50, 90, 100) for s in ("444", "422", "420", "gray")]
+               + [((h, w), 90, s, ri, False) for h, w in ((23, 37), (48, 64))
+                  for s, ri in (("420", 1), ("444", 3), ("gray", 2))]
+               + [((48, 64), 90, s, 0, False) for s in ("440", "411")]
+               + [((h, w), 90, "420", 0, False) for h, w in ((1, 1), (2, 3),
+                                                             (9, 17))])
+
+
+@pytest.mark.parametrize(
+    "case", PROGRESSIVE, ids=[f"{h}x{w}-q{q}-{s}-rst{ri}"
+                              for (h, w), q, s, ri, _ in PROGRESSIVE])
+def test_progressive_decodes_like_cv2(tmp_path, case):
+    """cv2's progressive files (10 scans for colour, 6 for grayscale:
+    DC first and refine, AC bands with successive approximation, EOB
+    runs, restarts in non-interleaved scans): the library and the numpy
+    twin give cv2's pixels in the three modes."""
+    path = str(tmp_path / "p.jpg")
+    _cv2_write(path, case, progressive=True)
+    h = J.jpeg_header(path)
+    assert h.sof == "SOF2" and h.unsupported is None
+    assert len(h.scans) == (6 if case[2] == "gray" else 10)
+    ref = cv2.imread(path)[:, :, ::-1]
+    np.testing.assert_array_equal(J.read_jpeg(path), ref)
+    np.testing.assert_array_equal(J.read_jpeg_plain(path), ref)
+    np.testing.assert_array_equal(read_color_frame(path), ref)
+    _modes_like_cv2(path, plain=True)
+
+
+def _cut(data: bytes, scans: int) -> bytes:
+    sos = [i for i in range(len(data) - 1)
+           if data[i] == 0xFF and data[i + 1] == 0xDA]
+    dht = data.rfind(b"\xff\xc4", sos[scans - 1], sos[scans])
+    return data[:dht if dht > 0 else sos[scans]] + b"\xff\xd9"
+
+
+@pytest.mark.parametrize("scans", range(1, 10))
+def test_progressive_scans_cut_refused_by_name(tmp_path, scans):
+    """A cv2 progressive file cut after `scans` of its 10 scans, its EOI
+    kept: cv2 decodes it to other pixels than the whole file's
+    (libjpeg-turbo smooths blocks whose AC coefficients 1-9 are still
+    unrefined). The port refuses every such cut up front by name, in the
+    header, both decoders and `check_color_frames`, and never decodes it
+    silently."""
+    ok, buf = cv2.imencode(".jpg", _image(48, 64), [
+        cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    data = _cut(buf.tobytes(), scans)
+    color = tmp_path / "Color"
+    color.mkdir()
+    path = color / "c.jpg"
+    path.write_bytes(data)
+    ref = cv2.imread(str(path))
+    assert ref is not None and ref.shape == (48, 64, 3)
+    what = "progressive scans incomplete"
+    assert J.jpeg_header(str(path)).unsupported.startswith(what)
+    with pytest.raises(ValueError, match=what):
+        J.decode(data)
+    with pytest.raises(ValueError, match=what):
+        J.decode_plain(data)
+    for flags in MODES.values():
+        with pytest.raises(ValueError, match=what):
+            imread(str(path), flags)
+    with pytest.raises(ValueError, match=what) as e:
+        check_color_frames(str(color))
+    assert str(path) in str(e.value)
 
 
 @pytest.mark.parametrize("sub,ri,gray", [("420", 0, False),
@@ -117,23 +207,39 @@ def _fixtures():
         return json.load(fh)["files"]
 
 
+def _digest(img):
+    return {"sha256": hashlib.sha256(img.tobytes()).hexdigest(),
+            "shape": list(img.shape), "dtype": str(img.dtype)}
+
+
 @pytest.mark.parametrize("name", sorted(_fixtures()))
 def test_fixture_digests(name):
-    """Each fixture's stored digest is cv2's (recomputed here); the port
-    decodes every fixture it takes to that digest, and names the marker
-    of the one it refuses."""
+    """Each fixture's stored digests (cv2's three modes) are cv2's,
+    recomputed here; the port decodes every fixture it takes to them
+    (progressive ones too, the small ones through the numpy twin as
+    well), and refuses the scan-cut one by name."""
     want = _fixtures()[name]
     path = os.path.join(FIXTURES, name)
-    ref = cv2.imread(path)[:, :, ::-1]
-    assert hashlib.sha256(ref.tobytes()).hexdigest() == want["sha256"]
-    assert list(ref.shape) == want["shape"]
-    if "progressive" in name:
-        assert J.jpeg_header(path).unsupported == "SOF2 (progressive)"
-        with pytest.raises(ValueError, match="SOF2"):
-            J.read_jpeg(path)
+    with open(path, "rb") as fh:
+        data = fh.read()
+    for mode, flags in MODES.items():
+        assert _digest(cv2.imread(path, flags)) == want[mode], mode
+    if "port_refuses" in want:
+        assert J.jpeg_header(path).unsupported.startswith(
+            want["port_refuses"])
+        for flags in MODES.values():
+            with pytest.raises(ValueError, match=want["port_refuses"]):
+                imread(path, flags)
+        with pytest.raises(ValueError, match=want["port_refuses"]):
+            J.decode(data)
         return
-    got = J.read_jpeg(path)
-    assert hashlib.sha256(got.tobytes()).hexdigest() == want["sha256"]
+    for mode, flags in MODES.items():
+        assert _digest(imread(path, flags)) == want[mode], mode
+        if os.path.getsize(path) < 4096:
+            assert _digest(J.jpeg_imread(data, flags, plain=True)) == \
+                want[mode], mode
+    rgb = J.read_jpeg(path)
+    assert _digest(rgb[:, :, ::-1]) == want["color"]
 
 
 def _exif_app1(orientation: int, order: str) -> bytes:
@@ -167,6 +273,7 @@ def test_exif_orientation_like_cv2(tmp_path, orientation):
     np.testing.assert_array_equal(J.read_jpeg(path), ref)
     np.testing.assert_array_equal(J.read_jpeg_plain(path), ref)
     assert ref.shape[:2] == ((37, 23) if orientation >= 5 else (23, 37))
+    _modes_like_cv2(path)       # IMREAD_UNCHANGED keeps the stored order
 
 
 def _with_marker(data: bytes, old: int, new: int) -> bytes:
@@ -178,12 +285,16 @@ def _with_marker(data: bytes, old: int, new: int) -> bytes:
     ("progressive", "SOF2 (progressive)"),
     ("arithmetic", "SOF9 (arithmetic-coded sequential)"),
     ("arithmetic progressive", "SOF10 (arithmetic-coded progressive)"),
-    ("12-bit", "12-bit precision")])
+    ("12-bit", "12-bit precision"),
+    ("lossless", "SOF3 (lossless)"),
+    ("progressive, no EOI", "a progressive file without its EOI marker")])
 def test_refused_frames_named_up_front(tmp_path, kind, marker):
     """`check_color_frames` names the frame and the marker of a JPEG the
-    decoder refuses (a cv2 progressive file; a baseline file's SOF0 made
-    SOF9 or SOF10, or its precision 12), and passes a folder of baseline
-    frames and PNGs."""
+    decoder refuses (a baseline file's SOF0 made SOF9, SOF10 or SOF3
+    (lossless), or its precision 12; a progressive file without its
+    EOI), and passes a folder of baseline frames and PNGs; a cv2
+    progressive file, once refused, now passes and decodes to cv2's
+    pixels."""
     color = tmp_path / "Color"
     color.mkdir()
     img = _image(16, 24)
@@ -191,7 +302,7 @@ def test_refused_frames_named_up_front(tmp_path, kind, marker):
     assert cv2.imwrite(str(color / "b.png"), img)
     check_color_frames(str(color))
     ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]
-                           if kind == "progressive" else [])
+                           if kind.startswith("progressive") else [])
     data = buf.tobytes()
     if kind.startswith("arithmetic"):
         data = _with_marker(data, 0xC0, 0xC9 if kind == "arithmetic"
@@ -199,8 +310,19 @@ def test_refused_frames_named_up_front(tmp_path, kind, marker):
     elif kind == "12-bit":
         i = data.index(b"\xff\xc0")
         data = data[:i + 4] + b"\x0c" + data[i + 5:]
+    elif kind == "lossless":
+        data = _with_marker(data, 0xC0, 0xC3)
+    elif kind == "progressive, no EOI":
+        data = data[:-2]
     bad = color / "c.jpg"
     bad.write_bytes(data)
+    if kind == "progressive":
+        h = J.jpeg_header(str(bad))
+        assert (h.sof, h.unsupported) == (marker.split(" ")[0], None)
+        check_color_frames(str(color))
+        np.testing.assert_array_equal(read_color_frame(str(bad)),
+                                      cv2.imread(str(bad))[:, :, ::-1])
+        return
     assert J.jpeg_header(str(bad)).unsupported.startswith(marker)
     with pytest.raises(ValueError) as e:
         check_color_frames(str(color))
@@ -221,7 +343,7 @@ def test_encoder_full_frame_size():
     assert (h.width, h.height, h.components) == (
         1920, 1080, [(1, 2, 2), (2, 1, 1), (3, 1, 1)])
     ref = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
-    np.testing.assert_array_equal(J.decode_rgb(data), ref[:, :, ::-1])
+    np.testing.assert_array_equal(J.decode(data), ref[:, :, ::-1])
 
 
 def _adobe_app14(transform: int) -> bytes:
@@ -258,6 +380,7 @@ def test_colour_space_rules_like_cv2(tmp_path, markers, ids):
     ref = cv2.imread(path)[:, :, ::-1]
     np.testing.assert_array_equal(J.read_jpeg(path), ref)
     np.testing.assert_array_equal(J.read_jpeg_plain(path), ref)
+    _modes_like_cv2(path, plain=True)   # an RGB file's gray: libjpeg's Y
 
 
 @pytest.mark.parametrize("order", ["tables_first", "tables_last", "com"])

@@ -95,11 +95,13 @@ def test_unported_options_raise(field, value):
 
 
 def test_render_results_refuses_jpeg_frames(tmp_path):
-    """`render_results` over a progressive JPEG Color frame, which the
-    port's decoder refuses, stops `run_prox_fitting` before it loads or
-    fits anything, with the frame and the marker named; with the flag
-    off, or with the frame as baseline JPEG (which the port decodes, as
-    `lemo_tpu`'s cv2 does) or as PNG, the check passes."""
+    """`render_results` over a JPEG Color frame that the port's decoder
+    refuses (a progressive file cut after its third scan: its scans
+    incomplete) stops `run_prox_fitting` before it loads or fits
+    anything, with the frame and the reason named; with the flag off, or
+    with the frame as a whole progressive or baseline JPEG (which the
+    port decodes, as `lemo_tpu`'s cv2 does) or as PNG, the check
+    passes."""
     from lemo_tpu_torch.fitting.prox.driver import run_prox_fitting
 
     color = tmp_path / "recordings" / "N0Sittingbooth_00162_01" / "Color"
@@ -107,17 +109,26 @@ def test_render_results_refuses_jpeg_frames(tmp_path):
     jpg = color / "s001_frame_00001__00.00.00.029.jpg"
     img = np.random.RandomState(0).randint(0, 256, (24, 32, 3)).astype(
         np.uint8)
-    assert cv2.imwrite(str(jpg), img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    whole = buf.tobytes()
+    sos = whole.index(b"\xff\xda", whole.index(b"\xff\xda") + 2)
+    sos = whole.index(b"\xff\xda", sos + 2)
+    sos = whole.index(b"\xff\xda", sos + 2)
+    jpg.write_bytes(whole[:whole.rfind(b"\xff\xc4", 0, sos)] + b"\xff\xd9")
     cfg = dataclasses.replace(
         ProxConfig(), recording_dir=str(color.parent), render_results=True,
         output_folder=str(tmp_path / "out"))
-    with pytest.raises(ValueError, match=r"SOF2 \(progressive\)") as e:
+    with pytest.raises(ValueError, match="progressive scans incomplete") as e:
         check_ported(cfg)
     assert str(jpg) in str(e.value)
-    with pytest.raises(ValueError, match=r"SOF2 \(progressive\)"):
+    with pytest.raises(ValueError, match="progressive scans incomplete"):
         run_prox_fitting(cfg, device="cpu")
     assert not (tmp_path / "out").exists()
     check_ported(dataclasses.replace(cfg, render_results=False))
+    jpg.write_bytes(whole)
+    check_ported(cfg)
+    np.testing.assert_array_equal(png.read_color_frame(str(jpg)),
+                                  cv2.imread(str(jpg))[:, :, ::-1])
     assert cv2.imwrite(str(jpg), img)
     check_ported(cfg)
     np.testing.assert_array_equal(png.read_color_frame(str(jpg)),

@@ -128,11 +128,11 @@ def test_render_fitting_clis_match(tmp_path):
                                           ("3d", False)])
 def test_render_fitting_refuses_jpeg_frames(tmp_path, monkeypatch, mode,
                                             refused):
-    """A Color folder with a progressive `.jpg` frame, which the port's
-    decoder refuses, is refused before the bodies are rebuilt when
-    overlays are asked for, with the marker named; `--rendering_mode 3d`
-    reads no Color frame and goes on. The same frame as baseline JPEG
-    passes the check in every mode."""
+    """A Color folder with a `.jpg` frame that the port's decoder refuses
+    (a baseline file's SOF0 made SOF3, lossless) is refused before the
+    bodies are rebuilt when overlays are asked for, with the marker
+    named; `--rendering_mode 3d` reads no Color frame and goes on. The
+    same frame as baseline JPEG passes the check in every mode."""
     import cv2
 
     color = tmp_path / "rec" / "Color"
@@ -140,7 +140,10 @@ def test_render_fitting_refuses_jpeg_frames(tmp_path, monkeypatch, mode,
     frame = color / "s001_frame_00001__00.00.00.029.jpg"
     img = np.random.RandomState(1).randint(0, 256, (24, 32, 3)).astype(
         np.uint8)
-    assert cv2.imwrite(str(frame), img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    ok, buf = cv2.imencode(".jpg", img)
+    data = buf.tobytes()
+    sof = data.index(b"\xff\xc0")
+    frame.write_bytes(data[:sof + 1] + b"\xc3" + data[sof + 2:])
     rebuilt = []
     monkeypatch.setattr(t_cli, "rebuild_bodies",
                         lambda args, dev: rebuilt.append(1) or
@@ -149,7 +152,7 @@ def test_render_fitting_refuses_jpeg_frames(tmp_path, monkeypatch, mode,
             str(tmp_path), "--recording_dir", str(color.parent),
             "--rendering_mode", mode]
     if refused:
-        with pytest.raises(ValueError, match=r"SOF2 \(progressive\)"):
+        with pytest.raises(ValueError, match=r"SOF3 \(lossless\)"):
             t_cli.main(argv, device="cpu")
         assert rebuilt == []
     else:

@@ -4,10 +4,10 @@ scene) and `run_prox_fitting` with `render_results` on a two-window fit.
 Both packages read the same `.jpg` files: `lemo_tpu` through
 `cv2.imread`, the port through its own decoder (`data.jpeg`). Frames are
 written by the port's encoder (`testing.jpeg_encode`, also through the
-synthetic writer's `color_format="jpg"`) or by cv2. The overlays are
-held as tests/test_torch_raster.py holds `render_body_overlay`'s: pixels
-equal but for at most 0.5% of the body's (the two packages' vertices
-differ by rounding)."""
+synthetic writer's `color_format="jpg"`) or by cv2 (baseline and
+progressive). The overlays are held as tests/test_torch_raster.py holds
+`render_body_overlay`'s: pixels equal but for at most 0.5% of the body's
+(the two packages' vertices differ by rounding)."""
 
 import os
 
@@ -53,7 +53,9 @@ def _write_jpeg_frames(rec_dir, frames, h, w, encoder):
             write_jpeg(path, _frame(h, w, k), quality=95)
         else:
             assert cv2.imwrite(path, _frame(h, w, k)[:, :, ::-1],
-                               [cv2.IMWRITE_JPEG_QUALITY, 90])
+                               [cv2.IMWRITE_JPEG_QUALITY, 90,
+                                cv2.IMWRITE_JPEG_PROGRESSIVE,
+                                int(encoder == "cv2_progressive")])
 
 
 def _hold(got, ref, verts, faces, w, h, f, cx, cy, flipped_frame=None):
@@ -67,10 +69,11 @@ def _hold(got, ref, verts, faces, w, h, f, cx, cy, flipped_frame=None):
         np.testing.assert_array_equal(got[keep], flipped_frame[keep])
 
 
-@pytest.mark.parametrize("encoder", ["port", "cv2"])
+@pytest.mark.parametrize("encoder", ["port", "cv2", "cv2_progressive"])
 def test_render_fitting_over_jpeg_frames(tmp_path, encoder):
     """Both render_fitting CLIs on the recording's pkls with 320x240
-    `.jpg` Color frames: the overlays and scene renders match, and the
+    `.jpg` Color frames (baseline from the port's encoder or cv2, or
+    progressive from cv2): the overlays and scene renders match, and the
     overlay keeps the frame (as cv2 decodes it, flipped) where no body
     is drawn."""
     W, H, F_ = 320, 240, 300.0
@@ -97,6 +100,8 @@ def test_render_fitting_over_jpeg_frames(tmp_path, encoder):
     assert frames == info["frame_names"][0:4:2]
     for i, fn in enumerate(frames):
         src = os.path.join(info["recording_dir"], "Color", fn + ".jpg")
+        with open(src, "rb") as fh:
+            assert (b"\xff\xc2" in fh.read()) == (encoder == "cv2_progressive")
         flipped = cv2.imread(src)[:, ::-1, ::-1]
         np.testing.assert_array_equal(read_jpeg(src)[:, ::-1], flipped)
         for kind in ("output", "scene"):

@@ -200,27 +200,32 @@ Phases (any failure raises and the script exits non-zero):
    bodies' lower half (`--scene_points`), through the kernels and the
    plain versions: equal masks, or a differing entry's marker within
    2e-5 m of a bucket edge or the margin; the occluded shares. (10c)
-   render_fitting with `--rendering_mode both` on 4 of phase 6's fitted
-   frames in a copy of the recording with 1920x1080 JPEG Color frames
-   (three baseline from the port's encoder, one progressive from cv2:
-   tests/data/jpeg/'s 1920x1080 progressive fixture; the overlays keep
-   them as the port decodes them), through the kernels and the plain
-   versions: vertices within 1e-5 m, the
-   overlays and scene renders at their sizes with body and frame (scene)
-   pixels, at most 0.1% of the body's pixels differing; without
-   matplotlib its steps but the marker sheet run by name, and a line
-   says so. (10d) `run_prox_fitting` on a copy of phase 6's recording
-   whose Color frames are JPEG with
-   PROXD_temp_S3.yaml, `save_meshes` and `render_results` on, 10 steps a
-   window, windows in sequence and window-parallel: a ply (10,475
-   vertices, 20,080 faces) and a png for each of the 170 frames, each
-   ply within 1e-5 m of the plain forward of its frame's pkl, one chain
-   and one vertex forward a saver call. (10e) vis_opt_amass's rebuild of
-   clip 0 of phase 4b's Stage-2 output (T = 119) through the kernels and
-   the plain versions: markers within 1e-5 m; the sheet only with
-   matplotlib. (10f) 3 Stage-2 steps in `profile_trace`, each in
-   `annotate("s2_step")`: the Chrome trace names the annotation and the
-   chain and vertex kernels; `wallclock` prints the wall. (10g) The host
+   render_fitting's `main` with `--rendering_mode both` on 4 of phase
+   6's fitted frames in a copy of the recording with 1920x1080 JPEG
+   Color frames (three baseline from the port's encoder, one progressive
+   from cv2: tests/data/jpeg/'s 1920x1080 progressive fixture; the
+   overlays keep them as the port decodes them), through the kernels and
+   the plain versions: vertices within 1e-5 m, the overlays and scene
+   renders at their sizes with body and frame (scene) pixels, at most
+   0.1% of the body's pixels differing; the marker sheet at its size, C0
+   at each visible marker's pixel, no red; `render_mesh_image` of one
+   fitted body at 400x400 (faces and points) and an `imagearray2file`
+   grid of the two, each drawing's host ms logged. (10d)
+   `run_prox_fitting` on a copy of phase 6's recording whose Color
+   frames are JPEG with PROXD_temp_S3.yaml, `save_meshes` and
+   `render_results` on, 10 steps a window, windows in sequence and
+   window-parallel: a ply (10,475 vertices, 20,080 faces) and a png for
+   each of the 170 frames, each ply within 1e-5 m of the plain forward
+   of its frame's pkl, one chain and one vertex forward a saver call.
+   (10e) vis_opt_amass's `main` on the clip of phase 4b's Stage-2 output
+   with the most contact labels in its drawn frames (T = 119; one chain
+   and one vertex forward), its rebuild held against the plain versions'
+   (markers within 1e-5 m), its 16-panel sheet at its size with C0 at
+   each visible marker's pixel and red at the contact slots labelled
+   above 0.5, the draw's host ms logged. (10f) 3 Stage-2 steps in
+   `profile_trace`, each in `annotate("s2_step")`: the Chrome trace
+   names the annotation and the chain and vertex kernels; `wallclock`
+   prints the wall. (10g) The host
    C++ library built from the port's copy, brute force and grid held
    against `nn_distance_plain` on one frame of phase 5's s2m operands
    (rtol 1e-5, atol 1e-6, brute-force indices equal). (10h) The frame
@@ -423,6 +428,13 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM data sheet, f32 outside tensor cores
 
 def _log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _lap(phases: str, since: float, card: str) -> float:
+    """Log the command time of `phases` from `since`; returns now."""
+    now = time.perf_counter()
+    _log(f"[{phases}] command time {now - since:.1f} s on {card}")
+    return now
 
 
 def _card_line() -> str:
@@ -3479,14 +3491,6 @@ def _fitted_dir(info) -> str:
     return os.path.join(PROX_DIR, "out_kernels", info["recording_name"])
 
 
-def _have_matplotlib() -> bool:
-    """Whether matplotlib is installed: the drawing steps run only then
-    (a test for the package, made before any call, and reported)."""
-    import importlib.util
-
-    return importlib.util.find_spec("matplotlib") is not None
-
-
 def phase_body_model_api(model_dict, card) -> None:
     """Phase 10a: the BodyModel API (`BodyModelWithPoser`, which is a
     `BodyModel`) at B = BM_FRAMES on named parameters and on `poZ_body`,
@@ -3777,15 +3781,16 @@ def phase_render(model_dict, info, card) -> dict:
     vertices within 1e-5 m, the output files at their sizes, body and
     frame pixels in each overlay and body and scene pixels in each scene
     render, the pixels that differ between the two paths at most 0.1% of
-    the body's. Without matplotlib the marker sheet is not drawn (the
-    other steps run by name, in `main`'s order). Returns the kernel run's
-    launches."""
-    import torch
-
+    the body's; the marker sheet at its size with C0 at each visible
+    marker's pixel (`testing.sheet_check`), drawn by the port's painter;
+    then `render_mesh_image` of one fitted body and an `imagearray2file`
+    grid (`_mesh_view_faults`). Returns the kernel run's launches."""
     from lemo_tpu_torch.cli import render_fitting as rf
     from lemo_tpu_torch.data.jpeg import jpeg_header, read_jpeg
+    from lemo_tpu_torch.data.markers import marker_indices
     from lemo_tpu_torch.data.png import read_png
     from lemo_tpu_torch.testing.jpeg_encode import write_jpeg
+    from lemo_tpu_torch.testing.sheet_check import sheet_faults
 
     src = os.path.dirname(os.path.dirname(info["recording_dir"]))
     shutil.rmtree(RENDER_DIR, ignore_errors=True)
@@ -3816,29 +3821,16 @@ def phase_render(model_dict, info, card) -> dict:
             _eval_model_dir(model_dict), "--recording_dir", rec_dir,
             "--start", "0", "--step", str(RENDER_STEP), "--count",
             str(RENDER_FRAMES), "--rendering_mode", "both"]
-    draw = _have_matplotlib()
-    if not draw:
-        _log("render_fitting: marker sheet not drawn: matplotlib is not "
-             "installed")
+    steps = ("rebuild_bodies", "draw_marker_sheet", "write_overlays",
+             "write_scene_renders")
 
     def run(tag):
         out_dir = os.path.join(RENDER_DIR, tag)
-        a = argv + ["--out_dir", out_dir]
-        calls: dict = {"rebuild_bodies": [], "write_overlays": [],
-                       "write_scene_renders": []}
-        with call_spy(rf, "rebuild_bodies", calls["rebuild_bodies"]), \
-                call_spy(rf, "write_overlays", calls["write_overlays"]), \
-                call_spy(rf, "write_scene_renders",
-                         calls["write_scene_renders"]):
-            if draw:
-                rf.main(a, device="cuda")
-            else:
-                args = rf.build_parser().parse_args(a)
-                fr, verts, faces, _ = rf.rebuild_bodies(
-                    args, torch.device("cuda"))
-                os.makedirs(out_dir, exist_ok=True)
-                rf.write_overlays(args, fr, verts, faces, out_dir)
-                rf.write_scene_renders(args, fr, verts, faces, out_dir)
+        calls: dict = {k: [] for k in steps}
+        with contextlib.ExitStack() as stack:
+            for k in steps:
+                stack.enter_context(call_spy(rf, k, calls[k]))
+            rf.main(argv + ["--out_dir", out_dir], device="cuda")
         return out_dir, {k: v[0] for k, v in calls.items()}
 
     _zero_body_counts()
@@ -3902,11 +3894,64 @@ def phase_render(model_dict, info, card) -> dict:
                 faults.append(f"{fn}_{kind}.png: body {n_body}, {what} "
                               f"{other}, differing {n_diff}, unexplained "
                               f"{bad}")
-    if draw and not os.path.exists(os.path.join(out_k, "fitting_frames.png")):
-        faults.append("no marker sheet")
+    ids = marker_indices(False, num_verts=verts_k.shape[1])
+    sheet = read_png(os.path.join(out_k, "fitting_frames.png"))
+    bad, seen = sheet_faults(sheet, verts_k[:, ids], None, None, 1, n)
+    _log(f"[render] fitting_frames.png {sheet.shape} ({n} panels) drawn in "
+         f"{calls_k['draw_marker_sheet']['s'] * 1e3:.1f} ms on the host: "
+         f"{seen.get('checked')} of {seen.get('discs')} marker pixels "
+         f"visible and C0, {seen.get('limbs')} limb midpoints drawn, no "
+         f"red (no contact labels); faults {bad[:3]}")
+    faults += [f"fitting_frames.png: {f}" for f in bad[:5]]
+    faults += _mesh_view_faults(verts_k[0], faces)
     if faults:
         raise AssertionError("render_fitting: " + "; ".join(faults))
     return counts
+
+
+def _mesh_view_faults(verts: np.ndarray, faces: np.ndarray) -> list:
+    """`render_mesh_image` of one fitted full-size body at 400x400, as
+    faces and as points, and an `imagearray2file` grid of the two: sizes,
+    white around the body, every projected vertex's pixel drawn, the
+    grid's cells the images. Logs each drawing's host ms."""
+    from lemo_tpu_torch.data.png import read_png
+    from lemo_tpu_torch.utils import mesh_viewer as mv
+    from lemo_tpu_torch.utils.plot3d import Panel, view_to_pixels
+
+    ms, imgs, faults = {}, {}, []
+    for kind, f in (("faces", faces), ("points", None)):
+        t0 = time.perf_counter()
+        imgs[kind] = mv.render_mesh_image(verts, f, size=(400, 400))
+        ms[kind] = (time.perf_counter() - t0) * 1e3
+    grid_path = os.path.join(RENDER_DIR, "mesh_grid.png")
+    t0 = time.perf_counter()
+    mv.imagearray2file(np.stack([imgs["faces"], imgs["points"]])[None],
+                       grid_path)
+    ms["grid"] = (time.perf_counter() - t0) * 1e3
+    ax = Panel(10.0, -60.0)
+    ax.scatter(verts, s=1, color="C0")
+    tx, ty, _ = ax.project(verts)
+    u, v = view_to_pixels(tx, ty, mv.view_box((400, 400)))
+    cols, rows = np.floor(u).astype(int), np.floor(v).astype(int)
+    share = {}
+    for kind, img in imgs.items():
+        white = (img == 255).all(-1)
+        share[kind] = float(1 - white.mean())
+        if img.shape != (400, 400, 3) or not white[:, :5].all() or \
+                white[rows, cols].any():
+            faults.append(f"mesh image ({kind}) {img.shape}: undrawn "
+                          f"vertex pixels {int(white[rows, cols].sum())}")
+    grid = read_png(grid_path)
+    if grid.shape != (400, 800, 3) or \
+            not (grid[:, :400] == imgs["faces"]).all() or \
+            not (grid[:, 400:] == imgs["points"]).all():
+        faults.append(f"mesh grid {grid.shape}: cells differ")
+    _log(f"[render] render_mesh_image of a fitted body ({len(verts)} "
+         f"vertices, {len(faces)} faces) at 400x400: faces "
+         f"{ms['faces']:.1f} ms, points {ms['points']:.1f} ms, "
+         f"imagearray2file 1x2 {ms['grid']:.1f} ms on the host; drawn "
+         f"share {share}; faults {faults}")
+    return faults
 
 
 def _read_ply(path: str, V: int) -> tuple[str, np.ndarray, str]:
@@ -4062,40 +4107,63 @@ def phase_saver(model, info, card) -> None:
 
 
 def phase_vis_amass(card) -> None:
-    """Phase 10e: vis_opt_amass's rebuild of clip 0 of phase 4b's Stage-2
-    output (T = 119: the VPoser decode and one body forward at B = T),
-    through the kernels and the plain versions: the markers within 1e-5 m
-    and one chain and one vertex forward. The sheet only with
-    matplotlib."""
+    """Phase 10e: vis_opt_amass's `main` on a clip of phase 4b's Stage-2
+    output, the one whose drawn frames hold the most contact labels above
+    0.5 (T = 119: the VPoser decode and one body forward at B = T, then
+    the sheet of 16 panels), the rebuild held against the plain versions'
+    (markers within 1e-5 m), one chain and one vertex forward, and the
+    sheet at its size with its colours (`testing.sheet_check`: C0 at each
+    visible marker's pixel, red at the contact slots labelled above 0.5
+    and nowhere else among them)."""
     import torch
 
     from lemo_tpu_torch.cli import vis_opt_amass as vis
+    from lemo_tpu_torch.data.png import read_png
+    from lemo_tpu_torch.testing.sheet_check import sheet_faults
+    from lemo_tpu_torch.utils import viz
 
     T = AMASS_CLIP_SECONDS * 30 - 1
+    out = os.path.join(AMASS_DIR, "vis_opt_amass.png")
+    # the clip whose drawn frames (every 4th, at most 16) hold the most
+    # contact labels above 0.5, so that the red check has slots to read
+    res = os.path.join(AMASS_DIR, "res_temp", "TotalCapture")
+    n_contact = [int((np.load(os.path.join(
+        res, f"contact_lbl_rec_clip_{i}.npy"))[0:64:4] > 0.5).sum())
+        for i in range(AMASS_CLIPS)]
+    clip = int(np.argmax(n_contact))
     argv = ["--res_dir", os.path.join(AMASS_DIR, "res_temp"),
             "--body_model_path", os.path.join(AMASS_DIR, "body_models"),
-            "--clip_id", "0", "--out",
-            os.path.join(AMASS_DIR, "vis_opt_amass.png")]
-    args = vis.build_parser().parse_args(argv)
+            "--clip_id", str(clip), "--out", out]
+    rebuilt, drawn = [], []
     _zero_body_counts()
-    markers, contact = vis.rebuild_markers(args, torch.device("cuda"))
-    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with call_spy(vis, "rebuild_markers", rebuilt), \
+            call_spy(viz, "save_marker_animation", drawn):
+        got = vis.main(argv, device="cuda")
+    wall = time.perf_counter() - t0
     counts = _body_counts()
+    markers, contact = rebuilt[0]["out"]
     with plain_twins():
-        ref, _ = vis.rebuild_markers(args, torch.device("cuda"))
+        ref, _ = vis.rebuild_markers(vis.build_parser().parse_args(argv),
+                                     torch.device("cuda"))
     d = float(np.abs(markers - ref).max())
-    _log(f"[vis_opt_amass] clip 0: markers {markers.shape}, max |d| from "
+    sheet = read_png(out)
+    bad, seen = sheet_faults(sheet, markers, contact)
+    _log(f"[vis_opt_amass] clip {clip} (contact labels above 0.5 in the "
+         f"drawn frames by clip {n_contact}): markers {markers.shape}, "
+         f"max |d| from "
          f"the plain run's {d:.3e} m (tol 1e-5), contact {contact.shape}; "
-         f"launches {counts} on {card}")
+         f"launches {counts} on {card}; main {wall:.2f} s, the sheet "
+         f"{sheet.shape} drawn in {drawn[0]['s'] * 1e3:.1f} ms on the host: "
+         f"{seen.get('checked')} of {seen.get('discs')} marker pixels "
+         f"visible in their colour, {seen.get('limbs')} limb midpoints "
+         f"drawn, contact labels above 0.5 in the drawn frames "
+         f"{seen.get('contacts')}, red slots seen {seen.get('red_seen')} "
+         f"(the rest under a nearer disc); faults {bad[:3]}")
     if markers.shape != (T, 67, 3) or not d <= 1e-5 or \
-            counts != _forward_counts(1):
+            counts != _forward_counts(1) or got != out or bad:
         raise AssertionError(f"vis_opt_amass: markers {markers.shape}, "
-                             f"{d:.3e}, launches {counts}")
-    if _have_matplotlib():
-        vis.main(argv, device="cuda")
-    else:
-        _log("vis_opt_amass: marker sheet not drawn: matplotlib is not "
-             "installed")
+                             f"{d:.3e}, launches {counts}, sheet {bad[:5]}")
 
 
 def phase_profiling(model, card) -> None:
@@ -5146,11 +5214,13 @@ def main() -> int:
          f" (V={model.num_verts}, F={model.faces.shape[0]}, fused_dirs "
          f"{tuple(model.consts['fused_dirs'].shape)})")
 
+    t = time.perf_counter()
     rows = phase_kernels(model, card)
     phase_body_model(model)
     counts, _ = phase_slice(model, card)
     for row in rows:
         row["launches"] = counts[row["name"]]
+    t = _lap("phases 2-4", t, card)
     amass = phase_amass(card)
     sweep = phase_amass_sweep(amass, card)
     fold_checks = phase_amass_checks(amass, sweep, card)
@@ -5162,10 +5232,12 @@ def main() -> int:
     del amass
     _log(f"[amass sweep] {json.dumps(sweep)}")
     _log(f"[amass fold checks] {json.dumps(fold_checks)}")
+    t = _lap("phase 4b", t, card)
     trainers, vposer = phase_train(card)
     rows += train_kernel_rows(rows, vposer, card)
     del vposer
     _log(f"[trainers] {json.dumps(trainers)}")
+    t = _lap("phase 8", t, card)
     # from phase 6 on, a recording frame's host data is read once
     frames = contextlib.ExitStack()
     frames.enter_context(frame_cache())
@@ -5176,12 +5248,13 @@ def main() -> int:
                                card)
     phase_prox_check(info, results, p_counts, fits, card)
     del ops, isect, fits
+    t = _lap("phases 5-7", t, card)
     wp = phase_wp(model, info, card)
     phase_wp_vs_sequential(model, info, card)
     sweep_wp = phase_wp_sweep(model, model_dict, card)
     rows += fold_kernel_rows(model, rows, wp, sweep_wp, card)
     _log(f"[wp sweep] {json.dumps(sweep_wp)}")
-    t9 = time.perf_counter()
+    t9 = _lap("phase 6b", t, card)
     lb = phase_lbfgs(model, info, card)
     phase_lbfgs_check(lb, card)
     at_eval = phase_eval_prox(model_dict, info, card)

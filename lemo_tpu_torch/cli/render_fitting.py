@@ -9,17 +9,18 @@ viz/viz_fitting.py):
       --rendering_mode both
 
 Loads the per-frame result pkls, rebuilds the bodies on the card, and
-saves (a) a marker animation sheet (matplotlib, `fitting_frames.png`),
-(b) body-over-Color-frame overlays, the reference's `<frame>_output.png`
-(renderer.py:60-140), and (c) the body inside the scene mesh,
-`<frame>_scene.png` (rendering_mode '3d'), both through the host
-software rasterizer (`utils.raster`). Color frames are read as
-`<frame>.jpg`, else `<frame>.png` (`data.png.read_color_frame`: the
-port's own PNG and JPEG decoders, cv2's colour mode bit for bit); a
-Color folder holding a JPEG that the decoder refuses (lossless,
-hierarchical, arithmetic-coded, 12-bit, 4-component, or progressive with
-its scans incomplete) is refused before the bodies are rebuilt. Each step
-is a function of its own, which `main` calls in this order.
+saves (a) a marker animation sheet (`fitting_frames.png`, drawn by the
+port's numpy painter, `utils.viz`), (b) body-over-Color-frame overlays,
+the reference's `<frame>_output.png` (renderer.py:60-140), and (c) the
+body inside the scene mesh, `<frame>_scene.png` (rendering_mode '3d'),
+both through the host software rasterizer (`utils.raster`). Color
+frames are read as `<frame>.jpg`, else `<frame>.png`
+(`data.png.read_color_frame`: the port's own PNG and JPEG decoders,
+cv2's colour mode bit for bit); a Color folder holding a JPEG that the
+decoder refuses (lossless, hierarchical, arithmetic-coded, 12-bit,
+4-component, or progressive with its scans incomplete) is refused before
+the bodies are rebuilt. Each step is a function of its own, which `main`
+calls in this order.
 """
 
 from __future__ import annotations
@@ -98,7 +99,7 @@ def rebuild_bodies(args, device):
 
 
 def draw_marker_sheet(verts, num_verts: int, frames, out_dir: str) -> str:
-    """The 67 markers of each frame on one sheet (matplotlib)."""
+    """The 67 markers of each frame on one sheet (`utils.viz`)."""
     from lemo_tpu_torch.data.markers import marker_indices
     from lemo_tpu_torch.utils.viz import save_marker_animation
 

@@ -1,6 +1,6 @@
 """Visualize fitted AMASS bodies and contact labels on the port (port of
-`lemo_tpu/cli/vis_opt_amass.py`; reference vis_opt_amass.py, headless
-matplotlib backend):
+`lemo_tpu/cli/vis_opt_amass.py`; reference vis_opt_amass.py, drawn
+headless):
 
   python -m lemo_tpu_torch.cli.vis_opt_amass \
       --res_dir res_opt_amass_temp --body_model_path /path/to/body_models \
@@ -9,7 +9,8 @@ matplotlib backend):
 Decodes a Stage-2 clip's [T, 72] parameters (VPoser on the card),
 rebuilds its bodies in one forward at B = T on the card
 (`rebuild_markers`), and draws the markers with the contact labels
-(`utils.viz.save_marker_animation`, matplotlib).
+(`utils.viz.save_marker_animation`: the port's numpy painter, a png
+of lemo_tpu's size, the same on the CPU and on the card's host).
 """
 
 from __future__ import annotations

@@ -2,15 +2,17 @@
 vis_opt_amass.py / viz_fitting.py / renderer.py capability).
 
 The reference renders with open3d/pyrender, neither of which is available
-headless here; the same information is drawn with matplotlib 3-D scatter/
-line plots (markers, skeleton limbs, contact coloring), and the
-open3d/pyrender paths are kept behind availability gates for interactive
-environments.
+headless; the same information is drawn by the port's own numpy painter
+(`utils.plot3d`: mplot3d's view, markers, skeleton limbs, contact
+colouring) and written by `data.png.write_png`, the same on the CPU and
+on the card's host.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from lemo_tpu_torch.utils.plot3d import COLORS, Panel
 
 # marker-graph edges for SSM2 skeleton plots (utils/utils.py:408-464)
 LIMBS_MARKER_SSM2 = [
@@ -32,23 +34,57 @@ LIMBS_BODY = [
 ]
 
 
-def plot_marker_frame(ax, markers: np.ndarray, color="C0",
+# the heel and toe markers that the contact labels colour, in their order
+FOOT_SLOTS = (16, 47, 30, 60)
+
+# a sheet panel: 3 in at 90 dpi, the title band above the view square
+SHEET_DPI = 90
+PANEL_PX = 3 * SHEET_DPI
+_TITLE_PX = 16
+
+
+def panel_box(i: int, cols: int) -> tuple[int, int, int]:
+    """(left, top, side) in pixels of panel `i`'s view square on a sheet
+    of `cols` columns."""
+    side = PANEL_PX - _TITLE_PX - 4
+    r, c = divmod(i, cols)
+    return (c * PANEL_PX + (PANEL_PX - side) // 2,
+            r * PANEL_PX + _TITLE_PX, side)
+
+
+def plot_marker_frame(ax: Panel, markers: np.ndarray, color="C0",
                       contact: np.ndarray | None = None,
                       limbs=LIMBS_MARKER_SSM2):
-    """Draw one [67, 3] marker frame on a 3-D matplotlib axis; contact [4]
-    colors heel/toe markers red when in contact (vis_opt_amass.py
-    semantics)."""
-    ax.scatter(markers[:, 0], markers[:, 1], markers[:, 2], s=6, c=color)
-    for a, b in limbs:
-        if a < len(markers) and b < len(markers):
-            seg = markers[[a, b]]
-            ax.plot(seg[:, 0], seg[:, 1], seg[:, 2], c=color, lw=0.8)
+    """Draw one [67, 3] marker frame on a 3-D panel (`utils.plot3d.
+    Panel`); contact [4] colors heel/toe markers red when in contact
+    (vis_opt_amass.py semantics)."""
+    ax.scatter(markers, s=6, color=color)
+    segs = [markers[[a, b]] for a, b in limbs
+            if a < len(markers) and b < len(markers)]
+    if segs:
+        ax.plot(np.stack(segs), color)
     if contact is not None:
-        foot_slots = [16, 47, 30, 60]
-        for slot, c in zip(foot_slots, contact):
+        for slot, c in zip(FOOT_SLOTS, contact):
             if c > 0.5:
-                m = markers[slot]
-                ax.scatter([m[0]], [m[1]], [m[2]], s=30, c="red")
+                ax.scatter(markers[slot], s=30, color="red")
+
+
+def marker_panels(markers_seq: np.ndarray,
+                  contact_seq: np.ndarray | None = None,
+                  second_seq: np.ndarray | None = None, stride: int = 4,
+                  max_frames: int = 16) -> tuple[list, list]:
+    """(the frames drawn, a titled `Panel` for each) of a marker sheet."""
+    frames = list(range(0, len(markers_seq), stride))[:max_frames]
+    panels = []
+    for t in frames:
+        ax = Panel()
+        plot_marker_frame(ax, markers_seq[t], "C0",
+                          None if contact_seq is None else contact_seq[t])
+        if second_seq is not None:
+            plot_marker_frame(ax, second_seq[t], "C3")
+        ax.title = f"t={t}"
+        panels.append(ax)
+    return frames, panels
 
 
 def save_marker_animation(markers_seq: np.ndarray, out_path: str,
@@ -56,48 +92,42 @@ def save_marker_animation(markers_seq: np.ndarray, out_path: str,
                           second_seq: np.ndarray | None = None,
                           stride: int = 4, max_frames: int = 16):
     """Save a grid of marker-skeleton frames as a png (the headless
-    replacement for the open3d animation windows)."""
-    import matplotlib
+    replacement for the open3d animation windows): at most 4 columns of
+    3-inch panels at 90 dpi, lemo_tpu's sheet size."""
+    from lemo_tpu_torch.data.png import write_png
 
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
-    frames = list(range(0, len(markers_seq), stride))[:max_frames]
+    frames, panels = marker_panels(markers_seq, contact_seq, second_seq,
+                                   stride, max_frames)
     cols = min(4, len(frames))
     rows = (len(frames) + cols - 1) // cols
-    fig = plt.figure(figsize=(3 * cols, 3 * rows))
-    for i, t in enumerate(frames):
-        ax = fig.add_subplot(rows, cols, i + 1, projection="3d")
-        plot_marker_frame(ax, markers_seq[t], "C0",
-                          None if contact_seq is None else contact_seq[t])
-        if second_seq is not None:
-            plot_marker_frame(ax, second_seq[t], "C3")
-        ax.set_title(f"t={t}", fontsize=8)
-        ax.set_axis_off()
-    fig.tight_layout()
-    fig.savefig(out_path, dpi=90)
-    plt.close(fig)
+    img = np.full((rows * PANEL_PX, cols * PANEL_PX, 3), 255, np.uint8)
+    for i, ax in enumerate(panels):
+        ax.draw(img, panel_box(i, cols), SHEET_DPI)
+    write_png(out_path, img)
     return out_path
 
 
 def render_fit_overlay(vertices: np.ndarray, faces: np.ndarray,
                        image: np.ndarray, camera, out_path: str):
-    """Project the fitted mesh into the frame and overlay its silhouette
+    """Project the fitted mesh into the frame and mark its vertices
     (the pyrender overlay's information content, renderer.py). `camera`:
     a `fitting.prox.camera.PerspectiveCamera`; the projection runs on the
-    host."""
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    host. The png is the frame [H, W, 3] uint8 at its own size, each pixel
+    holding a projected vertex blended 0.4 toward cyan; lemo_tpu saves a
+    bbox-cropped 8x4.5-inch figure instead, so the two sizes differ."""
     import torch
+
+    from lemo_tpu_torch.data.png import write_png
 
     pts = camera.project(torch.as_tensor(
         np.asarray(vertices, np.float32))).numpy()
-    fig, ax = plt.subplots(figsize=(8, 4.5))
-    ax.imshow(image)
-    ax.scatter(pts[:, 0], pts[:, 1], s=0.05, c="cyan", alpha=0.4)
-    ax.set_axis_off()
-    fig.savefig(out_path, dpi=100, bbox_inches="tight")
-    plt.close(fig)
+    out = np.array(image, np.uint8)
+    H, W = out.shape[:2]
+    uv = np.floor(pts[np.isfinite(pts).all(1)]).astype(np.int64)
+    uv = uv[(uv[:, 0] >= 0) & (uv[:, 0] < W) & (uv[:, 1] >= 0)
+            & (uv[:, 1] < H)]
+    hit = np.zeros((H, W), bool)
+    hit[uv[:, 1], uv[:, 0]] = True
+    out[hit] = np.rint(0.6 * out[hit] + 0.4 * np.array(COLORS["cyan"]))
+    write_png(out_path, out)
     return out_path

@@ -267,8 +267,8 @@ def test_port_imports_no_jax():
     any lemo_tpu module, and needs neither cv2, PIL nor yaml (all three
     are made unimportable first); the slice of utilities, the BodyModel
     API, the native library, the JPEG decoder and its test encoder and
-    the render/occlusion/visualization CLIs among them, with matplotlib
-    imported only inside the drawing functions."""
+    the render/occlusion/visualization CLIs among them, and matplotlib
+    not at all."""
     code = (
         "import sys\n"
         "sys.modules['cv2'] = None\n"

@@ -1,5 +1,5 @@
-"""The port's small utilities against lemo_tpu's: the matplotlib drawings
-of `utils/viz.py` and `utils/mesh_viewer.py` (decoded pixels equal),
+"""The port's small utilities against lemo_tpu's: the limb tables of
+`utils/viz.py` (its drawings are held in test_torch_plot3d.py),
 `utils/tools.py` (helpers, `load_vposer`'s (mtime, path) order),
 `utils/profiling.py` on the CPU, and the vis_opt_amass CLI (the rebuilt
 markers within 1e-5 m of lemo_tpu's, the sheet drawn)."""
@@ -13,78 +13,19 @@ import torch
 
 from lemo_tpu.body_model import vposer as j_vp
 from lemo_tpu.cli import vis_opt_amass as j_vis
-from lemo_tpu.fitting.prox.camera import PerspectiveCamera as JCamera
 from lemo_tpu.testing.synthetic import synthetic_smplx_npz
-from lemo_tpu.utils import mesh_viewer as JM
 from lemo_tpu.utils import tools as JT
 from lemo_tpu.utils import viz as JV
 from lemo_tpu_torch.cli import vis_opt_amass as t_vis
-from lemo_tpu_torch.data.png import read_png
-from lemo_tpu_torch.fitting.prox.camera import PerspectiveCamera as TCamera
-from lemo_tpu_torch.utils import mesh_viewer as TM
 from lemo_tpu_torch.utils import profiling as TP
 from lemo_tpu_torch.utils import tools as TT
 from lemo_tpu_torch.utils import viz as TV
 
 torch.set_num_threads(2)
 
-RNG = np.random.RandomState(0)
-SEQ = RNG.randn(8, 67, 3).astype(np.float32)
-
-
-def _same_png(a, b):
-    np.testing.assert_array_equal(read_png(str(a)), read_png(str(b)))
-
-
 def test_limb_tables_match():
     assert TV.LIMBS_MARKER_SSM2 == JV.LIMBS_MARKER_SSM2
     assert TV.LIMBS_BODY == JV.LIMBS_BODY
-
-
-def test_marker_animation_pixels_match(tmp_path):
-    contact = (RNG.rand(8, 4) > 0.5).astype(np.float32)
-    for mod, name in ((TV, "t.png"), (JV, "j.png")):
-        mod.save_marker_animation(SEQ, str(tmp_path / name), contact,
-                                  second_seq=SEQ + 0.1, stride=2)
-    assert os.path.getsize(tmp_path / "t.png") > 1000
-    _same_png(tmp_path / "t.png", tmp_path / "j.png")
-
-
-def test_fit_overlay_pixels_match(tmp_path):
-    """The port projects with its own camera, on the host."""
-    verts = (RNG.randn(300, 3) * 0.3 + [0, 0, 3]).astype(np.float32)
-    image = RNG.randint(0, 256, (90, 160, 3)).astype(np.uint8)
-    kw = dict(focal_length_x=120.0, focal_length_y=110.0, center=(80.0,
-                                                                  45.0))
-    TV.render_fit_overlay(verts, None, image, TCamera(**kw),
-                          str(tmp_path / "t.png"))
-    JV.render_fit_overlay(verts, None, image, JCamera(**kw),
-                          str(tmp_path / "j.png"))
-    _same_png(tmp_path / "t.png", tmp_path / "j.png")
-
-
-def test_mesh_viewer_pixels_match(tmp_path):
-    from lemo_tpu.testing.synthetic import synthetic_smplx_npz as synth
-
-    md = synth(num_verts=200)
-    v, f = md["v_template"], md["f"]
-    for mod, tag in ((TM, "t"), (JM, "j")):
-        img = mod.render_mesh_image(v, f, size=(120, 100))
-        pts = mod.render_mesh_image(v, None, size=(120, 100), azim=30.0)
-        np.save(tmp_path / f"{tag}_img.npy", img)
-        np.save(tmp_path / f"{tag}_pts.npy", pts)
-        mod.imagearray2file(np.stack([img, pts])[None],
-                            str(tmp_path / f"{tag}_grid.png"))
-        mod.show_image_grid([img, pts, img], cols=2,
-                            outpath=str(tmp_path / f"{tag}_show.png"))
-    for name in ("img", "pts"):
-        t, j = (np.load(tmp_path / f"{k}_{name}.npy") for k in "tj")
-        assert t.shape == (100, 120, 3) and t.std() > 0
-        np.testing.assert_array_equal(t, j)
-    _same_png(tmp_path / "t_grid.png", tmp_path / "j_grid.png")
-    _same_png(tmp_path / "t_show.png", tmp_path / "j_show.png")
-    assert TM.points_to_spheres(v[:3], 0.02) == {
-        **JM.points_to_spheres(v[:3], 0.02), "centers": pytest.approx(v[:3])}
 
 
 def test_helpers(tmp_path, capsys):

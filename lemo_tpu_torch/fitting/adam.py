@@ -15,6 +15,12 @@ each has its own freeze, all share the step count.
 family (`AdamSpec`, the default, `SgdSpec`, `RmspropSpec`); a spec holds
 the update's constants, and `run_adam`'s `lr_table` each step's
 learning rate.
+
+`run_adam` opens the spans (`utils.profiling.annotate`) `lemo.fit` around
+the loop (count: steps) and, each step, `lemo.step.forward` (the loss),
+`lemo.step.backward` (`torch.autograd.grad`, during which the main thread
+waits on the autograd engine's dispatch of the backward) and
+`lemo.step.update` (the gradient mask, the freeze flag and the update).
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from lemo_tpu_torch.utils.profiling import annotate
 
 
 def piecewise_lr(boundaries_values: list[tuple[int, float]],
@@ -248,29 +256,34 @@ def run_adam(loss_fn: Callable[[dict], torch.Tensor],
                          device=dev)
     keys = list(params)
     aux_keys, aux_rows = None, []
-    for i in range(num_steps):
-        leaves = [params[k].requires_grad_(True) for k in keys]
-        loss = loss_fn(params)
-        if per_clip:
-            loss, watched = loss
-        elif has_aux:
-            loss, aux = loss
-            if aux_keys is None:
-                aux_keys = list(aux)
-            aux_rows.append(torch.stack([
-                torch.as_tensor(aux[k], dtype=torch.float32,
-                                device=dev).detach().reshape(())
-                for k in aux_keys]))
-        if not per_clip:
-            watched = loss
-        grads = dict(zip(keys, torch.autograd.grad(loss, leaves)))
-        if grad_mask is not None:
-            grads = {k: grad_mask(k, g) for k, g in grads.items()}
-        losses[i] = watched.detach()
-        dead = dead | ~torch.isfinite(watched.detach())
-        if reduce_dead is not None:
-            dead = reduce_dead(dead)
-        params = spec.step(params, grads, state, lr_table[i], dead=dead)
+    with annotate("fit", steps=num_steps):
+        for i in range(num_steps):
+            with annotate("step.forward"):
+                leaves = [params[k].requires_grad_(True) for k in keys]
+                loss = loss_fn(params)
+                if per_clip:
+                    loss, watched = loss
+                elif has_aux:
+                    loss, aux = loss
+                    if aux_keys is None:
+                        aux_keys = list(aux)
+                    aux_rows.append(torch.stack([
+                        torch.as_tensor(aux[k], dtype=torch.float32,
+                                        device=dev).detach().reshape(())
+                        for k in aux_keys]))
+                if not per_clip:
+                    watched = loss
+            with annotate("step.backward"):
+                grads = dict(zip(keys, torch.autograd.grad(loss, leaves)))
+            with annotate("step.update"):
+                if grad_mask is not None:
+                    grads = {k: grad_mask(k, g) for k, g in grads.items()}
+                losses[i] = watched.detach()
+                dead = dead | ~torch.isfinite(watched.detach())
+                if reduce_dead is not None:
+                    dead = reduce_dead(dead)
+                params = spec.step(params, grads, state, lr_table[i],
+                                   dead=dead)
     final = {k: v.detach() for k, v in params.items()}
     if per_clip:
         return final, losses.T

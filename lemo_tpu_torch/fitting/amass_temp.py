@@ -29,6 +29,7 @@ from lemo_tpu_torch.ops.rotations import aa_to_rot6d, rot6d_to_aa
 from lemo_tpu_torch.ops.select import take_rows
 from lemo_tpu_torch.ops.signal import reflect_pad_dt
 from lemo_tpu_torch.priors.conv_ae import smooth_enc_forward
+from lemo_tpu_torch.utils.profiling import annotate
 
 FOOT_PARTS = ("left_heel", "right_heel", "left_toe", "right_toe")
 
@@ -300,30 +301,35 @@ def make_temporal_fitter_batched(model: SmplxModel, vposer_params: dict,
     def loss_fn(v, shape10, markers_target, contact_lbl):
         C, T = markers_target.shape[0], markers_target.shape[1]
         x72 = _x72(v, shape10)                               # [C, T, 72]
-        out = fwd(P.smplx_params_from_72(x72.reshape(C * T, 72), vpp,
-                                         num_expr, decode_rows=T),
-                  model.consts, rows=T)
+        with annotate("term.vposer_decode"):
+            params = P.smplx_params_from_72(x72.reshape(C * T, 72), vpp,
+                                            num_expr, decode_rows=T)
+        with annotate("term.body_model"):
+            out = fwd(params, model.consts, rows=T)
         verts = out["vertices"]                              # [C*T, V, 3]
-        mk = take_rows(verts, ids67).reshape(C, T, -1, 3)
-        per_clip = weights.rec_markers * \
-            (mk - markers_target).abs().mean(dim=(1, 2, 3))
-        per_clip = per_clip + weights.vposer * \
-            (x72[..., 16:48] ** 2).mean(dim=(1, 2))
-        per_clip = per_clip + weights.shape * \
-            (x72[..., 6:16] ** 2).mean(dim=(1, 2))
-        per_clip = per_clip + weights.hand * \
-            (x72[..., 48:] ** 2).mean(dim=(1, 2))
+        with annotate("term.markers"):
+            mk = take_rows(verts, ids67).reshape(C, T, -1, 3)
+            per_clip = weights.rec_markers * \
+                (mk - markers_target).abs().mean(dim=(1, 2, 3))
+            per_clip = per_clip + weights.vposer * \
+                (x72[..., 16:48] ** 2).mean(dim=(1, 2))
+            per_clip = per_clip + weights.shape * \
+                (x72[..., 6:16] ** 2).mean(dim=(1, 2))
+            per_clip = per_clip + weights.hand * \
+                (x72[..., 48:] ** 2).mean(dim=(1, 2))
         if weights.smooth:
-            m81 = take_rows(verts, ids81).reshape(C, T, -1, 3)
-            j0 = out["joints"].reshape(C, T, -1, 3)[:, 0, :25]
-            per_clip = per_clip + weights.smooth * \
-                smoothness_prior_loss_batched(enc, m81, j0, stats,
-                                              reduce_clips=False)
+            with annotate("term.smooth_prior"):
+                m81 = take_rows(verts, ids81).reshape(C, T, -1, 3)
+                j0 = out["joints"].reshape(C, T, -1, 3)[:, 0, :25]
+                per_clip = per_clip + weights.smooth * \
+                    smoothness_prior_loss_batched(enc, m81, j0, stats,
+                                                  reduce_clips=False)
         if weights.contact_vel:
-            feet = take_rows(verts, foot_ids_t).reshape(C, T, -1, 3)
-            per_clip = per_clip + weights.contact_vel * \
-                contact_friction_loss_batched(feet, contact_lbl, slices,
-                                              reduce_clips=False)
+            with annotate("term.friction"):
+                feet = take_rows(verts, foot_ids_t).reshape(C, T, -1, 3)
+                per_clip = per_clip + weights.contact_vel * \
+                    contact_friction_loss_batched(feet, contact_lbl, slices,
+                                                  reduce_clips=False)
         return per_clip.sum(), per_clip
 
     def fit(markers_target, contact_lbl, init72):

@@ -20,7 +20,6 @@ from __future__ import annotations
 import dataclasses
 import os
 import os.path as osp
-import time
 import warnings
 
 import numpy as np
@@ -49,6 +48,7 @@ from lemo_tpu_torch.fitting.prox.window import dispatch_chunk, \
 from lemo_tpu_torch.ops.chamfer import nn_distance
 from lemo_tpu_torch.ops.sdf import quantize_grid, sample_sdf_world
 from lemo_tpu_torch.parallel import sharding
+from lemo_tpu_torch.utils.profiling import timed
 from lemo_tpu_torch.utils.tools import load_vposer
 
 _ASSET_DIR = osp.join(osp.dirname(osp.dirname(osp.dirname(
@@ -329,12 +329,12 @@ def _coll_candidate_ids(cfg: ProxConfig, assets: ProxAssets, warm: dict,
     seconds."""
     if verts is None:
         verts = _warm_start_vertices(cfg, assets, warm)
-    t0 = time.perf_counter()
-    scores, counts = _coll_candidate_scores(cfg, assets, verts)
-    n_active, n_within = int(counts[:, 0].max()), int(counts[:, 1].max())
-    K = _coll_pick_K(cfg, n_active, n_within, assets.model.faces.shape[0])
+    with timed("prox.coll_scores") as sp:
+        scores, counts = _coll_candidate_scores(cfg, assets, verts)
+        n_active, n_within = int(counts[:, 0].max()), int(counts[:, 1].max())
+        K = _coll_pick_K(cfg, n_active, n_within, assets.model.faces.shape[0])
     stats = dict(n_active=n_active, n_within=n_within, K=K,
-                 scores_s=time.perf_counter() - t0)
+                 scores_s=sp.seconds)
     return _coll_ids_from_scores(scores, K), stats
 
 
@@ -495,25 +495,26 @@ def _apply_candidates_batch(cfg: ProxConfig, assets: ProxAssets,
     upds: list = [{} for _ in range(W)]
     broad_phase = None
     if want_coll:
-        t0 = time.perf_counter()
-        # a window at a time, so that each window's scores are its own
-        # sweep's (the sequential driver's, and a sharded rank's)
-        sweeps = [_coll_candidate_scores(cfg, assets, v)
-                  for v in verts.split(T)]
-        scores = np.concatenate([sw[0] for sw in sweeps])
-        counts = np.stack([sw[1].max(axis=0) for sw in sweeps])  # [W, 2]
-        if mesh is not None:
-            counts = sharding.gather_rows(
-                mesh, torch.as_tensor(counts, device=dev),
-                n_windows).cpu().numpy()
-        n_active, n_within = (int(c) for c in counts.max(axis=0))
-        K = _coll_pick_K(cfg, n_active, n_within, assets.model.faces.shape[0])
-        for i in range(W):
-            upds[i]["coll_candidate_ids"] = torch.as_tensor(
-                _coll_ids_from_scores(scores[i * T:(i + 1) * T], K),
-                device=dev)
+        with timed("prox.coll_scores") as sp:
+            # a window at a time, so that each window's scores are its own
+            # sweep's (the sequential driver's, and a sharded rank's)
+            sweeps = [_coll_candidate_scores(cfg, assets, v)
+                      for v in verts.split(T)]
+            scores = np.concatenate([sw[0] for sw in sweeps])
+            counts = np.stack([sw[1].max(axis=0) for sw in sweeps])  # [W, 2]
+            if mesh is not None:
+                counts = sharding.gather_rows(
+                    mesh, torch.as_tensor(counts, device=dev),
+                    n_windows).cpu().numpy()
+            n_active, n_within = (int(c) for c in counts.max(axis=0))
+            K = _coll_pick_K(cfg, n_active, n_within,
+                             assets.model.faces.shape[0])
+            for i in range(W):
+                upds[i]["coll_candidate_ids"] = torch.as_tensor(
+                    _coll_ids_from_scores(scores[i * T:(i + 1) * T], K),
+                    device=dev)
         broad_phase = dict(n_active=n_active, n_within=n_within, K=K,
-                           scores_s=time.perf_counter() - t0,
+                           scores_s=sp.seconds,
                            per_window=[tuple(int(x) for x in c)
                                        for c in counts])
     if want_sdf:
@@ -735,9 +736,10 @@ def jacobi_rounds(polish: int, rounds: int, chunk: int) -> tuple[int, int]:
     return n, max(1, polish // n)
 
 
-# the wall-clock split of the most recent window-parallel run (seconds;
-# polish_round_s a list, polish_mode a word); each WindowResult of that
-# run carries the same dict in `timings`
+# the wall-clock split of the most recent window-parallel run: seconds
+# from the `lemo.prox.*` spans (`utils.profiling.timed`), polish_round_s
+# a list, polish_mode a word; each WindowResult of that run carries the
+# same dict in `timings`
 LAST_PARALLEL_TIMINGS: dict = {}
 
 
@@ -783,202 +785,221 @@ def _run_window_parallel(cfg, assets, rec, ds, jw, mapper, result_folder,
     src = list(range(n_windows)) + [0] * (n_fit - n_windows)
     lo, hi = (0, n_fit) if dp is None else dp.rows(n_fit)
     writer = dp is None or dp.rank == 0
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=8) as ex:
-        window_data = list(ex.map(ds.load_window, src[lo:hi]))
-    warm = {k: torch.as_tensor(np.stack([wd["warm_start"][k]
-                                         for wd in window_data]), device=dev)
-            for k in window_data[0]["warm_start"]}
-    _sync(dev)
-    timings: dict = {"load_s": time.perf_counter() - t0}
+    with timed("prox.windows") as whole:
+        with timed("prox.load") as sp:
+            with ThreadPoolExecutor(max_workers=8) as ex:
+                window_data = list(ex.map(ds.load_window, src[lo:hi]))
+            warm = {k: torch.as_tensor(np.stack([wd["warm_start"][k]
+                                                 for wd in window_data]),
+                                       device=dev)
+                    for k in window_data[0]["warm_start"]}
+            _sync(dev)
+        timings: dict = {"load_s": sp.seconds}
 
-    tsec = time.perf_counter()
-    infill_results = [None] * len(window_data)
-    if cfg.use_motion_infill_prior and assets.infill_ae_params:
-        # a forward a window gives its markers (as its sequential fit's:
-        # products round by their row count)
-        W = warm["transl"].shape[0]
-        wwm = _make_warm_world_markers(assets, rec)
-        mv67, mj = (torch.stack(x) for x in zip(*[
-            wwm({k: v[i] for k, v in warm.items()}) for i in range(W)]))
-        masks = np.stack([wd["marker_mask"] for wd in window_data])
-        tw, cl = make_batched_prepass(
-            assets.infill_stats,
-            finetune_steps=int(cfg.infill_finetune_steps))(
-            assets.infill_ae_params, mv67, mj,
-            torch.as_tensor(masks, device=dev))
-        infill_results = [
-            InfillPrepassResult(targets_world=tw[i], contact_lbl=cl[i],
-                                had_occlusion=bool(masks[i].size
-                                                   > masks[i].sum()))
-            for i in range(W)]
-    _sync(dev)
-    timings["prepass_s"] = time.perf_counter() - tsec
+        with timed("prox.prepass") as sp:
+            infill_results = [None] * len(window_data)
+            if cfg.use_motion_infill_prior and assets.infill_ae_params:
+                # a forward a window gives its markers (as its sequential
+                # fit's: products round by their row count)
+                W = warm["transl"].shape[0]
+                wwm = _make_warm_world_markers(assets, rec)
+                mv67, mj = (torch.stack(x) for x in zip(*[
+                    wwm({k: v[i] for k, v in warm.items()})
+                    for i in range(W)]))
+                masks = np.stack([wd["marker_mask"] for wd in window_data])
+                tw, cl = make_batched_prepass(
+                    assets.infill_stats,
+                    finetune_steps=int(cfg.infill_finetune_steps))(
+                    assets.infill_ae_params, mv67, mj,
+                    torch.as_tensor(masks, device=dev))
+                infill_results = [
+                    InfillPrepassResult(targets_world=tw[i],
+                                        contact_lbl=cl[i],
+                                        had_occlusion=bool(masks[i].size
+                                                           > masks[i].sum()))
+                    for i in range(W)]
+            _sync(dev)
+        timings["prepass_s"] = sp.seconds
 
-    tsec = time.perf_counter()
-    statics = [build_window_static(cfg, assets, rec, wd, jw, ir,
-                                   with_candidates=False)[0]
-               for wd, ir in zip(window_data, infill_results)]
-    statics, broad_phase = _apply_candidates_batch(cfg, assets, warm, statics,
-                                                   dp, n_fit)
-    static_batch = stack_statics(statics)
-    first_mask = np.arange(n_fit) == 0
-    _sync(dev)
-    timings["static_build_s"] = time.perf_counter() - tsec
-
-    priors = build_priors(cfg, dev)
-    timings["fit_s"] = timings["refresh_s"] = 0.0
-    losses_stages, terms_stages = [], []
-    for stage in range(cfg.n_stages):
-        w_s = weights_from_config(cfg, stage)
-        if stage > 0 and cfg.candidates_refresh_stages:
-            # candidate sets from this stage's warm start, the previous
-            # stage's solution
-            tsec = time.perf_counter()
+        with timed("prox.static_build") as sp:
+            statics = [build_window_static(cfg, assets, rec, wd, jw, ir,
+                                           with_candidates=False)[0]
+                       for wd, ir in zip(window_data, infill_results)]
             statics, broad_phase = _apply_candidates_batch(
                 cfg, assets, warm, statics, dp, n_fit)
             static_batch = stack_statics(statics)
+            first_mask = np.arange(n_fit) == 0
             _sync(dev)
-            timings["refresh_s"] += time.perf_counter() - tsec
-        static_batch_s = dataclasses.replace(
-            static_batch, joint_weights=torch.as_tensor(
-                stage_joint_weights(cfg, jw, stage), device=dev))
-        fitter = make_batched_window_fitter(
-            model, assets.vposer_params, mapper, statics[0], w_s,
-            maxiters=cfg.maxiters, lr=cfg.lr, mesh=dp,
-            steps_per_dispatch=cfg.steps_per_dispatch, priors=priors,
-            use_vposer=cfg.use_vposer, optim_type=cfg.optim_type)
-        tsec = time.perf_counter()
-        opt_vars, betas, losses, terms = fitter(static_batch_s, warm,
-                                                first_mask)
-        losses_stages.append(losses.cpu().numpy())
-        terms_stages.append({k: v.cpu().numpy() for k, v in terms.items()})
-        timings["fit_s"] += time.perf_counter() - tsec
-        if stage + 1 < cfg.n_stages:
-            warm = {k: v[lo:hi] for k, v in dict(opt_vars,
-                                                 betas=betas).items()}
-    losses = np.concatenate(losses_stages, axis=1)
+        timings["static_build_s"] = sp.seconds
 
-    sols = [{k: v[i] for k, v in opt_vars.items()} for i in range(n_windows)]
-    loss_hists = [losses[i] for i in range(n_windows)]
-    # one term record per stage (its final solution), then the polish
-    # pass's: one a Jacobi round, or one a sequential polish step
-    term_hists = [{k: np.stack([ts[k][i] for ts in terms_stages])
-                   for k in terms_stages[0]} for i in range(n_windows)]
+        priors = build_priors(cfg, dev)
+        timings["fit_s"] = timings["refresh_s"] = 0.0
+        losses_stages, terms_stages = [], []
+        for stage in range(cfg.n_stages):
+            w_s = weights_from_config(cfg, stage)
+            if stage > 0 and cfg.candidates_refresh_stages:
+                # candidate sets from this stage's warm start, the previous
+                # stage's solution
+                with timed("prox.refresh") as sp:
+                    statics, broad_phase = _apply_candidates_batch(
+                        cfg, assets, warm, statics, dp, n_fit)
+                    static_batch = stack_statics(statics)
+                    _sync(dev)
+                timings["refresh_s"] += sp.seconds
+            static_batch_s = dataclasses.replace(
+                static_batch, joint_weights=torch.as_tensor(
+                    stage_joint_weights(cfg, jw, stage), device=dev))
+            fitter = make_batched_window_fitter(
+                model, assets.vposer_params, mapper, statics[0], w_s,
+                maxiters=cfg.maxiters, lr=cfg.lr, mesh=dp,
+                steps_per_dispatch=cfg.steps_per_dispatch, priors=priors,
+                use_vposer=cfg.use_vposer, optim_type=cfg.optim_type)
+            with timed("prox.fit") as sp:
+                opt_vars, betas, losses, terms = fitter(static_batch_s, warm,
+                                                        first_mask)
+                losses_stages.append(losses.cpu().numpy())
+                terms_stages.append({k: v.cpu().numpy()
+                                     for k, v in terms.items()})
+            timings["fit_s"] += sp.seconds
+            if stage + 1 < cfg.n_stages:
+                warm = {k: v[lo:hi] for k, v in dict(opt_vars,
+                                                     betas=betas).items()}
+        losses = np.concatenate(losses_stages, axis=1)
 
-    polish = int(cfg.window_polish_iters or 0)
-    polish_mode = cfg.window_polish_mode
-    spans = ds.windows
-    T = int(statics[0].gt_joints.shape[0])
-    erase_head = int(T * 0.15)
-    tsec = time.perf_counter()
-    if polish > 0 and n_windows > 1 and polish_mode == "jacobi":
-        rounds, iters_per_round = jacobi_rounds(
-            polish, cfg.window_polish_rounds,
-            dispatch_chunk(cfg.steps_per_dispatch, cfg.maxiters))
-        # window 0 stays frozen whole, as the sequential polish never
-        # re-fits it, and so do the pads; the others freeze their overlap
-        # heads
-        erase = np.full((n_fit,), erase_head, np.int64)
-        erase[0] = T
-        erase[n_windows:] = T
-        cur = {k: v.clone() for k, v in opt_vars.items()}
+        sols = [{k: v[i] for k, v in opt_vars.items()}
+                for i in range(n_windows)]
+        loss_hists = [losses[i] for i in range(n_windows)]
+        # one term record per stage (its final solution), then the polish
+        # pass's: one a Jacobi round, or one a sequential polish step
+        term_hists = [{k: np.stack([ts[k][i] for ts in terms_stages])
+                       for k in terms_stages[0]} for i in range(n_windows)]
 
-        def inject_heads(arrs, n_inject_of):
-            for i in range(1, n_windows):
-                s_prev, e_prev = spans[i - 1]
-                s_cur, _ = spans[i]
-                n_inj = n_inject_of(max(e_prev - s_cur, 0))
-                if n_inj > 0:
-                    off = s_cur - s_prev
-                    for k in arrs:
-                        arrs[k][i, :n_inj] = arrs[k][i - 1, off:off + n_inj]
+        polish = int(cfg.window_polish_iters or 0)
+        polish_mode = cfg.window_polish_mode
+        spans = ds.windows
+        T = int(statics[0].gt_joints.shape[0])
+        erase_head = int(T * 0.15)
+        with timed("prox.polish") as sp:
+            if polish > 0 and n_windows > 1 and polish_mode == "jacobi":
+                rounds, iters_per_round = jacobi_rounds(
+                    polish, cfg.window_polish_rounds,
+                    dispatch_chunk(cfg.steps_per_dispatch, cfg.maxiters))
+                # window 0 stays frozen whole, as the sequential polish
+                # never re-fits it, and so do the pads; the others freeze
+                # their overlap heads
+                erase = np.full((n_fit,), erase_head, np.int64)
+                erase[0] = T
+                erase[n_windows:] = T
+                cur = {k: v.clone() for k, v in opt_vars.items()}
 
-        round_s = []
-        for _ in range(rounds):
-            t_r = time.perf_counter()
-            inject_heads(cur, lambda ov_n: ov_n)
-            ov2, _, p_losses, p_terms = fitter(
-                static_batch_s, dict(cur, betas=betas), first_mask,
-                maxiters_override=iters_per_round, erase_override=erase)
-            cur = {k: v.clone() for k, v in ov2.items()}
-            p_losses = p_losses.cpu().numpy()
-            p_terms = {k: v.cpu().numpy() for k, v in p_terms.items()}
-            round_s.append(time.perf_counter() - t_r)
-            for i in range(n_windows):
-                loss_hists[i] = np.concatenate([loss_hists[i], p_losses[i]])
-                term_hists[i] = {k: np.concatenate([term_hists[i][k],
-                                                    p_terms[k][i:i + 1]])
-                                 for k in term_hists[i]}
-        timings["polish_round_s"] = round_s
-        # the frozen heads equal the previous window's final tail (they
-        # were frozen through the rounds, so no optimized frame changes)
-        inject_heads(cur, lambda ov_n: min(ov_n, erase_head))
-        sols = [{k: v[i] for k, v in cur.items()} for i in range(n_windows)]
-    elif polish > 0 and n_windows > 1:
-        jw_final = torch.as_tensor(
-            stage_joint_weights(cfg, jw, cfg.n_stages - 1), device=dev)
-        statics = [dataclasses.replace(st, joint_weights=jw_final)
-                   for st in statics]
-        pfitter = make_window_fitter(
-            model, assets.vposer_params, mapper, statics[0], w_s,
-            maxiters=polish, lr=cfg.lr,
-            steps_per_dispatch=cfg.steps_per_dispatch, priors=priors,
-            use_vposer=cfg.use_vposer)
-        for i in range(1, n_windows):
-            owner = 0 if dp is None else \
-                sharding.shard_owner(n_fit, dp.size, i)
-            if dp is None or owner == dp.rank:
-                s_prev, e_prev = spans[i - 1]
-                s_cur, _ = spans[i]
-                ov_n = max(e_prev - s_cur, 0)
-                prox_params = {k: v.clone() for k, v in sols[i].items()}
-                prox_params["betas"] = betas[i]
-                if ov_n > 0:
-                    off = s_cur - s_prev
-                    for k in sols[i]:
-                        prox_params[k][:ov_n] = sols[i - 1][k][off:off + ov_n]
-                final, p_losses, p_terms, _ = pfitter(
-                    statics[i - lo], prox_params, first_window=False)
-            else:   # buffers of the owner's shapes, for the broadcast
-                final = {k: torch.empty_like(v) for k, v in sols[i].items()}
-                p_losses = torch.empty(polish, device=dev)
-                p_terms = {}
-            if dp is not None:
-                final, p_losses, p_terms = _broadcast_polish(
-                    dp, owner, final, p_losses, p_terms, list(term_hists[i]),
-                    polish)
-            sols[i] = final
-            loss_hists[i] = np.concatenate([loss_hists[i],
-                                            p_losses.cpu().numpy()])
-            term_hists[i] = {k: np.concatenate([term_hists[i][k],
-                                                v.cpu().numpy()])
-                             for k, v in p_terms.items() if k in term_hists[i]}
-    _sync(dev)
-    timings["polish_s"] = time.perf_counter() - tsec
+                def inject_heads(arrs, n_inject_of):
+                    for i in range(1, n_windows):
+                        s_prev, e_prev = spans[i - 1]
+                        s_cur, _ = spans[i]
+                        n_inj = n_inject_of(max(e_prev - s_cur, 0))
+                        if n_inj > 0:
+                            off = s_cur - s_prev
+                            for k in arrs:
+                                arrs[k][i, :n_inj] = \
+                                    arrs[k][i - 1, off:off + n_inj]
 
-    tsec = time.perf_counter()
-    results = [window_result(sols[i], betas[i], loss_hists[i], term_hists[i],
-                             assets.vposer_params, cfg.use_vposer)
-               for i in range(n_windows)]
-    if writer:
-        # a frame two windows share gets the later window's pkl, as in
-        # the sequential driver: each thread writes only the frames no
-        # later window holds (threads writing one file from two windows
-        # would race)
-        fns = [ds.frame_names[s:e] for s, e in spans[:n_windows]]
-        last = {fn: i for i in range(n_windows) for fn in fns[i]}
-        with ThreadPoolExecutor(max_workers=8) as ex:
-            list(ex.map(lambda i: save_window_pkls(
-                results[i], fns[i], result_folder,
-                camera_params=_CAMERA_PKL_PARAMS,
-                only={fn for fn in fns[i] if last[fn] == i}),
-                range(n_windows)))
-        if save_extras is not None:
-            for i in range(n_windows):
-                save_extras(fns[i], results[i])
-    timings["save_s"] = time.perf_counter() - tsec
-    timings["total_s"] = time.perf_counter() - t0
+                round_s = []
+                for r in range(rounds):
+                    with timed("prox.polish_round") as sp_r:
+                        inject_heads(cur, lambda ov_n: ov_n)
+                        ov2, _, p_losses, p_terms = fitter(
+                            static_batch_s, dict(cur, betas=betas),
+                            first_mask, maxiters_override=iters_per_round,
+                            erase_override=erase)
+                        cur = {k: v.clone() for k, v in ov2.items()}
+                        p_losses = p_losses.cpu().numpy()
+                        p_terms = {k: v.cpu().numpy()
+                                   for k, v in p_terms.items()}
+                    round_s.append(sp_r.seconds)
+                    for i in range(n_windows):
+                        loss_hists[i] = np.concatenate([loss_hists[i],
+                                                        p_losses[i]])
+                        term_hists[i] = {
+                            k: np.concatenate([term_hists[i][k],
+                                               p_terms[k][i:i + 1]])
+                            for k in term_hists[i]}
+                timings["polish_round_s"] = round_s
+                # the frozen heads equal the previous window's final tail
+                # (they were frozen through the rounds, so no optimized
+                # frame changes)
+                inject_heads(cur, lambda ov_n: min(ov_n, erase_head))
+                sols = [{k: v[i] for k, v in cur.items()}
+                        for i in range(n_windows)]
+            elif polish > 0 and n_windows > 1:
+                jw_final = torch.as_tensor(
+                    stage_joint_weights(cfg, jw, cfg.n_stages - 1),
+                    device=dev)
+                statics = [dataclasses.replace(st, joint_weights=jw_final)
+                           for st in statics]
+                pfitter = make_window_fitter(
+                    model, assets.vposer_params, mapper, statics[0], w_s,
+                    maxiters=polish, lr=cfg.lr,
+                    steps_per_dispatch=cfg.steps_per_dispatch,
+                    priors=priors, use_vposer=cfg.use_vposer)
+                for i in range(1, n_windows):
+                    owner = 0 if dp is None else \
+                        sharding.shard_owner(n_fit, dp.size, i)
+                    if dp is None or owner == dp.rank:
+                        s_prev, e_prev = spans[i - 1]
+                        s_cur, _ = spans[i]
+                        ov_n = max(e_prev - s_cur, 0)
+                        prox_params = {k: v.clone()
+                                       for k, v in sols[i].items()}
+                        prox_params["betas"] = betas[i]
+                        if ov_n > 0:
+                            off = s_cur - s_prev
+                            for k in sols[i]:
+                                prox_params[k][:ov_n] = \
+                                    sols[i - 1][k][off:off + ov_n]
+                        final, p_losses, p_terms, _ = pfitter(
+                            statics[i - lo], prox_params, first_window=False)
+                    else:   # buffers of the owner's shapes, for the broadcast
+                        final = {k: torch.empty_like(v)
+                                 for k, v in sols[i].items()}
+                        p_losses = torch.empty(polish, device=dev)
+                        p_terms = {}
+                    if dp is not None:
+                        final, p_losses, p_terms = _broadcast_polish(
+                            dp, owner, final, p_losses, p_terms,
+                            list(term_hists[i]), polish)
+                    sols[i] = final
+                    loss_hists[i] = np.concatenate([loss_hists[i],
+                                                    p_losses.cpu().numpy()])
+                    term_hists[i] = {k: np.concatenate([term_hists[i][k],
+                                                        v.cpu().numpy()])
+                                     for k, v in p_terms.items()
+                                     if k in term_hists[i]}
+            _sync(dev)
+        timings["polish_s"] = sp.seconds
+
+        with timed("prox.save") as sp:
+            results = [window_result(sols[i], betas[i], loss_hists[i],
+                                     term_hists[i], assets.vposer_params,
+                                     cfg.use_vposer)
+                       for i in range(n_windows)]
+            if writer:
+                # a frame two windows share gets the later window's pkl, as
+                # in the sequential driver: each thread writes only the
+                # frames no later window holds (threads writing one file
+                # from two windows would race)
+                fns = [ds.frame_names[s:e] for s, e in spans[:n_windows]]
+                last = {fn: i for i in range(n_windows) for fn in fns[i]}
+                with ThreadPoolExecutor(max_workers=8) as ex:
+                    list(ex.map(lambda i: save_window_pkls(
+                        results[i], fns[i], result_folder,
+                        camera_params=_CAMERA_PKL_PARAMS,
+                        only={fn for fn in fns[i] if last[fn] == i}),
+                        range(n_windows)))
+                if save_extras is not None:
+                    for i in range(n_windows):
+                        save_extras(fns[i], results[i])
+        timings["save_s"] = sp.seconds
+    timings["total_s"] = whole.seconds
     timings["polish_mode"] = polish_mode if polish > 0 else "off"
     if writer:
         LAST_PARALLEL_TIMINGS.clear()
@@ -1019,8 +1040,9 @@ def run_prox_fitting(cfg: ProxConfig, assets: ProxAssets | None = None,
     """Fit a recording window by window; returns WindowResults, each with
     the wall-clock split of its window in `timings` (seconds for load,
     infill pre-pass, static build with the candidate pre-passes, fit and
-    save; every phase ends in a host read of device results, so the split
-    is synchronous) and, with interpenetration candidates, the last
+    save, each a `lemo.prox.*` span's, `utils.profiling.timed`; every
+    phase ends in a host read of device results, so the split is
+    synchronous) and, with interpenetration candidates, the last
     stage's self-intersection pre-pass in `broad_phase`. The fit runs on
     `assets.model.device` (or `device` when assets are loaded here: None
     means the CUDA card).
@@ -1105,81 +1127,86 @@ def _fit_windows_sequential(cfg, assets, rec, ds, jw, mapper, result_folder,
     stage_fitters: dict = {}
     results = []
     for widx in range(n_windows):
-        t0 = time.perf_counter()
-        if prefetcher:
-            wd = fut.result()
-            if widx + 1 < n_windows:
-                fut = prefetcher.submit(ds.load_window, widx + 1, False)
-            wd["warm_start"] = ds.load_window_warm_start(widx)
-        else:
-            wd = ds.load_window(widx)
-        warm = {k: torch.as_tensor(v, device=dev)
-                for k, v in wd["warm_start"].items()}
-        timing = {"load_s": time.perf_counter() - t0}
-
-        t1 = time.perf_counter()
-        infill_result = None
-        if warm_world_markers is not None:
-            mv67, mj = warm_world_markers(warm)
-            infill_result = run_infill_prepass(
-                assets.infill_ae_params, mv67, mj,
-                torch.as_tensor(wd["marker_mask"], device=dev),
-                assets.infill_stats,
-                finetune_steps=int(cfg.infill_finetune_steps))
-        timing["prepass_s"] = time.perf_counter() - t1
-
-        # one full maxiters run per weight stage, the next stage
-        # warm-started from the previous one (fit_temp_loadprox_slide.py:
-        # 507-528)
-        result = None
-        wd_stage = wd
-        timing["static_s"] = timing["fit_s"] = 0.0
-        broad_phase = None
-        for stage in range(cfg.n_stages):
-            if stage > 0 and cfg.candidates_refresh_stages:
-                wd_stage = dict(wd)
-                wd_stage["warm_start"] = {k: v.cpu().numpy()
-                                          for k, v in warm.items()}
-            t1 = time.perf_counter()
-            static, broad_phase = build_window_static(
-                cfg, assets, rec, wd_stage, jw, infill_result, stage=stage)
-            timing["static_s"] += time.perf_counter() - t1
-            w_s = weights_from_config(cfg, stage)
-            if stage not in stage_fitters:
-                stage_fitters[stage] = make_window_fitter(
-                    model, assets.vposer_params, mapper, static, w_s,
-                    maxiters=cfg.maxiters, lr=cfg.lr,
-                    optim_type=cfg.optim_type,
-                    steps_per_dispatch=cfg.steps_per_dispatch,
-                    priors=priors, use_vposer=cfg.use_vposer)
-            t1 = time.perf_counter()
-            result_s = fit_window(
-                model, assets.vposer_params, mapper, static, w_s, warm,
-                first_window=(widx == 0), maxiters=cfg.maxiters, lr=cfg.lr,
-                fitter=stage_fitters[stage], use_vposer=cfg.use_vposer)
-            timing["fit_s"] += time.perf_counter() - t1
-            if result is None:
-                result = result_s
-            else:
-                result = dataclasses.replace(
-                    result_s,
-                    loss_history=np.concatenate(
-                        [result.loss_history, result_s.loss_history]),
-                    term_history={
-                        k: np.concatenate([result.term_history[k], v])
-                        for k, v in result_s.term_history.items()})
-            if stage + 1 < cfg.n_stages:
+        with timed("prox.window") as whole:
+            with timed("prox.load") as sp:
+                if prefetcher:
+                    wd = fut.result()
+                    if widx + 1 < n_windows:
+                        fut = prefetcher.submit(ds.load_window, widx + 1,
+                                                False)
+                    wd["warm_start"] = ds.load_window_warm_start(widx)
+                else:
+                    wd = ds.load_window(widx)
                 warm = {k: torch.as_tensor(v, device=dev)
-                        for k, v in result_s.params.items()}
-                warm["pose_embedding"] = torch.as_tensor(
-                    result_s.pose_embedding, device=dev)
-        t1 = time.perf_counter()
-        save_window_pkls(result, wd["fns"], result_folder,
-                         camera_params=_CAMERA_PKL_PARAMS)
-        if save_extras is not None:
-            save_extras(wd["fns"], result)
-        timing["save_s"] = time.perf_counter() - t1
-        timing["total_s"] = time.perf_counter() - t0
+                        for k, v in wd["warm_start"].items()}
+            timing = {"load_s": sp.seconds}
+
+            with timed("prox.prepass") as sp:
+                infill_result = None
+                if warm_world_markers is not None:
+                    mv67, mj = warm_world_markers(warm)
+                    infill_result = run_infill_prepass(
+                        assets.infill_ae_params, mv67, mj,
+                        torch.as_tensor(wd["marker_mask"], device=dev),
+                        assets.infill_stats,
+                        finetune_steps=int(cfg.infill_finetune_steps))
+            timing["prepass_s"] = sp.seconds
+
+            # one full maxiters run per weight stage, the next stage
+            # warm-started from the previous one
+            # (fit_temp_loadprox_slide.py:507-528)
+            result = None
+            wd_stage = wd
+            timing["static_s"] = timing["fit_s"] = 0.0
+            broad_phase = None
+            for stage in range(cfg.n_stages):
+                if stage > 0 and cfg.candidates_refresh_stages:
+                    wd_stage = dict(wd)
+                    wd_stage["warm_start"] = {k: v.cpu().numpy()
+                                              for k, v in warm.items()}
+                with timed("prox.static_build") as sp:
+                    static, broad_phase = build_window_static(
+                        cfg, assets, rec, wd_stage, jw, infill_result,
+                        stage=stage)
+                timing["static_s"] += sp.seconds
+                w_s = weights_from_config(cfg, stage)
+                if stage not in stage_fitters:
+                    stage_fitters[stage] = make_window_fitter(
+                        model, assets.vposer_params, mapper, static, w_s,
+                        maxiters=cfg.maxiters, lr=cfg.lr,
+                        optim_type=cfg.optim_type,
+                        steps_per_dispatch=cfg.steps_per_dispatch,
+                        priors=priors, use_vposer=cfg.use_vposer)
+                with timed("prox.fit") as sp:
+                    result_s = fit_window(
+                        model, assets.vposer_params, mapper, static, w_s,
+                        warm, first_window=(widx == 0),
+                        maxiters=cfg.maxiters, lr=cfg.lr,
+                        fitter=stage_fitters[stage],
+                        use_vposer=cfg.use_vposer)
+                timing["fit_s"] += sp.seconds
+                if result is None:
+                    result = result_s
+                else:
+                    result = dataclasses.replace(
+                        result_s,
+                        loss_history=np.concatenate(
+                            [result.loss_history, result_s.loss_history]),
+                        term_history={
+                            k: np.concatenate([result.term_history[k], v])
+                            for k, v in result_s.term_history.items()})
+                if stage + 1 < cfg.n_stages:
+                    warm = {k: torch.as_tensor(v, device=dev)
+                            for k, v in result_s.params.items()}
+                    warm["pose_embedding"] = torch.as_tensor(
+                        result_s.pose_embedding, device=dev)
+            with timed("prox.save") as sp:
+                save_window_pkls(result, wd["fns"], result_folder,
+                                 camera_params=_CAMERA_PKL_PARAMS)
+                if save_extras is not None:
+                    save_extras(wd["fns"], result)
+            timing["save_s"] = sp.seconds
+        timing["total_s"] = whole.seconds
         results.append(dataclasses.replace(
             result, timings=timing, broad_phase=broad_phase))
         if verbose:

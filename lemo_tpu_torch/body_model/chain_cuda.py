@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from lemo_tpu_torch import _build
+from lemo_tpu_torch.utils import routing
 
 # the kernels' static limits (kMaxJoints, kMaxLevels in csrc/chain.cu):
 # SMPL-X has 56 padded joints on 11 levels, SMPL-H 56 on 11, SMPL 24 on 9,
@@ -425,3 +426,7 @@ def rigid_transform_chain_cuda(rot_mats, joints, parents):
     rel_t = tg_ - torch.einsum("bjmn,bjn->bjm", Rg, joints)
     rel = torch.cat([Rg, rel_t[..., None]], dim=-1)
     return tg_, rel
+
+
+# the entry points' routing is watched (`utils.routing`)
+routing.watch(__name__)

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from lemo_tpu_torch import _build
+from lemo_tpu_torch.utils import routing
 
 LANE = 128     # frame padding of the plane layout (the TPU's lane width)
 TILE_V = 256   # vertex padding of the fused constants (bit-equal to JAX)
@@ -382,3 +383,7 @@ def fused_lbs_vertices_planes(catT: torch.Tensor, A_planes: torch.Tensor,
                          f"{fused_dirs.shape[2]}")
     return _VertexCore.apply(catT.contiguous(), A_planes.contiguous(),
                              fused_dirs, lbs_w_pad)
+
+
+# the entry points' routing is watched (`utils.routing`)
+routing.watch(__name__)

@@ -25,8 +25,10 @@ def frame0_normalizer(joints_frame0: torch.Tensor):
     x_axis = torch.cat([x_axis[..., :2], torch.zeros_like(x_axis[..., 2:])],
                        dim=-1)
     x_axis = x_axis / torch.linalg.norm(x_axis, dim=-1, keepdim=True)
-    z_axis = torch.tensor([0.0, 0.0, 1.0], dtype=joints_frame0.dtype,
-                          device=joints_frame0.device).expand_as(x_axis)
+    # +z made on the device (no copy from the host: a captured step
+    # cannot hold one)
+    z_axis = torch.zeros_like(x_axis)
+    z_axis[..., 2] = 1.0
     y_axis = torch.linalg.cross(z_axis, x_axis, dim=-1)
     y_axis = y_axis / torch.linalg.norm(y_axis, dim=-1, keepdim=True)
     R = torch.stack([x_axis, y_axis, z_axis], dim=-1)

@@ -17,10 +17,19 @@ the update's constants, and `run_adam`'s `lr_table` each step's
 learning rate.
 
 `run_adam` opens the spans (`utils.profiling.annotate`) `lemo.fit` around
-the loop (count: steps) and, each step, `lemo.step.forward` (the loss),
+the loop (count: steps; a replayed fit adds `replayed`, its steps run
+as replays of a captured step, and an eager fit, whose count is 0, leaves
+it out) and, each step, `lemo.step.forward` (the loss),
 `lemo.step.backward` (`torch.autograd.grad`, during which the main thread
 waits on the autograd engine's dispatch of the backward) and
 `lemo.step.update` (the gradient mask, the freeze flag and the update).
+
+With `graph` (a `fitting.step_graph.StepGraphs`, which the clip fold
+passes) on a CUDA device, the fit's first steps run eagerly, then the
+step is captured as a CUDA graph and each further step is a replay of it
+(`lemo.step.replay`): the learning rate and the bias corrections are
+then read on the device from a `StepTable`. An eager step and a captured
+one are the same `take_step`.
 """
 
 from __future__ import annotations
@@ -55,33 +64,93 @@ class AdamState:
         self.count = 0
 
 
+def bias_corrections(count: int, b1: float, b2: float) -> tuple[float,
+                                                                  float]:
+    """Adam's bias corrections 1 - b**t at step `count` in f32, as optax
+    computes them (1 - 0.999**t differs from its f64 value by ~1e-5
+    relative at t=1), as host floats."""
+    t = np.float32(count)
+    return (float(np.float32(1) - np.float32(b1) ** t),
+            float(np.float32(1) - np.float32(b2) ** t))
+
+
+class StepTable:
+    """A fit's per-step scalars on the device, for a step that is
+    captured once and replayed: row i of `table` [n, 3] holds step i's
+    -lr and the reciprocals of Adam's bias corrections (b1, b2), and
+    `at` [1] the index of the step being taken, which the step itself
+    advances.
+
+    The reciprocals are what ATen's CUDA kernels multiply by when a
+    tensor is divided by a host scalar (`BinaryDivTrueKernel.cu`: a * (1
+    / b), the reciprocal in f32), so that `m * (1 / bc)` here is `m / bc`
+    of the eager step bit for bit on the card."""
+
+    def __init__(self, lr_table, b1: float, b2: float, device):
+        rows = []
+        for i, lr in enumerate(lr_table):
+            bc1, bc2 = bias_corrections(i + 1, b1, b2)
+            rows.append((np.float32(-lr), np.float32(1) / np.float32(bc1),
+                         np.float32(1) / np.float32(bc2)))
+        self.betas = (b1, b2)
+        self.table = torch.tensor(np.array(rows, np.float32).reshape(-1, 3),
+                                  device=device)
+        self.at = torch.zeros(1, dtype=torch.long, device=device)
+
+    def scalars(self, b1: float, b2: float):
+        """(-lr, 1 / bc1, 1 / bc2) of the step at `at`, 0-dim device
+        tensors (one gather, the rest views)."""
+        if (b1, b2) != self.betas:
+            raise ValueError(f"StepTable of betas {self.betas}, step of "
+                             f"{(b1, b2)}")
+        row = self.table.index_select(0, self.at)[0]
+        return row[0], row[1], row[2]
+
+    def record(self, history: torch.Tensor, value: torch.Tensor) -> None:
+        """history[at] = value."""
+        history.index_copy_(0, self.at, value[None])
+
+    def advance(self) -> None:
+        self.at.add_(1)
+
+
 def adam_step(params: dict[str, torch.Tensor],
-              grads: dict[str, torch.Tensor], state: AdamState, lr: float,
+              grads: dict[str, torch.Tensor], state: AdamState,
+              lr: float | StepTable,
               b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
               dead: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
     """One Adam update (optax's: bias-corrected moments, `p - lr * m_hat /
     (sqrt(v_hat) + eps)`). Returns the new parameters (detached) and
     advances `state`. With `dead`, a bool tensor of the parameters'
     leading shape (a scalar, or [C] for C folded problems), the entries
-    where it is set keep their parameters and moments."""
+    where it is set keep their parameters and moments. `lr` is a host
+    float, or in a captured step a `StepTable`, which gives the learning
+    rate and the bias corrections on the device."""
     state.count += 1
-    # bias corrections in f32, as optax computes them (1 - 0.999**t
-    # differs from its f64 value by ~1e-5 relative at t=1)
-    t = np.float32(state.count)
-    bc1 = float(np.float32(1) - np.float32(b1) ** t)
-    bc2 = float(np.float32(1) - np.float32(b2) ** t)
+    if isinstance(lr, StepTable):
+        neg_lr, inv1, inv2 = lr.scalars(b1, b2)
+
+        def corrected(m, v):
+            return m * inv1, v * inv2
+    else:
+        neg_lr = -lr
+        bc1, bc2 = bias_corrections(state.count, b1, b2)
+
+        def corrected(m, v):
+            return m / bc1, v / bc2
     out = {}
     with torch.no_grad():
         for k, g in grads.items():
             p = params[k].detach()
             m = (1.0 - b1) * g + b1 * state.mu[k]
             v = (1.0 - b2) * (g * g) + b2 * state.nu[k]
-            upd = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            m_hat, v_hat = corrected(m, v)
+            upd = m_hat / (torch.sqrt(v_hat) + eps)
             if dead is None:
-                out[k], state.mu[k], state.nu[k] = p + (-lr) * upd, m, v
+                out[k], state.mu[k], state.nu[k] = p + neg_lr * upd, m, v
                 continue
             frozen = dead.reshape(dead.shape + (1,) * (p.dim() - dead.dim()))
-            out[k] = torch.where(frozen, p, p + (-lr) * upd)
+            out[k] = torch.where(frozen, p, p + neg_lr * upd)
             state.mu[k] = torch.where(frozen, state.mu[k], m)
             state.nu[k] = torch.where(frozen, state.nu[k], v)
     return out
@@ -207,6 +276,40 @@ class RmspropSpec:
                             self.momentum, dead=dead)
 
 
+def take_step(loss_fn, params: dict[str, torch.Tensor], state, spec,
+              lr: float | StepTable, dead: torch.Tensor, *,
+              grad_mask=None, reduce_dead=None, per_clip: bool = False,
+              has_aux: bool = False):
+    """One step of `run_adam`'s fit, eager or captured (`lr` a host float,
+    or the `StepTable` of a captured step): the loss (`lemo.step.forward`),
+    its gradient (`lemo.step.backward`), then the gradient mask, the
+    freeze flag and the update of `spec` (`lemo.step.update`). Returns
+    (the new parameters, the watched loss (detached; [C] with
+    `per_clip`), the aux dict (`has_aux`, else None), the freeze flag)."""
+    keys = list(params)
+    aux = None
+    with annotate("step.forward"):
+        leaves = [params[k].requires_grad_(True) for k in keys]
+        loss = loss_fn(params)
+        if per_clip:
+            loss, watched = loss
+        elif has_aux:
+            loss, aux = loss
+        if not per_clip:
+            watched = loss
+    with annotate("step.backward"):
+        grads = dict(zip(keys, torch.autograd.grad(loss, leaves)))
+    with annotate("step.update"):
+        if grad_mask is not None:
+            grads = {k: grad_mask(k, g) for k, g in grads.items()}
+        watched = watched.detach()
+        dead = dead | ~torch.isfinite(watched)
+        if reduce_dead is not None:
+            dead = reduce_dead(dead)
+        params = spec.step(params, grads, state, lr, dead=dead)
+    return params, watched, aux, dead
+
+
 def run_adam(loss_fn: Callable[[dict], torch.Tensor],
              init_params: dict[str, torch.Tensor],
              num_steps: int,
@@ -216,7 +319,7 @@ def run_adam(loss_fn: Callable[[dict], torch.Tensor],
              has_aux: bool = False, per_clip: bool = False,
              spec: AdamSpec | SgdSpec | RmspropSpec = AdamSpec(),
              reduce_dead: Callable[[torch.Tensor], torch.Tensor]
-             | None = None):
+             | None = None, graph=None):
     """`num_steps` of the update `spec` at the learning rates of
     `lr_table` on a dict of tensors: by default Adam (optax's update:
     bias-corrected moments, `m_hat / (sqrt(v_hat) + eps)`), or another
@@ -243,9 +346,22 @@ def run_adam(loss_fn: Callable[[dict], torch.Tensor],
     loss is a sum over ranks: `parallel.sharding.frame_sharded_fit`
     passes an OR over its ranks, so that a NaN/Inf on any rank freezes
     every rank at that step, as the unsharded fit freezes).
+
+    `graph`, a `fitting.step_graph.StepGraphs` (the caller's cache of
+    captured steps), runs the fit on a captured step where it engages (a
+    CUDA device, `AdamSpec`'s update): the first fit's first steps eager,
+    the rest replays of the same `take_step`, the same kernels in the
+    same order, so the same bits. The captured step is reused while
+    `loss_fn`, the update (`type(spec).step`) and the other arguments are
+    the ones it captured, and captured again otherwise.
     """
     if per_clip and has_aux:
         raise ValueError("run_adam: per_clip and has_aux exclude each other")
+    if graph is not None and not has_aux and num_steps > 0 and \
+            graph.engages(next(iter(init_params.values())).device, spec):
+        return graph.fit(loss_fn, init_params, num_steps, lr_table,
+                         grad_mask=grad_mask, per_clip=per_clip, spec=spec,
+                         reduce_dead=reduce_dead)
     params = {k: v.detach().clone() for k, v in init_params.items()}
     state = spec.init(params)
     dev = next(iter(params.values())).device
@@ -254,36 +370,21 @@ def run_adam(loss_fn: Callable[[dict], torch.Tensor],
     dead = torch.zeros(shape, dtype=torch.bool, device=dev)
     losses = torch.empty((num_steps,) + shape, dtype=torch.float32,
                          device=dev)
-    keys = list(params)
     aux_keys, aux_rows = None, []
     with annotate("fit", steps=num_steps):
         for i in range(num_steps):
-            with annotate("step.forward"):
-                leaves = [params[k].requires_grad_(True) for k in keys]
-                loss = loss_fn(params)
-                if per_clip:
-                    loss, watched = loss
-                elif has_aux:
-                    loss, aux = loss
-                    if aux_keys is None:
-                        aux_keys = list(aux)
-                    aux_rows.append(torch.stack([
-                        torch.as_tensor(aux[k], dtype=torch.float32,
-                                        device=dev).detach().reshape(())
-                        for k in aux_keys]))
-                if not per_clip:
-                    watched = loss
-            with annotate("step.backward"):
-                grads = dict(zip(keys, torch.autograd.grad(loss, leaves)))
-            with annotate("step.update"):
-                if grad_mask is not None:
-                    grads = {k: grad_mask(k, g) for k, g in grads.items()}
-                losses[i] = watched.detach()
-                dead = dead | ~torch.isfinite(watched.detach())
-                if reduce_dead is not None:
-                    dead = reduce_dead(dead)
-                params = spec.step(params, grads, state, lr_table[i],
-                                   dead=dead)
+            params, watched, aux, dead = take_step(
+                loss_fn, params, state, spec, lr_table[i], dead,
+                grad_mask=grad_mask, reduce_dead=reduce_dead,
+                per_clip=per_clip, has_aux=has_aux)
+            losses[i] = watched
+            if has_aux:
+                if aux_keys is None:
+                    aux_keys = list(aux)
+                aux_rows.append(torch.stack([
+                    torch.as_tensor(aux[k], dtype=torch.float32,
+                                    device=dev).detach().reshape(())
+                    for k in aux_keys]))
     final = {k: v.detach() for k, v in params.items()}
     if per_clip:
         return final, losses.T

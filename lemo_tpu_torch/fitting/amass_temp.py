@@ -25,6 +25,7 @@ from lemo_tpu_torch.data.repr import frame0_normalizer
 from lemo_tpu_torch.data.stats import GlobalStats
 from lemo_tpu_torch.fitting import params as P
 from lemo_tpu_torch.fitting.adam import piecewise_lr, run_adam
+from lemo_tpu_torch.fitting.step_graph import StepGraphs
 from lemo_tpu_torch.ops.rotations import aa_to_rot6d, rot6d_to_aa
 from lemo_tpu_torch.ops.select import take_rows
 from lemo_tpu_torch.ops.signal import reflect_pad_dt
@@ -256,7 +257,10 @@ def make_temporal_fitter_batched(model: SmplxModel, vposer_params: dict,
     batch. On the CPU the decode, the products and the prior run as one
     batch, `lemo_tpu`'s order. The NaN/Inf freeze is per clip: a
     diverging clip freezes only its own parameters and moments
-    (`run_adam`'s `per_clip`), so the others keep fitting.
+    (`run_adam`'s `per_clip`), so the others keep fitting. On the card
+    the fitter captures its Adam step once a shape of its inputs as a
+    CUDA graph and replays it (`fitting.step_graph`), so that the host
+    no longer dispatches ~2,400 launches a step.
 
     impl='vmap': C independent single-clip fits, one after another. That
     is the same math as `lemo_tpu`'s vmapped core (each clip its own
@@ -332,14 +336,17 @@ def make_temporal_fitter_batched(model: SmplxModel, vposer_params: dict,
                                                   reduce_clips=False)
         return per_clip.sum(), per_clip
 
+    graphs = StepGraphs()
+
     def fit(markers_target, contact_lbl, init72):
         markers_target, contact_lbl, init72 = (
             torch.as_tensor(x, dtype=torch.float32, device=dev)
             for x in (markers_target, contact_lbl, init72))
         shape10 = init72[..., 6:16]
-        final, losses = run_adam(
-            lambda v: loss_fn(v, shape10, markers_target, contact_lbl),
-            _init_vars(init72), num_steps, lr_table, per_clip=True)
+        loss = graphs.bind(lambda *b: (lambda v: loss_fn(v, *b)), shape10,
+                           markers_target, contact_lbl)
+        final, losses = run_adam(loss, _init_vars(init72), num_steps,
+                                 lr_table, per_clip=True, graph=graphs)
         return _x72(final, shape10), losses
 
     return fit

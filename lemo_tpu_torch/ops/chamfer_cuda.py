@@ -18,6 +18,7 @@ import torch
 
 from lemo_tpu_torch import _build
 from lemo_tpu_torch._build import check_operand
+from lemo_tpu_torch.utils import routing
 
 # launches of the kernel, counted where the wrapper launches it
 launches = {"chamfer": 0}
@@ -58,3 +59,7 @@ def nn_select_kernel(query: torch.Tensor, points: torch.Tensor,
     _build.check(lib, rc, f"lemo_nn_select (T={T} N={N} M={M})")
     launches["chamfer"] += 1
     return idx, dmin
+
+
+# the entry points' routing is watched (`utils.routing`)
+routing.watch(__name__)

@@ -22,6 +22,7 @@ import torch
 
 from lemo_tpu_torch import _build
 from lemo_tpu_torch._build import check_operand
+from lemo_tpu_torch.utils import routing
 
 TILE = 128   # faces per block; Kp is a multiple (kTile in the source)
 RUN = 32     # faces per run = lanes per warp (kRun in the source)
@@ -66,3 +67,7 @@ def cone_energy_kernel(pack: torch.Tensor, ipack: torch.Tensor,
     _build.check(lib, rc, f"lemo_cone_energy (T={T} Kp={Kp} P={P})")
     launches["intersection"] += 1
     return e, rowgrad, dtri, active
+
+
+# the entry points' routing is watched (`utils.routing`)
+routing.watch(__name__)

@@ -159,10 +159,11 @@ class _Span:
 
 def annotate(name: str, **counts):
     """The span `lemo.<name>` with `counts` (numbers of the work it
-    covers, which a reader divides by: `steps` on `lemo.fit`), as a
-    context manager. The counts reach `record_spans()`'s log only: a
-    profiler's region carries the name alone. Off (no profiler, no
-    `record_spans()`) it is a shared one that does nothing."""
+    covers, which a reader divides by: `steps` and `replayed` on
+    `lemo.fit`), as a context manager. The counts reach
+    `record_spans()`'s log only: a profiler's region carries the name
+    alone. Off (no profiler, no `record_spans()`) it is a shared one
+    that does nothing."""
     log, profiled = _LOG.get(), _profiler_enabled()
     if log is None and not profiled:
         return _OFF
